@@ -1,0 +1,64 @@
+"""Command line: the reference GeneEvolve flag set, run on a CUDA device.
+
+    python -m geneevolve_tpu_torch --file_gen_info ... --file_hap_name ... [flags]
+
+Runs the segment engine's main path (one population, resident CV matrix).
+Flags whose features are not ported yet raise `NotImplementedError` naming
+the ROADMAP item that ports them. Without a CUDA device the run fails: it
+never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from geneevolve_tpu.config import ConfigError, parse_args, print_config
+
+_HELP = """geneevolve-tpu-torch — the geneevolve-tpu segment engine on PyTorch/CUDA
+
+ Accepts the GeneEvolve flag set (see `python -m geneevolve_tpu --help`).
+ This port runs one population with the segment engine on a CUDA device:
+   --file_gen_info --file_hap_name --file_recom_map --file_mutation_map
+   --file_cv_info --file_cvs --va --vd --vc --ve --vf --omega --lambda --beta
+   --RM --MM --vt_type --avoid_inbreeding --gamma --seed --prefix
+   --no_output --stage_sync (device fence per stage: device-true timing)
+ Not ported yet (raise): --backend dense, --mesh, --device_mating,
+   --next_population / --file_migration, --resume, --checkpoint_every,
+   --out_hap/--out_plink/--out_plink01/--out_vcf/--out_interval,
+   --file_output_generations, --file_ref_vcf, --debug, --profile.
+"""
+
+
+def main(argv=None, device=None) -> int:
+    """Run one scenario. `device` defaults to "cuda"; tests pass "cpu" to
+    run the kernels' plain versions."""
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or any(a in ("--help", "-h", "?") for a in argv):
+        print(_HELP)
+        return 0
+    t0 = time.time()
+    try:
+        cfg = parse_args(argv)
+    except ConfigError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "geneevolve_tpu_torch needs a CUDA device; none is available"
+            )
+        device = "cuda"
+    print_config(cfg)
+    from geneevolve_tpu_torch.core.engine import Simulation
+
+    sim = Simulation(cfg, device=device)
+    sim.run()
+    print(f" Total time: {time.time() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,982 @@
+"""The simulation loop of the segment engine, in PyTorch (counterpart of
+geneevolve_tpu/core/engine.py, the `--backend segment` main path).
+
+Per generation, as `sim_next_generation` (`Simulation.cpp:1890-2082`):
+mate (host) -> reproduce (device) -> A/D (device) -> phenotypes, gamma,
+MV/SV (host, float64) -> info files. Reproduce has two passes:
+
+- the probe draws the whole generation plan once (crossovers, start
+  chromatids, de novo mutations; `ops/cdf_bins`) and counts the ledger
+  slots it will need (`ops/merge_count`), so capacity grows before any
+  child is written;
+- the real pass builds each chromosome's children into fresh tensors: the
+  ledger merge (`ops/meiose_merge`), mutation inheritance, and the
+  resident CV alleles moved forward from the parents' (`ops/materialize`
+  row gathers). Its own slot counts are checked against the probe's one
+  generation later (the capacity tripwire).
+
+This slice runs one population with the resident-CV matrix. Everything
+else the JAX engine does raises `NotImplementedError` naming the ROADMAP
+item that ports it.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from geneevolve_tpu.config import ScenarioConfig
+from geneevolve_tpu.core import mating
+from geneevolve_tpu.io import hap as hap_io
+from geneevolve_tpu.io import tables
+from geneevolve_tpu_torch.core import phenotype, segments
+from geneevolve_tpu_torch.core.rng import Stage, generator, np_seed
+from geneevolve_tpu_torch.core.segments import BIG, ChromMaps
+from geneevolve_tpu_torch.ops.materialize import gather_rows
+from geneevolve_tpu_torch.ops.meiose_merge import meiose_merge
+from geneevolve_tpu_torch.ops.merge_count import merge_count
+from geneevolve_tpu_torch.utils import telemetry
+
+
+class SimulationError(RuntimeError):
+    pass
+
+
+def check_slice(cfg: ScenarioConfig) -> None:
+    """Refuse what this port does not run yet, naming the ROADMAP item
+    (queue 1) that ports it."""
+    later = [
+        (cfg.backend == "dense", "--backend dense", "1.12"),
+        (bool(cfg.mesh), "--mesh", "1.14"),
+        (cfg.device_mating, "--device_mating", "1.9"),
+        (cfg.n_pop > 1, "more than one population / migration", "1.10"),
+        (bool(cfg.resume) or cfg.checkpoint_every > 0,
+         "--resume / --checkpoint_every", "1.11"),
+        (cfg.out_hap or cfg.out_plink or cfg.out_plink01 or cfg.out_vcf
+         or cfg.out_interval or bool(cfg.file_output_generations),
+         "genotype outputs (--out_hap/--out_plink/--out_plink01/--out_vcf/"
+         "--out_interval)", "1.8"),
+        (cfg.debug, "--debug", "1.8"),
+        (bool(cfg.profile_dir), "--profile", "1.15"),
+        (cfg.ref_is_vcf, "--file_ref_vcf", "1.8"),
+    ]
+    for bad, what, item in later:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to geneevolve_tpu_torch yet "
+                f"(ROADMAP queue 1, item {item})"
+            )
+
+
+@dataclass
+class PhenoScheme:
+    """Static per-phenotype data for one population."""
+
+    cv_bp: List[np.ndarray]  # per chr
+    a: List[np.ndarray]
+    d: List[np.ndarray]
+    founder_cv: List[np.ndarray]  # per chr (2n0, ncv) uint8
+    va: float
+    vd: float
+    vc: float
+    ve: float
+    vf: float
+    omega: float
+    beta: float
+    lambda_: float
+
+
+@dataclass
+class PopState:
+    """One population's current generation: genome planes on the device,
+    stacked over chromosomes (axis 0); host fields in numpy."""
+
+    n: int
+    seg_st: torch.Tensor  # (nchr, rows, 2, S) int32
+    seg_hap: torch.Tensor  # (nchr, rows, 2, S) int16 / int32
+    mut: torch.Tensor  # (nchr, rows, 2, M) int32
+    cv: torch.Tensor  # (nchr, rows, 2, npheno*ncv_pad) uint8 resident CVs
+    sex: np.ndarray = None  # (n,) 1/2
+    ids: np.ndarray = None  # (n,) 0-based birth id
+    ped: Dict[str, np.ndarray] = None  # father, mother, ff, fm, mf, mm
+    comp: Dict[str, np.ndarray] = None  # A D G C E F P -> (npheno, n)
+    mv: np.ndarray = None
+    sv: np.ndarray = None  # standardized selection value
+    svf: np.ndarray = None  # selection probability
+
+
+@dataclass
+class PopRuntime:
+    index: int
+    schedule: tables.GenerationSchedule
+    chrs: List[int]
+    maps: List[ChromMaps]
+    phenos: List[PhenoScheme]
+    n_founders: int
+    hap_offset: int
+    mm_percent: float
+    rm: bool
+    smaps: Optional[segments.StackedMaps] = None
+    state: Optional[PopState] = None
+    prev_phen: Optional[np.ndarray] = None
+    prev_F: Optional[np.ndarray] = None
+    var_a_gen0: Optional[np.ndarray] = None
+    var_d_gen0: Optional[np.ndarray] = None
+    sv_mean_gen0: float = 0.0
+    sv_var_gen0: float = 0.0
+    traj: Dict[str, np.ndarray] = field(default_factory=dict)
+
+
+def _ad_resident(cv, a_row, d_row, dominance_on: bool, n_real: int):
+    """A/D of one phenotype from its resident CV alleles (nchr, rows, 2,
+    ncv): `ras_compute_AD` as elementwise math and row sums, accumulated
+    over chromosomes in order in f32, as the JAX `_ad_resident`."""
+    A = D = None
+    for ci in range(cv.shape[0]):
+        A_c, D_c = phenotype.additive_dominance_chr(
+            cv[ci, :, 0], cv[ci, :, 1], a_row[ci], d_row[ci], dominance_on,
+            n_real,
+        )
+        A = A_c if A is None else A + A_c
+        D = D_c if D is None else D + D_c
+    return A, D
+
+
+def _pad_last(x: torch.Tensor, cap: int, value: int) -> torch.Tensor:
+    cur = x.shape[-1]
+    if cur >= cap:
+        return x[..., :cap]
+    pad = x.new_full(x.shape[:-1] + (cap - cur,), value)
+    return torch.cat([x, pad], -1)
+
+
+class Simulation:
+    """End-to-end scenario runner on one device (`cuda`, or `cpu` for the
+    plain versions in tests)."""
+
+    def __init__(self, cfg: ScenarioConfig, device="cuda",
+                 verbose: bool = True):
+        check_slice(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise SimulationError("CUDA device requested but not available")
+        self.cfg = cfg
+        self.verbose = verbose
+        self.n_pheno = cfg.n_pheno
+        self.vt_type = cfg.vt_type
+        self.pops: List[PopRuntime] = []
+        self.timer = telemetry.StageTimer()
+        self.merge_ibd = True  # .int output (exact part splitting) is 1.8
+        # (seg_used, mut_used, seg_need, mut_need, s_cap, m_cap, gen, pop)
+        # awaiting the deferred tripwire check; checked entries move to
+        # capacity_log
+        self._pending_used: list = []
+        self.capacity_log: List[dict] = []
+        self._io_pool = ThreadPoolExecutor(max_workers=1)
+        self._io_futures: list = []
+        self._load()
+
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            print(msg, flush=True)
+
+    # ------------------------------------------------------------------ load
+    def _load(self) -> None:
+        cfg = self.cfg
+        pcfg = cfg.populations[0]
+        schedule = tables.read_generation_info(pcfg.file_gen_info)
+        hap_addr = tables.read_hap_address(pcfg.file_hap_name)
+        chrs = [a[0] for a in hap_addr]
+        # .indv count vs .hap columns, equal across chromosomes
+        # (`Simulation.cpp:290-320`)
+        n_per_chr = []
+        for _c, f_hap, _f_leg, f_indv in hap_addr:
+            with open(f_hap) as fh:
+                hap_ncol = len(fh.readline().split())
+            with open(f_indv) as fi:
+                indv_nrow = len(fi.read().split())
+            if indv_nrow * 2 != hap_ncol:
+                raise SimulationError(
+                    f"Number of individuals are not equal in files "
+                    f"[{f_hap}] and [{f_indv}]."
+                )
+            n_per_chr.append(indv_nrow)
+        if any(x != n_per_chr[0] for x in n_per_chr):
+            raise SimulationError(
+                "Number of individuals are not equal in different chromosomes."
+            )
+        rmaps = tables.read_recom_map(pcfg.file_recom_map, chrs)
+        mmaps = (
+            tables.read_mutation_map(pcfg.file_mutation_map, chrs)
+            if pcfg.file_mutation_map else None
+        )
+        maps = [ChromMaps.build(c, rmaps[c], mmaps[c] if mmaps else None)
+                for c in chrs]
+        phenos = []
+        n_founders = None
+        for ph in pcfg.phenotypes:
+            cv_info = tables.read_cv_info(ph.file_cv_info, chrs)
+            cv_addr = tables.read_cvs_address(ph.file_cvs, chrs)
+            founder_cv, cv_bp, a_eff, d_eff = [], [], [], []
+            for c in chrs:
+                mat = hap_io.read_hap(cv_addr[c])  # (2n0, ncv_chr)
+                ncv_c = len(cv_info[c].bp)
+                if mat.shape[1] < ncv_c:
+                    raise SimulationError(
+                        "fewer CVs in cv.hap than cv.info file "
+                        f"(chr {c}: {mat.shape[1]} < {ncv_c})"
+                    )
+                mat = mat[:, :ncv_c]  # only the cv.info rows are indexed
+                if n_founders is None:
+                    n_founders = mat.shape[0] // 2
+                elif n_founders != mat.shape[0] // 2:
+                    raise SimulationError(
+                        "founder count differs between CV hap files"
+                    )
+                founder_cv.append(mat)
+                cv_bp.append(cv_info[c].bp)
+                a_eff.append(cv_info[c].a)
+                d_eff.append(cv_info[c].d)
+            phenos.append(PhenoScheme(
+                cv_bp=cv_bp, a=a_eff, d=d_eff, founder_cv=founder_cv,
+                va=ph.va, vd=ph.vd, vc=ph.vc, ve=ph.ve, vf=ph.vf,
+                omega=ph.omega, beta=ph.beta, lambda_=ph.lambda_,
+            ))
+        if n_founders is None:
+            raise SimulationError("no phenotypes configured")
+        p = PopRuntime(
+            index=0, schedule=schedule, chrs=chrs, maps=maps, phenos=phenos,
+            n_founders=n_founders, hap_offset=0,
+            mm_percent=pcfg.mm_percent, rm=pcfg.rm,
+        )
+        p.smaps = segments.StackedMaps.build(maps, self.device)
+        self.pops.append(p)
+        self.tot_gen = int(schedule.n_generations)
+        self.chrs = chrs
+        nchr = len(chrs)
+
+        # CV tables stacked over chromosomes, padded to a common CV count
+        # with zero-effect columns that probe the chromosome start
+        ncv_max = max(
+            (len(ph.cv_bp[ic]) for ph in phenos for ic in range(nchr)),
+            default=0,
+        )
+        self.ncv_pad = max(ncv_max, 1)
+        self.ncv_real: List[List[int]] = []
+        self.founder_cv: List[np.ndarray] = []  # [pheno] (nchr, H, ncv_pad)
+        self.eff_a: List[torch.Tensor] = []  # [pheno] (nchr, ncv_pad) f32
+        self.eff_d: List[torch.Tensor] = []
+        cv_bp = []
+        H = 2 * n_founders
+        for ph in phenos:
+            gc = np.zeros((nchr, H, self.ncv_pad), dtype=np.uint8)
+            ga = np.zeros((nchr, self.ncv_pad), dtype=np.float32)
+            gd = np.zeros_like(ga)
+            gb = np.zeros((nchr, self.ncv_pad), dtype=np.int64)
+            real = []
+            for ic in range(nchr):
+                k = len(ph.cv_bp[ic])
+                real.append(k)
+                gb[ic, :] = maps[ic].chr_start
+                if k:
+                    gb[ic, :k] = ph.cv_bp[ic]
+                    gc[ic, :, :k] = ph.founder_cv[ic]
+                    ga[ic, :k] = ph.a[ic]
+                    gd[ic, :k] = ph.d[ic]
+            self.founder_cv.append(gc)
+            self.eff_a.append(torch.as_tensor(ga, device=self.device))
+            self.eff_d.append(torch.as_tensor(gd, device=self.device))
+            cv_bp.append(gb)
+            self.ncv_real.append(real)
+        # all phenotypes' CV positions on one axis: (nchr, npheno*ncv_pad)
+        self.cv_bp_all = torch.as_tensor(
+            np.concatenate(cv_bp, axis=1).astype(np.int32), device=self.device
+        )
+
+        # capacities, uniform across chromosomes (sized for the largest
+        # map): s_cap covers the ~Poisson(G*L) boundary count with a 6-sigma
+        # margin; the probe grows it exactly when a draw needs more
+        G = self.tot_gen
+        L = max(m.xo_lambda for m in maps)
+        lam_m = max(m.mut_lambda for m in maps)
+        gl = max(G * L, 1.0)
+        self.s_cap = int(8 + np.ceil(gl + 6 * np.sqrt(gl)))
+        self.xo_cap = int(8 + np.ceil(L + 6 * np.sqrt(max(L, 1.0))))
+        if lam_m > 0:
+            gm = G * lam_m
+            self.m_cap = int(8 + np.ceil(gm + 6 * np.sqrt(max(gm, 1.0))))
+            self.mn_cap = int(4 + np.ceil(lam_m + 6 * np.sqrt(max(lam_m, 0.25))))
+            self.has_mut = True
+        else:  # no mutation map: keep the (always-BIG) planes minimal
+            self.m_cap = 2
+            self.mn_cap = 2
+            self.has_mut = False
+        # founder-hap indices fit int16 up to 32k haplotypes
+        self.hap_dtype = torch.int16 if H <= 32000 else torch.int32
+        self._check_fits()
+
+        for q in self.pops:
+            z = np.zeros((self.n_pheno, G + 1))
+            q.traj = {
+                k: z.copy() for k in ("var_A", "var_D", "var_G", "var_C",
+                                       "var_E", "var_F", "var_P", "h2")
+            }
+            q.traj["var_mv"] = np.zeros(G + 1)
+            q.traj["var_sv"] = np.zeros(G + 1)
+
+    def _check_fits(self) -> None:
+        """Refuse a run whose resident-CV matrix does not fit the card.
+
+        Peak device memory is reached in the real pass, when parents and
+        children coexist: 2 x (ledger + mutations + CV matrix), plus the
+        stacked plan and one chromosome's merge/CV transients (the (rows,
+        K+M, C) compare tensors of the CV phase dominate). The ledger
+        gather path that needs no resident matrix is ROADMAP queue 3."""
+        if self.device.type != "cuda":
+            return
+        p = self.pops[0]
+        rows = max(int(s) for s in p.schedule.pop_size)
+        rows = max(rows + 4 * int(np.sqrt(rows)) + 16, p.n_founders)
+        nchr = len(self.chrs)
+        hap_b = 2 if self.hap_dtype == torch.int16 else 4
+        c_all = self.n_pheno * self.ncv_pad
+        state = nchr * rows * 2 * (self.s_cap * (4 + hap_b) + self.m_cap * 4)
+        cv = nchr * rows * 2 * c_all
+        plan = 2 * nchr * rows * (self.xo_cap + self.mn_cap + 2) * 4
+        transient = 8 * rows * (self.xo_cap + 2 * self.m_cap + self.mn_cap) \
+            * c_all
+        need = 2 * (state + cv) + plan + transient
+        free, _total = torch.cuda.mem_get_info(self.device)
+        if need > free:
+            raise NotImplementedError(
+                f"resident CV matrix run needs ~{need / 2**30:.1f} GiB, "
+                f"{free / 2**30:.1f} GiB free: the ledger gather path for "
+                "this size is not ported yet (ROADMAP queue 3)"
+            )
+
+    # ------------------------------------------------------------------ gen0
+    def init_generation0(self) -> None:
+        for p in self.pops:
+            p.state = self._init_gen0_state(p)
+        self._init_gen0_phenotypes()
+
+    def _gen0_host_fields(self, p: PopRuntime, n: int) -> dict:
+        """Founder sex/ids/pedigree (self-parent IDs,
+        `Simulation.cpp:3036-3044`)."""
+        rng_sex = np.random.default_rng(
+            np_seed(self.cfg.seed, 0, Stage.INIT_SEX, p.index)
+        )
+        ids = np.arange(n, dtype=np.int64)
+        return dict(
+            n=n,
+            sex=rng_sex.integers(1, 3, size=n).astype(np.int8),
+            ids=ids,
+            ped={k: ids.copy() for k in ("father", "mother", "ff", "fm",
+                                          "mf", "mm")},
+            comp={},
+            mv=np.zeros(n),
+            sv=np.zeros(n),
+            svf=np.ones(n),
+        )
+
+    def _gen0_rows(self, p: PopRuntime, n0: int) -> int:
+        """Gen-0 plane rows: padded to the row count generation 1 will use
+        (padding rows copy founder n0-1 and are masked from statistics)."""
+        pop1 = int(p.schedule.pop_size[0])
+        if p.rm or p.schedule.offspring_dist[0] in ("f", "F"):
+            target = pop1
+        else:
+            target = pop1 + 4 * int(np.sqrt(max(pop1, 1))) + 16
+        return max(n0, target)
+
+    def _init_gen0_state(self, p: PopRuntime) -> PopState:
+        n = p.n_founders
+        rows = self._gen0_rows(p, n)
+        seg_st, seg_hap = segments.init_gen0_ledger_stacked(
+            n, [m.chr_start for m in p.maps], p.hap_offset, self.s_cap,
+            self.hap_dtype, rows=rows, device=self.device,
+        )
+        mut = segments.empty_mutations_stacked(
+            len(self.chrs), rows, self.m_cap, device=self.device
+        )
+        # founder i's chromatids read founder haps 2i / 2i+1
+        # (`Simulation.cpp:3024-3035`); padding rows copy founder n-1
+        cv0 = np.concatenate(
+            [np.stack([g[:, 0:2 * n:2], g[:, 1:2 * n:2]], axis=2)
+             for g in self.founder_cv],
+            axis=3,
+        )  # (nchr, n, 2, npheno*ncv_pad)
+        if rows > n:
+            cv0 = np.concatenate(
+                [cv0, np.repeat(cv0[:, -1:], rows - n, axis=1)], axis=1
+            )
+        return PopState(
+            seg_st=seg_st, seg_hap=seg_hap, mut=mut,
+            cv=torch.as_tensor(cv0, device=self.device),
+            **self._gen0_host_fields(p, n),
+        )
+
+    def _init_gen0_phenotypes(self) -> None:
+        for p in self.pops:
+            A_raw, D_raw = self._compute_ad(p)
+            p.var_a_gen0 = np.array(
+                [phenotype.var(A_raw[j]) for j in range(self.n_pheno)]
+            )
+            p.var_d_gen0 = np.array(
+                [phenotype.var(D_raw[j]) for j in range(self.n_pheno)]
+            )
+            p.prev_phen = np.zeros((self.n_pheno, p.state.n))
+            p.prev_F = np.zeros((self.n_pheno, p.state.n))
+            self._assemble_phenotypes(p, 0, A_raw, D_raw, None)
+        self._apply_gamma()
+        for p in self.pops:
+            self._mating_selection_values(p, gen=0)
+        for p in self.pops:
+            p.prev_phen = p.state.comp["P"].copy()
+            p.prev_F = p.state.comp["F"].copy()
+            self._save_info(p, 0)
+            self._record_traj(p, 0)
+            # adjust beta from gen-0 variances (`Simulation.cpp:648-658`)
+            for j, ph in enumerate(p.phenos):
+                var_P = phenotype.var(p.state.comp["P"][j])
+                var_F = phenotype.var(p.state.comp["F"][j])
+                if self.vt_type == 1:
+                    ph.beta = (float(np.sqrt(ph.vf / (2 * var_P)))
+                               if var_P > 0 else ph.beta)
+                elif self.vt_type == 2 and var_F > 0:
+                    ph.beta = float(np.sqrt(ph.vf / (2 * var_F)))
+
+    # ----------------------------------------------------------------- A / D
+    def _compute_ad(self, p: PopRuntime):
+        """(npheno, n) float64 raw additive and dominance values
+        (`Simulation.cpp:2624-2749`) from the resident CV matrix."""
+        st = p.state
+        A = np.zeros((self.n_pheno, st.n))
+        D = np.zeros((self.n_pheno, st.n))
+        for j in range(self.n_pheno):
+            if sum(self.ncv_real[j]) == 0:
+                continue
+            A_j, D_j = _ad_resident(
+                st.cv[..., j * self.ncv_pad:(j + 1) * self.ncv_pad],
+                self.eff_a[j], self.eff_d[j], p.phenos[j].vd != 0, st.n,
+            )
+            A[j] = A_j[: st.n].double().cpu().numpy()
+            D[j] = D_j[: st.n].double().cpu().numpy()
+        return A, D
+
+    # ------------------------------------------------------------ phenotypes
+    def _assemble_phenotypes(self, p, gen, A_raw, D_raw, plan) -> None:
+        """E/F/C/P assembly (`ras_scale_AD_compute_GEF`,
+        `Simulation.cpp:3075-3206`)."""
+        st = p.state
+        n = st.n
+        comp = {k: np.zeros((self.n_pheno, n)) for k in "ADGCEFP"}
+        rng_e = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.E_NOISE, p.index)
+        )
+        rng_f = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.F_GEN0, p.index)
+        )
+        for j, ph in enumerate(p.phenos):
+            e_std = rng_e.standard_normal(n)
+            if gen == 0:
+                par_eff = (
+                    rng_f.normal(0.0, np.sqrt(ph.vf), size=n)
+                    if ph.vf > 0 else np.zeros(n)
+                )
+                C = st.comp.get("C", None)
+                C = C[j] if C is not None else self._gen0_common(p, j, n)
+            else:
+                src = self._prev_for_vt(p)[j]
+                par_eff = ph.beta * (
+                    src[plan.child_father] + src[plan.child_mother]
+                )
+                C = st.comp["C"][j]
+            out = phenotype.scale_components(
+                A_raw[j], D_raw[j], e_std, par_eff, C, ph.va, ph.vd, ph.ve,
+                ph.vf, p.var_a_gen0[j], p.var_d_gen0[j],
+            )
+            for k in comp:
+                comp[k][j] = out[k]
+        st.comp = comp
+
+    def _gen0_common(self, p: PopRuntime, j: int, n: int) -> np.ndarray:
+        ph = p.phenos[j]
+        if ph.vc <= 0:
+            return np.zeros(n)
+        rng_c = np.random.default_rng(
+            np_seed(self.cfg.seed, 0, Stage.INIT_COMMON, p.index * 131 + j)
+        )
+        return rng_c.normal(0.0, np.sqrt(ph.vc), size=n)
+
+    def _prev_for_vt(self, p: PopRuntime) -> np.ndarray:
+        return p.prev_phen if self.vt_type == 1 else p.prev_F
+
+    def _mating_selection_values(self, p: PopRuntime, gen: int) -> None:
+        st = p.state
+        omega = np.array([ph.omega for ph in p.phenos])
+        lam = np.array([ph.lambda_ for ph in p.phenos])
+        mv, sv = phenotype.mating_selection_values(st.comp["P"], omega, lam)
+        st.mv = mv
+        if gen == 0:
+            p.sv_mean_gen0 = float(np.mean(sv))
+            p.sv_var_gen0 = phenotype.var(sv)
+        z = sv - p.sv_mean_gen0
+        if p.sv_var_gen0 > 0:
+            z = z / np.sqrt(p.sv_var_gen0)
+        st.sv = z
+        sched = p.schedule
+        if gen == 0:
+            st.svf = np.ones(st.n)
+        else:
+            g = gen - 1
+            st.svf = phenotype.selection_prob(
+                z, gen, sched.selection_func[g], sched.selection_par1[g],
+                sched.selection_par2[g],
+            )
+
+    def _apply_gamma(self) -> None:
+        """Population-specific environmental offsets
+        (`Simulation.cpp:3345-3381`)."""
+        if len(self.pops) < 2:
+            return
+        for j, g in enumerate(self.cfg.gamma):
+            if g == 0:
+                continue
+            moments = [phenotype.pop_moments(p.state.comp["P"][j])
+                       for p in self.pops]
+            ah = phenotype.solve_gamma_offset_moments(moments, g)
+            offs = phenotype.gamma_offsets(len(self.pops), ah)
+            for i, p in enumerate(self.pops):
+                p.state.comp["P"][j] += offs[i]
+
+    # ------------------------------------------------------------------ step
+    def _mate(self, p: PopRuntime, gen: int, pop_size: int,
+              g: int) -> mating.MatingPlan:
+        """Host mating (`core/mating.py`, shared with the JAX package)."""
+        st = p.state
+        rng_mate = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.MATE, p.index)
+        )
+        if p.rm:
+            return mating.random_mate(rng_mate, st.svf, st.sex, pop_size)
+        return mating.assort_mate(
+            rng_mate, st.mv, st.svf, st.sex, st.ped,
+            float(p.schedule.mat_cor[g]), p.mm_percent,
+            self.cfg.avoid_inbreeding, p.schedule.offspring_dist[g], pop_size,
+        )
+
+    def step(self, gen: int) -> None:
+        t_gen = time.time()
+        g = gen - 1  # schedule row
+        for p in self.pops:
+            st = p.state
+            with self.timer("mate"):
+                plan = self._mate(p, gen, int(p.schedule.pop_size[g]), g)
+            self._log(
+                f"      pop {p.index + 1} gen {gen}: couples={plan.n_couples} "
+                f"couple_cor_mv={plan.couple_cor_mating_value(st.mv):.3f}"
+            )
+            with self.timer("reproduce"):
+                p.state = self._reproduce(p, gen, plan)
+            with self.timer("compute_ad"):
+                A_raw, D_raw = self._compute_ad(p)
+            with self.timer("phenotypes"):
+                self._assemble_phenotypes(p, gen, A_raw, D_raw, plan)
+        with self.timer("gamma_mv_sv"):
+            self._apply_gamma()
+            for p in self.pops:
+                self._mating_selection_values(p, gen)
+        with self.timer("info_files"):
+            for p in self.pops:
+                p.prev_phen = p.state.comp["P"].copy()
+                p.prev_F = p.state.comp["F"].copy()
+                self._save_info(p, gen)
+                self._record_traj(p, gen)
+        vm, rss = telemetry.process_mem_usage()
+        self._log("      -------------------------")
+        self._log(f"      memory used: VM = {vm:.0f} Mb, RSS = {rss:.0f} Mb")
+        for dev, mb in telemetry.device_memory_mb(self.device).items():
+            self._log(f"        {dev}: memory allocated = {mb:.0f} Mb")
+        self._log(
+            f"      time used for this generation: "
+            f"{time.time() - t_gen:.2f} seconds"
+        )
+
+    def _child_rows(self, p: PopRuntime, gen: int, n_child: int,
+                    par_rows: int) -> int:
+        """Plane rows for `n_child` children: under the Poisson law, reuse
+        the parents' row count when it covers the jitter, else take ~4
+        sigma of headroom. Padding rows are meioses of parent 0, masked by
+        `PopState.n` in A/D and never written to outputs."""
+        law_p = not p.rm and p.schedule.offspring_dist[gen - 1] not in ("f", "F")
+        if not law_p:
+            return n_child
+        sigma = int(np.sqrt(max(n_child, 1)))
+        if n_child <= par_rows <= n_child + 8 * sigma + 64:
+            return par_rows
+        return n_child + 4 * sigma + 16
+
+    def _plan(self, p: PopRuntime, gen: int, n_pad: int):
+        """Draw every random number of the coming reproduce pass, per
+        chromosome from its own generator: (xo_f, xo_m, sh, new_f, new_m)
+        stacked over chromosomes — (nchr, n, xo_cap) crossovers of each
+        parent's gamete, (nchr, n, 2) start chromatids, (nchr, n, mn_cap) de
+        novo mutations split by chromatid."""
+        sm = p.smaps
+        outs = []
+        for ci in range(len(self.chrs)):
+            gen_c = generator(self.device, self.cfg.seed, gen,
+                              Stage.CROSSOVER, p.index, ci)
+            affine = sm.bp0 is not None
+            xo_kw = dict(
+                bp0=int(sm.bp0[ci]) if affine else None,
+                bp_step=int(sm.bp_step[ci]) if affine else None,
+            )
+            xo = [
+                segments.sample_point_process(
+                    gen_c, n_pad, self.xo_cap, sm.xo_cum[ci],
+                    float(sm.xo_lambda[ci]), sm.bp[ci],
+                    float(sm.bin_width[ci]), False, **xo_kw,
+                )
+                for _ in range(2)
+            ]
+            sh = torch.randint(0, 2, (n_pad, 2), generator=gen_c,
+                               device=self.device, dtype=torch.int32)
+            if self.has_mut:
+                m_aff = sm.mut_bp0 is not None
+                new = segments.sample_point_process(
+                    gen_c, n_pad, self.mn_cap, sm.mut_cum[ci],
+                    float(sm.mut_lambda[ci]), sm.mut_bp[ci], 0.0, True,
+                    bp0=int(sm.mut_bp0[ci]) if m_aff else None,
+                    bp_step=int(sm.mut_bp_step[ci]) if m_aff else None,
+                )
+                which = torch.randint(0, 2, (n_pad, self.mn_cap),
+                                      generator=gen_c, device=self.device)
+                new_f = torch.where(which == 0, new, BIG)
+                new_m = torch.where(which == 1, new, BIG)
+            else:
+                new_f = new_m = torch.full((n_pad, 1), BIG,
+                                           dtype=torch.int32,
+                                           device=self.device)
+            outs.append((xo[0], xo[1], sh, new_f, new_m))
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(5))
+
+    def _capacity_probe(self, st: PopState, father, mother, plan):
+        """Exact ledger-slot and (conservative) mutation-slot needs of the
+        coming real pass: (seg_need, mut_need) as host ints."""
+        xo_f, xo_m, sh, new_f, new_m = plan
+        seg, mut = [], []
+        for ci in range(st.seg_st.shape[0]):
+            nv0 = merge_count(st.seg_st[ci], father, xo_f[ci], sh[ci, :, 0])
+            nv1 = merge_count(st.seg_st[ci], mother, xo_m[ci], sh[ci, :, 1])
+            seg.append(torch.maximum(nv0.max(), nv1.max()))
+            if self.has_mut:
+                mreal = (st.mut[ci] < BIG).sum((1, 2))
+                newr = (new_f[ci] < BIG).sum(1) + (new_m[ci] < BIG).sum(1)
+                mut.append(torch.maximum(mreal[father.long()],
+                                         mreal[mother.long()]).add(newr).max())
+        seg_need = int(torch.stack(seg).max())  # one host sync
+        mut_need = int(torch.stack(mut).max()) if mut else 0
+        return seg_need, mut_need
+
+    def _check_capacity_guard(self) -> None:
+        """The previous real pass must have used exactly the slots the
+        probe counted, and stayed within capacity: probe and real pass read
+        one plan, so any drift means corrupted genomes."""
+        pending, self._pending_used = self._pending_used, []
+        for seg_used, mut_used, seg_need, mut_need, s_cap, m_cap, gen, pop \
+                in pending:
+            su, mu = int(seg_used), int(mut_used)
+            self.capacity_log.append(dict(
+                gen=gen, pop=pop, seg_need=seg_need, seg_used=su,
+                mut_need=mut_need, mut_used=mu, s_cap=s_cap, m_cap=m_cap,
+            ))
+            if su > s_cap or mu > m_cap or su != seg_need:
+                raise SimulationError(
+                    f"capacity guard tripped at gen {gen} pop {pop}: real "
+                    f"pass used seg={su}/{s_cap} (probe counted {seg_need}) "
+                    f"mut={mu}/{m_cap}"
+                )
+
+    def _reproduce(self, p: PopRuntime, gen: int,
+                   plan: mating.MatingPlan) -> PopState:
+        st = p.state
+        self._check_capacity_guard()
+        n_child = len(plan.child_father)
+        n_pad = self._child_rows(p, gen, n_child, st.seg_st.shape[1])
+
+        def idx(a):  # parent rows, padded with parent 0
+            return torch.as_tensor(np.pad(a, (0, n_pad - n_child)),
+                                   dtype=torch.int32, device=self.device)
+
+        father, mother = idx(plan.child_father), idx(plan.child_mother)
+        with self.timer("reproduce/probe"):
+            draws = self._plan(p, gen, n_pad)
+            seg_need, mut_need = self._capacity_probe(st, father, mother,
+                                                      draws)
+        if seg_need > self.s_cap:
+            self.s_cap = seg_need * 3 // 2 + 8
+            st.seg_st = _pad_last(st.seg_st, self.s_cap, BIG)
+            st.seg_hap = _pad_last(st.seg_hap, self.s_cap, 0)
+            self._log(f"      [capacity grow] S={self.s_cap}")
+            self._check_fits()
+        if mut_need > self.m_cap:
+            self.m_cap = mut_need * 3 // 2 + 8
+            st.mut = _pad_last(st.mut, self.m_cap, BIG)
+            self._log(f"      [capacity grow] M={self.m_cap}")
+            self._check_fits()
+        t0 = time.perf_counter()
+        planes, seg_used, mut_used = self._real_pass(st, father, mother,
+                                                     draws)
+        if self.cfg.stage_sync:
+            telemetry.device_fence(self.device)
+        self.timer.add("reproduce/real", time.perf_counter() - t0)
+        self._pending_used.append((
+            seg_used, mut_used, seg_need, mut_need, self.s_cap, self.m_cap,
+            gen, p.index,
+        ))
+        seg_st, seg_hap, mut, cv = planes
+        return PopState(
+            n=n_child, seg_st=seg_st, seg_hap=seg_hap, mut=mut, cv=cv,
+            **self._child_host_fields(p, gen, plan),
+        )
+
+    def _real_pass(self, st: PopState, father, mother, draws):
+        """Every chromosome's children, written into fresh planes
+        (`reproduce`, `Simulation.cpp:2394-2493`; the JAX `_make_per_chr` /
+        `_per_chr_rows`). Returns ((seg_st,
+        seg_hap, mut, cv), seg_used, mut_used) with the used counts still
+        on the device."""
+        xo_f, xo_m, sh, new_f, new_m = draws
+        nchr = st.seg_st.shape[0]
+        nc = father.shape[0]
+        dev = self.device
+        c_st = torch.empty((nchr, nc, 2, self.s_cap), dtype=torch.int32,
+                           device=dev)
+        c_hap = torch.empty((nchr, nc, 2, self.s_cap), dtype=self.hap_dtype,
+                            device=dev)
+        c_mut = torch.full((nchr, nc, 2, self.m_cap), BIG, dtype=torch.int32,
+                           device=dev)
+        c_cv = torch.empty((nchr, nc) + tuple(st.cv.shape[2:]),
+                           dtype=torch.uint8, device=dev)
+        seg_used, mut_used = [], []
+        for ci in range(nchr):
+            for g, par in enumerate((father, mother)):
+                xo = (xo_f, xo_m)[g][ci]
+                start = sh[ci, :, g].contiguous()
+                s_g, h_g, nv = meiose_merge(
+                    st.seg_st[ci], st.seg_hap[ci], par, xo, start,
+                    self.s_cap, self.merge_ibd,
+                )
+                c_st[ci, :, g] = s_g
+                c_hap[ci, :, g] = h_g
+                seg_used.append(nv.max())
+                pm = gather_rows(st.mut[ci], par) if self.has_mut else None
+                new_g = (new_f, new_m)[g][ci]
+                if self.has_mut:
+                    m_g, nm = segments.inherit_mutations(
+                        pm, xo, start, new_g, self.m_cap
+                    )
+                    c_mut[ci, :, g] = m_g
+                    mut_used.append(nm.max())
+                c_cv[ci, :, g] = self._gamete_cv(
+                    st.cv[ci], par, xo, start, pm, new_g, self.cv_bp_all[ci]
+                )
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return (
+            (c_st, c_hap, c_mut, c_cv),
+            torch.stack(seg_used).max(),
+            torch.stack(mut_used).max() if mut_used else zero,
+        )
+
+    def _gamete_cv(self, cv, par, xo, start, pm, new_g, q):
+        """The gamete's CV alleles: the parent allele of the chromatid it
+        copies at each CV, flipped by a de novo mutation at that position
+        unless the copied chromatid already carries one there (membership,
+        not parity — `Simulation.cpp:2961-2970`)."""
+        rows = gather_rows(cv, par)  # (nc, 2, C)
+        phase = (start[:, None].long()
+                 + (xo[:, :, None] <= q[None, None, :]).sum(1)) % 2
+        g = torch.where(phase == 0, rows[:, 0], rows[:, 1])
+        if pm is not None:
+            def hit(r):
+                return (r[:, :, None] == q[None, None, :]).any(1)
+
+            carried = torch.where(phase == 0, hit(pm[:, 0]), hit(pm[:, 1]))
+            flip = hit(new_g) & ~carried
+            g = torch.where(flip, 1 - g, g)
+        return g
+
+    def _child_host_fields(self, p: PopRuntime, gen: int,
+                           plan: mating.MatingPlan) -> dict:
+        """Children's sex/ids/pedigree/common-sibling effect
+        (`Simulation.cpp:2416-2484`)."""
+        st = p.state
+        n_child = len(plan.child_father)
+        rng_sex = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.SEX, p.index)
+        )
+        rng_c = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.COMMON, p.index)
+        )
+        fpos, mpos = plan.child_father, plan.child_mother
+        ped = {
+            "father": st.ids[fpos],
+            "mother": st.ids[mpos],
+            "ff": st.ped["father"][fpos],
+            "fm": st.ped["mother"][fpos],
+            "mf": st.ped["father"][mpos],
+            "mm": st.ped["mother"][mpos],
+        }
+        C = np.zeros((self.n_pheno, n_child))
+        for j, ph in enumerate(p.phenos):
+            if ph.vc > 0:
+                per_couple = rng_c.normal(0.0, np.sqrt(ph.vc),
+                                          size=plan.n_couples)
+                C[j] = per_couple[plan.child_couple]
+        return dict(
+            sex=rng_sex.integers(1, 3, size=n_child).astype(np.int8),
+            ids=np.arange(n_child, dtype=np.int64),
+            ped=ped,
+            comp={"C": C},
+            mv=np.zeros(n_child),
+            sv=np.zeros(n_child),
+            svf=np.ones(n_child),
+        )
+
+    # ------------------------------------------------------------- recording
+    def _record_traj(self, p: PopRuntime, gen: int) -> None:
+        st = p.state
+        for j in range(self.n_pheno):
+            for k in ("A", "D", "G", "C", "E", "F", "P"):
+                p.traj[f"var_{k}"][j, gen] = phenotype.var(st.comp[k][j])
+            vP = p.traj["var_P"][j, gen]
+            p.traj["h2"][j, gen] = (
+                p.traj["var_A"][j, gen] / vP if vP != 0 else np.nan
+            )
+        p.traj["var_mv"][gen] = phenotype.var(st.mv)
+        p.traj["var_sv"][gen] = phenotype.var(st.sv)
+
+    def show_results(self) -> None:
+        """End-of-run variance-component table (`ras_show_res`,
+        `Simulation.cpp:704-780`)."""
+        for p in self.pops:
+            self._log(f" ---------- Population {p.index + 1}")
+            m = min(p.traj["var_A"].shape[1], 40)
+            for j in range(self.n_pheno):
+                self._log(f" phenotype: {j + 1}")
+                rows = [
+                    ("   var_A:", p.traj["var_A"][j, :m]),
+                    ("   var_D:", p.traj["var_D"][j, :m]),
+                    ("   var_G:", p.traj["var_G"][j, :m]),
+                    ("   var_C:", p.traj["var_C"][j]),  # full (`:735`)
+                    ("   var_E:", p.traj["var_E"][j, :m]),
+                    ("   var_F:", p.traj["var_F"][j, :m]),
+                    ("   var_P:", p.traj["var_P"][j, :m]),
+                    ("   h2   :", p.traj["h2"][j, :m]),
+                ]
+                for label, vals in rows:
+                    self._log(label + "".join(f" {v:.3f}" for v in vals))
+            self._log(" var_mating_value   :"
+                      + "".join(f" {v:.3f}" for v in p.traj["var_mv"][:m]))
+            self._log(" var_selection_value:"
+                      + "".join(f" {v:.3f}" for v in p.traj["var_sv"][:m]))
+
+    def _drain_io(self) -> None:
+        """Wait for queued info-file writes; re-raise any writer error."""
+        futures, self._io_futures = self._io_futures, []
+        for f in futures:
+            f.result()
+
+    def _save_info(self, p: PopRuntime, gen: int) -> None:
+        """Queue the per-individual info file on the background writer, so
+        its text formatting overlaps the next generation's device work."""
+        done = [f for f in self._io_futures if f.done()]
+        self._io_futures = [f for f in self._io_futures if not f.done()]
+        for f in done:
+            f.result()
+        self._io_futures.append(
+            self._io_pool.submit(self._save_info_sync, p, p.state, gen)
+        )
+
+    def _save_info_sync(self, p: PopRuntime, st: PopState, gen: int) -> None:
+        """Schema per `Population::ras_save_human_info`
+        (`Population.cpp:510-568`)."""
+        from geneevolve_tpu import native
+
+        path = f"{self.cfg.prefix}.info.pop{p.index + 1}.gen{gen}.txt"
+        cols = ["ID", "ID_Father", "ID_Mother", "ID_Fathers_Father",
+                "ID_Fathers_Mother", "ID_Mothers_Father", "ID_Mothers_Mother",
+                "sex"]
+        for j in range(self.n_pheno):
+            cols += [f"ph{j + 1}_{k}" for k in ("A", "D", "G", "C", "E", "F",
+                                                "P")]
+        cols += ["MV", "SV", "SV_f"]
+        id_cols = [
+            st.ids + 1, st.ped["father"] + 1, st.ped["mother"] + 1,
+            st.ped["ff"] + 1, st.ped["fm"] + 1, st.ped["mf"] + 1,
+            st.ped["mm"] + 1, st.sex,
+        ]
+        val_cols = [st.comp[k][j] for j in range(self.n_pheno)
+                    for k in ("A", "D", "G", "C", "E", "F", "P")]
+        val_cols += [st.mv, st.sv, st.svf]
+        ids_arr = np.stack(id_cols, axis=1).astype(np.int64)
+        vals_arr = np.stack(val_cols, axis=1).astype(np.float64)
+        body = native.format_info(ids_arr, vals_arr)
+        with open(path, "wb") as f:
+            f.write((" ".join(cols) + "\n").encode())
+            if body is not None:
+                f.write(body)
+            else:  # no C toolchain: Python row loop, same text
+                for i in range(st.n):
+                    f.write((
+                        " ".join(str(x) for x in ids_arr[i]) + " "
+                        + " ".join(f"{x:g}" for x in vals_arr[i]) + "\n"
+                    ).encode())
+
+    def write_summary(self) -> None:
+        """`<prefix>.pop<i>.summary` (`Simulation.cpp:782-834`)."""
+        self._drain_io()
+        for p in self.pops:
+            path = f"{self.cfg.prefix}.pop{p.index + 1}.summary"
+            with open(path, "w") as f:
+                cols = ["gen"]
+                for j in range(self.n_pheno):
+                    cols += [
+                        f"ph{j + 1}_{k}"
+                        for k in ("var_A", "var_D", "var_G", "var_C", "var_E",
+                                  "var_F", "var_P", "h2", "var_G_std")
+                    ]
+                cols += ["var_mating_value", "var_selection_value"]
+                f.write(" ".join(cols) + "\n")
+                for gen in range(self.tot_gen + 1):
+                    row = [str(gen)]
+                    for j in range(self.n_pheno):
+                        for k in ("var_A", "var_D", "var_G", "var_C", "var_E",
+                                  "var_F", "var_P", "h2"):
+                            row.append(f"{p.traj[k][j, gen]:g}")
+                        g0 = p.traj["var_G"][j, 0]
+                        gstd = (p.traj["var_G"][j, gen] / g0 if g0
+                                else float("nan"))
+                        row.append(f"{gstd:g}")
+                    row.append(f"{p.traj['var_mv'][gen]:g}")
+                    row.append(f"{p.traj['var_sv'][gen]:g}")
+                    f.write(" ".join(row) + "\n")
+
+    # ------------------------------------------------------------------- run
+    def run(self) -> None:
+        self.init_generation0()
+        for gen in range(1, self.tot_gen + 1):
+            self._log(f"    Start generation {gen}")
+            self.step(gen)
+        self._check_capacity_guard()  # last generation's deferred check
+        self.timer.report(self._log)
+        self.show_results()
+        self.write_summary()
+        self._io_pool.shutdown(wait=True)

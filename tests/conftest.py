@@ -27,6 +27,14 @@ sys.path.insert(0, str(REPO))
 _EXAMPLES_ZIP = Path("/root/reference/Examples.zip")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (the port's kernels); skips "
+        "elsewhere",
+    )
+
+
 @pytest.fixture(scope="session")
 def examples_dir(tmp_path_factory) -> Path:
     """The reference Examples.zip inputs (read-only fixture data)."""

@@ -1,0 +1,52 @@
+"""Shared inputs for the port's kernel tests (no JAX here: the CUDA tests
+run on machines without it)."""
+
+import numpy as np
+
+BIG = 2**30
+
+
+def cdf(rng, K, flat=0.3):
+    mass = rng.exponential(size=K).astype(np.float32)
+    mass[rng.random(K) < flat] = 0.0  # flat runs of equal cum values
+    return np.cumsum(mass, dtype=np.float32)
+
+
+def probes(rng, cum):
+    u = rng.uniform(0, float(cum[-1]), size=4096).astype(np.float32)
+    extra = [0.0, -1.0, float(cum[-1]), float(cum[-1]) * 1.5]
+    return np.concatenate([u, cum[:64], np.float32(extra)]).astype(np.float32)
+
+
+def ledger(rng, n, S, live, span=30000, hap_dtype=np.int32):
+    """(n, 2, S) sorted-prefix ledgers with duplicate positions, BIG
+    padded, first boundary at 0, plus random founder haps."""
+    st = np.full((n, 2, S), BIG, dtype=np.int32)
+    lens = rng.integers(1, live + 1, size=(n, 2))
+    for i in range(n):
+        for c in range(2):
+            k = lens[i, c]
+            st[i, c, :k] = np.sort(rng.integers(0, span, size=k))
+    st[..., 0] = 0
+    hap = rng.integers(0, 20000, size=(n, 2, S)).astype(hap_dtype)
+    hap[st >= BIG] = 0
+    return st, hap
+
+
+def crossovers(rng, n, K, st, span=30000):
+    """(n, K) crossover rows, BIG padded, NOT sorted: same-bin points out
+    of order, some exactly at parent boundaries, some duplicated."""
+    xo = np.full((n, K), BIG, dtype=np.int32)
+    cnt = rng.integers(0, K + 1, size=n)
+    for i in range(n):
+        pts = rng.integers(1, span, size=cnt[i])
+        if cnt[i] >= 2:
+            pts[0] = st[i, 0, min(1, st.shape[2] - 1)] % BIG or 5
+            pts[1] = pts[0]  # duplicate position
+        if cnt[i] >= 3:
+            pts[2] = st[i, 1, min(2, st.shape[2] - 1)] % BIG or 7
+        xo[i, : cnt[i]] = rng.permutation(pts)
+    return xo
+
+
+CASES = [(500, 49, 23, 14), (257, 8, 3, 5), (1024, 16, 9, 16), (300, 12, 5, 8)]
