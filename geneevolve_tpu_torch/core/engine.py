@@ -22,6 +22,7 @@ item that ports it.
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -179,7 +180,12 @@ class Simulation:
         self.capacity_log: List[dict] = []
         self._io_pool = ThreadPoolExecutor(max_workers=1)
         self._io_futures: list = []
+        # realized-N law: False = the reference's Poisson(pop_size) sizes
+        # (`Simulation.cpp:2329-2337`); GE_EXACT_N=1 conditions every
+        # generation on exactly pop_size, as the JAX engine does
+        self.exact_n = os.environ.get("GE_EXACT_N") == "1"
         self._load()
+        self._check_fits()
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -318,7 +324,6 @@ class Simulation:
             self.has_mut = False
         # founder-hap indices fit int16 up to 32k haplotypes
         self.hap_dtype = torch.int16 if H <= 32000 else torch.int32
-        self._check_fits()
 
         for q in self.pops:
             z = np.zeros((self.n_pheno, G + 1))
@@ -388,7 +393,7 @@ class Simulation:
         """Gen-0 plane rows: padded to the row count generation 1 will use
         (padding rows copy founder n0-1 and are masked from statistics)."""
         pop1 = int(p.schedule.pop_size[0])
-        if p.rm or p.schedule.offspring_dist[0] in ("f", "F"):
+        if p.rm or p.schedule.offspring_dist[0] in ("f", "F") or self.exact_n:
             target = pop1
         else:
             target = pop1 + 4 * int(np.sqrt(max(pop1, 1))) + 16
@@ -569,6 +574,7 @@ class Simulation:
             rng_mate, st.mv, st.svf, st.sex, st.ped,
             float(p.schedule.mat_cor[g]), p.mm_percent,
             self.cfg.avoid_inbreeding, p.schedule.offspring_dist[g], pop_size,
+            exact_n=self.exact_n,
         )
 
     def step(self, gen: int) -> None:
@@ -615,7 +621,7 @@ class Simulation:
         sigma of headroom. Padding rows are meioses of parent 0, masked by
         `PopState.n` in A/D and never written to outputs."""
         law_p = not p.rm and p.schedule.offspring_dist[gen - 1] not in ("f", "F")
-        if not law_p:
+        if not law_p or self.exact_n:
             return n_child
         sigma = int(np.sqrt(max(n_child, 1)))
         if n_child <= par_rows <= n_child + 8 * sigma + 64:

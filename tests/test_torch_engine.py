@@ -204,6 +204,38 @@ def test_state_handover(jax_run, mini_scenario, tmp_path):
         )
 
 
+def test_exact_n_matches_jax(mini_scenario, tmp_path, monkeypatch):
+    """GE_EXACT_N=1 conditions every generation on exactly pop_size, in the
+    port as in the JAX engine: the port's own run draws sizes of exactly
+    60, and, fed the JAX run's plans, takes the same plane rows (no
+    headroom) and reproduces its planes bit for bit."""
+    monkeypatch.setenv("GE_EXACT_N", "1")
+    run = JaxRun(_argv(mini_scenario, tmp_path / "jax"))
+    own = torch_engine.Simulation(
+        parse_args(_argv(mini_scenario, tmp_path / "own")), device="cpu",
+        verbose=False,
+    )
+    own.run()
+    tsim = torch_engine.Simulation(
+        parse_args(_argv(mini_scenario, tmp_path / "torch")), device="cpu",
+        verbose=False,
+    )
+    _inject(tsim, run)
+    tsim.init_generation0()
+    for gen in range(tsim.tot_gen + 1):
+        if gen:
+            tsim.step(gen)
+            assert tsim.pops[0].state.n == run.states[gen]["n"] == 60
+        got = _planes(tsim.pops[0].state)
+        for k in PLANES:
+            np.testing.assert_array_equal(got[k], run.states[gen][k],
+                                          err_msg=f"{gen} {k}")
+    assert got["seg_st"].shape[1] == 60  # rows without Poisson headroom
+    for gen in range(1, own.tot_gen + 1):
+        info = tmp_path / f"own.info.pop1.gen{gen}.txt"
+        assert len(info.read_text().splitlines()) - 1 == 60
+
+
 def test_state_roundtrip(jax_run):
     st = state_from_numpy(jax_run.states[1])
     back = state_to_numpy(st)
