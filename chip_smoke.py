@@ -6,21 +6,39 @@
 Phases, each of which raises on failure (exit code non-zero):
 
 0. build: compile every kernel in `geneevolve_tpu_torch/csrc/` with nvcc
-   for sm_90a (seconds printed);
-1. kernels: each of the four kernels against its plain PyTorch version on
-   the card at main-path shapes (n = 30,000 children, K ~ 5,000 map bins,
-   S ~ 50 ledger slots, ~25 crossover slots), bit-exact (integer outputs),
-   with median times from CUDA events;
-2. parity: the slice on `cuda` and on `cpu` (plain versions) on a small
-   scenario, the CUDA run fed the CPU run's mating and reproduce plans;
-   ledgers, mutations and resident CVs identical after every generation;
+   for sm_90a, one nvcc per source, all at once (seconds printed);
+1. kernels: each kernel against its plain PyTorch version on the card at
+   main-path shapes, bit-exact (integer outputs), with median times from
+   CUDA events: the segment kernels at n = 30,000 children (K ~ 5,000 map
+   bins, S ~ 50 ledger slots, ~25 crossover slots); the packed meiosis at
+   the flagship shape (n 16,384 x 1 Mi loci, 8 chromosomes) with and
+   without mutations and in the split-plane layout; the byte meiosis at
+   n 4,096 x 1 Mi loci;
+2. parity: the segment slice on `cuda` and on `cpu` (plain versions) on a
+   small scenario, the CUDA run fed the CPU run's mating and reproduce
+   plans; ledgers, mutations and resident CVs identical every generation;
 3. slice: the middle row of the reference's Table 3.1 (pop_size 30,000,
    10,000 founders, 22 chromosomes, 100 CVs each, here 5 generations, plus
    a mutation map of ~1 de novo mutation per gamete per chromosome) through
-   `geneevolve_tpu_torch.cli.main`, with every kernel's launch count, the
-   probe/real-pass slot tripwire, the outputs' shape and law, s/gen, the
-   stage split and peak device memory.
+   `geneevolve_tpu_torch.cli.main`, with the probe/real-pass slot
+   tripwire, the outputs' shape and law, s/gen, the stage split and peak
+   device memory;
+4. dense parity: `--backend dense` with hap/VCF/PLINK output on `cuda`
+   and on `cpu`, the CUDA run fed the CPU run's mating plans and draws:
+   planes and CV matrices equal every generation, genotype files
+   byte-identical;
+5. dense slice: Table 3.1's shape with a 2,000-founder x 2,048-SNP panel
+   per chromosome through `cli.main --backend dense`, with the same checks
+   and one packed-meiosis launch per generation;
+6. packed engine: `dense.packed.make_step` at the flagship shape, 1 warm-up
+   and 5 timed generations, the resident CV matrix checked against the
+   planes at the end;
+7. byte engine: `dense.step.make_step` against `dense.packed.make_step`
+   at n 4,096 x 1 Mi loci, 2 generations from identically seeded
+   generators, equal after unpacking.
 
+Every path runs with the launch counts set to 0 just before it and read
+just after; a kernel of the path that never launched fails the run.
 Prints the card's name and power limit, then one JSON line of kernel
 results, then, last, `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits non-zero and prints no result.
@@ -39,6 +57,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 N_CHILD = 30_000
 SCENARIO = dict(n0=10_000, pop_size=30_000, gens=5, nchr=22, ncv=100)
+# the dense slice: the same shape over a real 2,000 x 2,048-SNP panel.
+# Its variances are set (h2 = 0.5 at gen 0): with the raw effects (var_A
+# ~1,100) beside ve = 1, the sampling covariance of A and E at 2,000
+# founders (sd ~1.5) puts h2 above 1 about one run in four.
+DENSE_SCENARIO = dict(n0=2_000, pop_size=30_000, gens=5, nchr=22, ncv=100,
+                      snps=2_048)
+DENSE_VARIANCES = ["--va", "0.5", "--ve", "0.5"]
 KERNELS = {  # name -> (source, TPU function it replaces)
     "cdf_bins": ("geneevolve_tpu_torch/csrc/cdf_bins.cu",
                  "geneevolve_tpu/ops/cdf_bins_pallas.py:119"),
@@ -48,17 +73,60 @@ KERNELS = {  # name -> (source, TPU function it replaces)
                     "geneevolve_tpu/ops/materialize.py:72"),
     "meiose_merge": ("geneevolve_tpu_torch/csrc/meiose_merge.cu",
                      "geneevolve_tpu/core/segments.py:749"),
+    "meiose_packed": ("geneevolve_tpu_torch/csrc/meiose_packed.cu",
+                      "geneevolve_tpu/ops/meiosis_packed_pallas.py:146"),
+    "meiose_planes": ("geneevolve_tpu_torch/csrc/meiose_planes.cu",
+                      "geneevolve_tpu/ops/meiosis_pallas.py:77"),
 }
+# the packed kernel's other entries: the TPU layout experiments it replaces
+PACKED_ENTRIES = {"no_mutations": "tools/kexp.py:178",
+                  "split_planes": "tools/kexp.py:110"}
+# the flagship packed configuration (bench.py:200-211)
+FLAGSHIP = dict(n=16_384, m=1 << 20, n_chr=8, morgans_per_chr=1.0, xo_cap=8,
+                mut_rate=1.0, mut_cap=8, ncv=256, selection=True)
+BYTE_N = 4096  # byte-engine rows: 2 x 4 GiB of uint8 planes at 1 Mi loci
+# each path: the kernels it must launch; its counts are read after it runs
+PATHS = {
+    "segment_slice": ("cdf_bins", "merge_count", "gather_rows",
+                      "meiose_merge"),
+    "dense_slice": ("meiose_packed", "gather_rows"),
+    "packed_engine": ("meiose_packed", "gather_rows"),
+    "byte_engine": ("meiose_planes", "meiose_packed"),
+}
+HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
+             "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
+             "meiose_packed": "dense_slice", "meiose_planes": "byte_engine"}
 
 
 def _wrappers():
     from geneevolve_tpu_torch.ops.cdf_bins import cdf_bins
     from geneevolve_tpu_torch.ops.materialize import gather_rows
     from geneevolve_tpu_torch.ops.meiose_merge import meiose_merge
+    from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
+    from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes
     from geneevolve_tpu_torch.ops.merge_count import merge_count
 
     return dict(cdf_bins=cdf_bins, merge_count=merge_count,
-                gather_rows=gather_rows, meiose_merge=meiose_merge)
+                gather_rows=gather_rows, meiose_merge=meiose_merge,
+                meiose_packed=meiose_packed, meiose_planes=meiose_planes)
+
+
+def counted(path: str, wrappers: dict, fn, launches: dict):
+    """Run `fn()` with every launch count set to 0 just before it; record
+    the counts just after in `launches[path]`, and fail if a kernel of the
+    path never launched."""
+    import torch
+
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches[path] = {k: w.launches for k, w in wrappers.items()}
+    idle = [k for k in PATHS[path] if launches[path][k] <= 0]
+    if idle:
+        raise AssertionError(f"{path}: kernels never launched: {idle}")
+    print(f" {path}: launches {json.dumps(launches[path])}")
+    return out
 
 
 def _time_ms(fn, reps=20):
@@ -80,6 +148,8 @@ def _time_ms(fn, reps=20):
 
 
 def _max_abs_err(got, want) -> int:
+    """Largest |got - want| over the elements that differ (integer
+    outputs; 0 when equal), without widening whole planes."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
@@ -89,7 +159,9 @@ def _max_abs_err(got, want) -> int:
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
                                  f"{w.shape} {w.dtype}")
-        err = max(err, int((g.long() - w.long()).abs().max()))
+        ne = g != w
+        if bool(ne.any()):
+            err = max(err, int((g[ne].long() - w[ne].long()).abs().max()))
     torch.cuda.synchronize()
     return err
 
@@ -179,6 +251,88 @@ def kernel_phase(dev) -> list:
     return results
 
 
+def dense_kernel_phase(dev) -> list:
+    """The packed meiosis (three entries) at the flagship shape and the
+    byte meiosis at n 4,096 x 1 Mi loci, each against its plain version,
+    with plans from the port's own sampler (couple-sorted parents, as the
+    packed step draws them)."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed, step
+    from geneevolve_tpu_torch.ops import meiose_packed as mp
+    from geneevolve_tpu_torch.ops import meiose_planes as mpl
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cfg = packed.PackedConfig(**FLAGSHIP, couples=True)
+    n, kw = cfg.n, dict(n_chr=cfg.n_chr, chr_len=cfg.chr_len)
+
+    def parents(n_par, n):
+        cc = torch.randint(0, n // 2, (n,), generator=g, device=dev).sort()
+        return [torch.randint(0, n_par, (n,), generator=g, device=dev,
+                              dtype=torch.int32)[cc.values]
+                for _ in range(2)]
+
+    def plans(dcfg, n):
+        xo_p, st_p, _ = step._sample_gamete_plan(g, dcfg, n)
+        xo_m, st_m, _ = step._sample_gamete_plan(g, dcfg, n)
+        return xo_p, st_p, xo_m, st_m
+
+    hap = torch.randint(-2**31, 2**31 - 1, (n, 2, cfg.mw), generator=g,
+                        device=dev, dtype=torch.int32)
+    args = (*parents(n, n), *plans(cfg.as_dense(), n))
+    mu = torch.stack([packed.mutation_positions(g, n, cfg)[0]
+                      for _ in range(2)], 1)
+    results = []
+
+    def check(name, kern, plain, reps_plain=3):
+        err = _max_abs_err(kern(), plain())
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from plain by {err}")
+        r = dict(max_abs_err=err, ms=_time_ms(kern),
+                 plain_ms=_time_ms(plain, reps_plain))
+        print(f" kernel {name:<26s} {r['ms']:.4f} ms   plain "
+              f"{r['plain_ms']:.4f} ms")
+        return r
+
+    main = check("meiose_packed", lambda: mp.meiose_packed(hap, *args, mu,
+                                                           **kw),
+                 lambda: mp.meiose_packed_plain(hap, *args, mu, **kw))
+    entries = [dict(entry="no_mutations", replaces=PACKED_ENTRIES[
+        "no_mutations"], **check(
+            "meiose_packed/no_mutations",
+            lambda: mp.meiose_packed(hap, *args, None, **kw),
+            lambda: mp.meiose_packed_plain(hap, *args, None, **kw)))]
+    hapA, hapB = hap[:, 0].contiguous(), hap[:, 1].contiguous()
+    del hap
+    entries.append(dict(entry="split_planes", replaces=PACKED_ENTRIES[
+        "split_planes"], **check(
+            "meiose_packed/split_planes",
+            lambda: mp.meiose_packed_split(hapA, hapB, *args, **kw),
+            lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw))))
+    results.append(dict(name="meiose_packed", entries=entries, **main))
+    del hapA, hapB
+    torch.cuda.empty_cache()
+
+    dcfg = step.DenseConfig(n=BYTE_N, m=cfg.m, n_chr=cfg.n_chr,
+                            xo_cap=cfg.xo_cap)
+    hapA = torch.randint(0, 2, (BYTE_N, cfg.m), generator=g, device=dev,
+                         dtype=torch.uint8)
+    hapB = torch.randint(0, 2, (BYTE_N, cfg.m), generator=g, device=dev,
+                         dtype=torch.uint8)
+    args = (*parents(BYTE_N, BYTE_N), *plans(dcfg, BYTE_N))
+    results.append(dict(name="meiose_planes", **check(
+        "meiose_planes",
+        lambda: mpl.meiose_planes(hapA, hapB, *args, n_chr=cfg.n_chr),
+        lambda: mpl.meiose_planes_plain(hapA, hapB, *args,
+                                        n_chr=cfg.n_chr))))
+    del hapA, hapB
+    torch.cuda.empty_cache()
+    for r in results:
+        r.update(route="cuda", source=KERNELS[r["name"]][0],
+                 replaces=KERNELS[r["name"]][1])
+    return results
+
+
 def _mutation_map(path: Path, rmap: Path) -> Path:
     """`chr bp rate` on the recombination map's bins: per-bin rate 1/K so a
     gamete carries ~1 de novo mutation per chromosome."""
@@ -260,18 +414,19 @@ def _read_table(path: Path):
                                       dtype=np.float64)
 
 
-def slice_phase(dev, work: Path, wrappers: dict, scenario=SCENARIO) -> dict:
-    """The Table 3.1 middle row through the CLI, with its checks."""
+def slice_phase(dev, work: Path, name: str, scenario: dict,
+                extra=()) -> dict:
+    """A Table 3.1-shaped scenario through the CLI, with its checks."""
     import numpy as np
     import torch
 
     from geneevolve_tpu_torch import cli
     from geneevolve_tpu_torch.core import engine
 
-    root = work / "table31"
+    root = work / name
     argv = _scenario(root, **scenario, seed=1)
     argv += ["--seed", "12345", "--prefix", str(root / "out"),
-             "--stage_sync"]
+             "--stage_sync", *extra]
     seen, gen_s = [], []
     run, step = engine.Simulation.run, engine.Simulation.step
 
@@ -288,57 +443,206 @@ def slice_phase(dev, work: Path, wrappers: dict, scenario=SCENARIO) -> dict:
     engine.Simulation.run, engine.Simulation.step = run_rec, step_rec
     try:
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(argv, device=str(dev))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
     finally:
         engine.Simulation.run, engine.Simulation.step = run, step
     if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
+        raise AssertionError(f"{name}: cli.main returned {rc}")
     sim = seen[0]
-    if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"a kernel never launched: {launches}")
     # outputs: sizes and law
     G, pop = scenario["gens"], scenario["pop_size"]
     for gen in range(G + 1):
         _, info = _read_table(root / f"out.info.pop1.gen{gen}.txt")
         if gen == 0 and info.shape[0] != scenario["n0"]:
-            raise AssertionError(f"gen 0 has {info.shape[0]} founders")
+            raise AssertionError(f"{name}: gen 0 has {info.shape[0]} "
+                                 "founders")
         if gen and abs(info.shape[0] - pop) > 6 * pop ** 0.5:
-            raise AssertionError(f"gen {gen} size {info.shape[0]}")
+            raise AssertionError(f"{name}: gen {gen} size {info.shape[0]}")
         if not np.isfinite(info).all():
-            raise AssertionError(f"non-finite values in gen {gen} .info")
+            raise AssertionError(f"{name}: non-finite values in gen {gen}")
     hdr, summ = _read_table(root / "out.pop1.summary")
     var_a, h2 = summ[:, hdr.index("ph1_var_A")], summ[:, hdr.index("ph1_h2")]
     if summ.shape[0] != G + 1 or not np.isfinite(var_a).all() \
             or not ((h2 > 0) & (h2 <= 1)).all():
-        raise AssertionError(f"summary: var_A {var_a}, h2 {h2}")
-    # tripwire: the probe's predicted slots equal the merge's used slots
-    log = sim.capacity_log
-    if len(log) != G or any(c["seg_need"] != c["seg_used"] for c in log):
-        raise AssertionError(f"capacity tripwire: {log}")
-    if sum(c["mut_used"] for c in log) == 0:
-        raise AssertionError("no de novo mutation was carried")
-    t = sim.timer.totals
-    split = {k: round(t.get(k, 0.0), 4) for k in (
-        "mate", "reproduce/probe", "reproduce/real", "compute_ad",
-        "phenotypes", "gamma_mv_sv", "info_files")}
+        raise AssertionError(f"{name}: summary var_A {var_a}, h2 {h2}")
+    split = {k: round(v, 4) for k, v in sim.timer.totals.items()}
     out = dict(
         wall_s=wall, s_per_gen=gen_s, stage_split_s=split,
         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
-        launches=launches,
-        seg_need_used=[(c["seg_need"], c["seg_used"]) for c in log],
+        sim=sim,
     )
-    print(" slice: s/gen " + " ".join(f"{x:.3f}" for x in gen_s))
-    print(f" slice: stage split (s, all gens) {json.dumps(split)}")
-    print(f" slice: max_memory_allocated "
+    print(f" {name}: s/gen " + " ".join(f"{x:.3f}" for x in gen_s))
+    print(f" {name}: stage split (s, all gens) {json.dumps(split)}")
+    print(f" {name}: max_memory_allocated "
           f"{out['max_memory_allocated_mb']:.1f} MiB, wall {wall:.1f} s")
-    print(f" slice: launches {json.dumps(launches)}")
     return out
+
+
+def segment_slice(dev, work: Path) -> dict:
+    """The segment engine's slice, and its probe/real-pass tripwire."""
+    out = slice_phase(dev, work, "table31", SCENARIO)
+    log = out.pop("sim").capacity_log
+    if len(log) != SCENARIO["gens"] or any(
+            c["seg_need"] != c["seg_used"] for c in log):
+        raise AssertionError(f"capacity tripwire: {log}")
+    if sum(c["mut_used"] for c in log) == 0:
+        raise AssertionError("no de novo mutation was carried")
+    out["seg_need_used"] = [(c["seg_need"], c["seg_used"]) for c in log]
+    return out
+
+
+def dense_slice(dev, work: Path) -> dict:
+    """`--backend dense` at Table 3.1's shape with a real panel."""
+    from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
+
+    out = slice_phase(dev, work, "dense31", DENSE_SCENARIO,
+                      ["--backend", "dense", *DENSE_VARIANCES])
+    sim = out.pop("sim")
+    if meiose_packed.launches != DENSE_SCENARIO["gens"]:
+        raise AssertionError(f"dense slice: {meiose_packed.launches} packed "
+                             "meiosis launches, one per generation expected")
+    out["panel"] = dict(loci=sim.dp.cfg.m, mut_rate=sim.dp.cfg.mut_rate)
+    return out
+
+
+def dense_parity_phase(dev, work: Path) -> int:
+    """`--backend dense` on `dev` vs on the CPU, the device run fed the CPU
+    run's mating plans and draws: planes and CV matrices equal every
+    generation, genotype files byte-identical. Returns the files
+    compared."""
+    import filecmp
+
+    import torch
+
+    from geneevolve_tpu.config import parse_args
+    from geneevolve_tpu_torch.dense.backend import DenseSimulation
+
+    root = work / "dense_parity"
+    argv = _scenario(root, n0=200, pop_size=300, gens=3, nchr=3, ncv=12,
+                     snps=256, seed=3)
+    argv += ["--backend", "dense", "--out_hap", "--out_vcf", "--out_plink",
+             "--seed", "7"]
+    sims = {}
+    for name, d in (("cpu", "cpu"), ("dev", dev)):
+        (root / name).mkdir()
+        cfg = parse_args(argv + ["--prefix", str(root / name / "out")])
+        sims[name] = DenseSimulation(cfg, device=d, verbose=False)
+    ref, sim = sims["cpu"], sims["dev"]
+    mates, plans = {}, {}
+    ref_mate, ref_plan = ref._mate, ref._plan
+    ref._mate = lambda p, gen, ps, g: mates.setdefault(
+        gen, ref_mate(p, gen, ps, g))
+    ref._plan = lambda p, gen, n_pad: plans.setdefault(
+        gen, ref_plan(p, gen, n_pad))
+    sim._mate = lambda p, gen, ps, g: mates[gen]
+    sim._plan = lambda p, gen, n_pad: tuple(
+        None if x is None else x.to(dev) for x in plans[gen])
+    for s in (ref, sim):
+        s.init_generation0()
+    for gen in range(ref.tot_gen + 1):
+        if gen:
+            ref.step(gen)
+            sim.step(gen)
+        a, b = ref.pops[0].state, sim.pops[0].state
+        if a.n != b.n or not torch.equal(a.hap, b.hap.cpu()) or not all(
+                torch.equal(x, y.cpu()) for x, y in zip(a.cv, b.cv)):
+            raise AssertionError(f"dense parity: planes differ at gen {gen}")
+    for s in (ref, sim):
+        s.write_summary()
+        s.save_genotypes(s.tot_gen)
+        s._io_pool.shutdown(wait=True)
+    names = sorted(x.name for x in (root / "cpu").iterdir())
+    if names != sorted(x.name for x in (root / "dev").iterdir()):
+        raise AssertionError("dense parity: different file sets")
+    geno = [x for x in names
+            if x.rsplit(".", 1)[-1] in ("hap", "indv", "vcf", "ped", "map")]
+    if len(geno) != 3 * 5:
+        raise AssertionError(f"dense parity: genotype files {geno}")
+    for x in geno:
+        if not filecmp.cmp(root / "cpu" / x, root / "dev" / x, shallow=False):
+            raise AssertionError(f"dense parity: {x} differs")
+    print(f" dense parity: cuda == cpu for gens 0..{ref.tot_gen} (planes, "
+          f"CV matrices); {len(geno)} genotype files byte-identical")
+    return len(geno)
+
+
+def packed_engine_phase(dev) -> dict:
+    """The packed step at the flagship shape: 1 warm-up and 5 timed
+    generations; the resident CV matrix equals the planes' CVs at the
+    end."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+
+    cfg = packed.PackedConfig(**FLAGSHIP, couples=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state = packed.init_state_streamed(g, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = packed.make_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = step(state, g)  # warm-up
+    torch.cuda.synchronize()
+    gen_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state = step(state, g)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    if not torch.equal(state["cv"], packed.cv_from_planes(state["hap"],
+                                                          state["cv_idx"])):
+        raise AssertionError("packed engine: resident CVs drifted from the "
+                             "planes")
+    out = dict(
+        init_s=init_s, s_per_gen=gen_s,
+        ind_loci_gens_per_s=cfg.n * cfg.m * len(gen_s) / sum(gen_s),
+        max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+        clip=int(state["clip"]),
+    )
+    print(" packed engine: s/gen " + " ".join(f"{x:.4f}" for x in gen_s)
+          + f", {out['ind_loci_gens_per_s']:.4g} ind.loci.gens/s, peak "
+          f"{out['max_memory_allocated_mb']:.0f} MiB, clip {out['clip']}, "
+          f"init {init_s:.2f} s")
+    return out
+
+
+def byte_engine_phase(dev) -> dict:
+    """The byte step (kernel `meiose_planes`) against the packed step
+    (kernel `meiose_packed`), 2 generations from identically seeded
+    generators: equal after unpacking."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed, step
+
+    pcfg = packed.PackedConfig(**{**FLAGSHIP, "n": BYTE_N})
+    dcfg = pcfg.as_dense()
+    g1, g2 = (torch.Generator(device=dev).manual_seed(11) for _ in range(2))
+    d = step.init_state(g1, dcfg)
+    p = packed.init_state(g2, pcfg)
+    sd, sp = step.make_step(dcfg), packed.make_step(pcfg)
+    gen_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        d = sd(d, g1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p = sp(p, g2)
+        torch.cuda.synchronize()
+        gen_s.append((t1 - t0, time.perf_counter() - t1))
+    for h, k in ((0, "hapA"), (1, "hapB")):
+        for r0 in range(0, BYTE_N, 512):
+            got = packed.unpack_bits(p["hap"][r0:r0 + 512, h], pcfg.m)
+            if not torch.equal(got, d[k][r0:r0 + 512]):
+                raise AssertionError(f"byte engine: {k} rows {r0}.. differ "
+                                     "from the packed engine")
+    print(" byte engine: == packed engine after 2 generations; s/gen "
+          "(byte, packed) " + " ".join(f"({a:.4f}, {b:.4f})"
+                                       for a, b in gen_s))
+    return dict(s_per_gen_byte_packed=gen_s, clip=int(d["clip"]))
 
 
 def main() -> int:
@@ -365,16 +669,28 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"   {line.strip()}")
     wrappers = _wrappers()
-    kernels = kernel_phase(dev)
+    kernels = kernel_phase(dev) + dense_kernel_phase(dev)
+    launches, res = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         parity_phase(dev, work)
-        res = slice_phase(dev, work, wrappers)
+        res["slice"] = counted("segment_slice", wrappers,
+                               lambda: segment_slice(dev, work), launches)
+        dense_parity_phase(dev, work)
+        res["dense_slice"] = counted("dense_slice", wrappers,
+                                     lambda: dense_slice(dev, work), launches)
+    res["packed_engine"] = counted("packed_engine", wrappers,
+                                   lambda: packed_engine_phase(dev), launches)
+    if launches["packed_engine"]["meiose_packed"] != 6:
+        raise AssertionError("packed engine: one meiosis launch per "
+                             "generation expected")
+    res["byte_engine"] = counted("byte_engine", wrappers,
+                                 lambda: byte_engine_phase(dev), launches)
     for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
-    print(json.dumps({"slice": {
-        k: res[k] for k in ("s_per_gen", "stage_split_s",
-                            "max_memory_allocated_mb", "seg_need_used")}}))
+        k["launches"] = launches[HOME_PATH[k["name"]]][k["name"]]
+        k["launches_by_path"] = {p: launches[p][k["name"]]
+                                 for p, ks in PATHS.items() if k["name"] in ks}
+    print(json.dumps(res))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

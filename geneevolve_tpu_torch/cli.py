@@ -2,7 +2,8 @@
 
     python -m geneevolve_tpu_torch --file_gen_info ... --file_hap_name ... [flags]
 
-Runs the segment engine's main path (one population, resident CV matrix).
+Runs one population with the segment engine (the default; resident CV
+matrix) or, under `--backend dense`, with the bit-packed dense engine.
 Flags whose features are not ported yet raise `NotImplementedError` naming
 the ROADMAP item that ports them. Without a CUDA device the run fails: it
 never falls back to the CPU.
@@ -15,18 +16,21 @@ import time
 
 from geneevolve_tpu.config import ConfigError, parse_args, print_config
 
-_HELP = """geneevolve-tpu-torch — the geneevolve-tpu segment engine on PyTorch/CUDA
+_HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
 
  Accepts the GeneEvolve flag set (see `python -m geneevolve_tpu --help`).
- This port runs one population with the segment engine on a CUDA device:
+ This port runs one population on a CUDA device:
    --file_gen_info --file_hap_name --file_recom_map --file_mutation_map
    --file_cv_info --file_cvs --va --vd --vc --ve --vf --omega --lambda --beta
    --RM --MM --vt_type --avoid_inbreeding --gamma --seed --prefix
    --no_output --stage_sync (device fence per stage: device-true timing)
- Not ported yet (raise): --backend dense, --mesh, --device_mating,
+   --backend segment (default) | dense (bit-packed genome planes)
+ With --backend dense, genotype files too:
+   --out_hap --out_vcf --out_plink --out_plink01 --file_output_generations
+ Not ported yet (raise): --mesh, --device_mating,
    --next_population / --file_migration, --resume, --checkpoint_every,
-   --out_hap/--out_plink/--out_plink01/--out_vcf/--out_interval,
-   --file_output_generations, --file_ref_vcf, --debug, --profile.
+   segment-backend genotype outputs (--out_* and --out_interval),
+   --file_ref_vcf, --debug, --profile.
 """
 
 
@@ -52,9 +56,12 @@ def main(argv=None, device=None) -> int:
             )
         device = "cuda"
     print_config(cfg)
-    from geneevolve_tpu_torch.core.engine import Simulation
+    if cfg.backend == "dense":
+        from geneevolve_tpu_torch.dense.backend import DenseSimulation as Sim
+    else:
+        from geneevolve_tpu_torch.core.engine import Simulation as Sim
 
-    sim = Simulation(cfg, device=device)
+    sim = Sim(cfg, device=device)
     sim.run()
     print(f" Total time: {time.time() - t0:.1f} s")
     return 0

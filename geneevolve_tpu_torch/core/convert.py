@@ -1,6 +1,17 @@
-"""Population state to and from numpy arrays, under the JAX `PopState`
-field names (`seg_st`, `seg_hap`, `mut`, `cv`, plus the host fields), so a
-generation's state can be carried between the JAX package and this one."""
+"""Population state to and from numpy arrays, under the JAX package's field
+names, so a generation's state can be carried between the JAX package and
+this one:
+
+- `state_*`: the segment engine's `PopState` (`seg_st`, `seg_hap`, `mut`,
+  `cv`, plus the host fields);
+- `dense_state_*`: the dense backend's `DensePopState` (`hap`, per-phenotype
+  `cv` list, plus the host fields);
+- `packed_state_*`: the packed step's dict (`hap`, `cv`, `cv_idx`, `eff`,
+  `clip`).
+
+Packed words are uint32 in the JAX package and int32 here: the arrays are
+reinterpreted (`.view`), never converted, so every bit pattern survives.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +19,7 @@ import numpy as np
 import torch
 
 from geneevolve_tpu_torch.core.engine import PopState
+from geneevolve_tpu_torch.dense.backend import DensePopState
 
 HOST_FIELDS = ("sex", "ids", "ped", "comp", "mv", "sv", "svf")
 PLANES = ("seg_st", "seg_hap", "mut", "cv")
@@ -27,3 +39,57 @@ def state_to_numpy(st: PopState) -> dict:
     out["n"] = st.n
     out.update({k: getattr(st, k) for k in HOST_FIELDS})
     return out
+
+
+def _words_in(a, device) -> torch.Tensor:
+    """uint32 (or int32) words -> int32 tensor, bits unchanged."""
+    return torch.as_tensor(np.array(a).view(np.int32),
+                           device=device)
+
+
+def _words_out(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def dense_state_from_numpy(d: dict, device="cpu") -> DensePopState:
+    """`d` holds `n`, `hap` ((rows, 2, mw) uint32 words), `cv` (a list of
+    (rows, 2, ncv_j) uint8 arrays, one per phenotype) and the host
+    fields."""
+    host = {k: d[k] for k in HOST_FIELDS if k in d}
+    return DensePopState(
+        n=int(d["n"]), hap=_words_in(d["hap"], device),
+        cv=[torch.as_tensor(np.array(c), device=device) for c in d["cv"]],
+        **host,
+    )
+
+
+def dense_state_to_numpy(st: DensePopState) -> dict:
+    out = {"n": st.n, "hap": _words_out(st.hap),
+           "cv": [c.cpu().numpy() for c in st.cv]}
+    out.update({k: getattr(st, k) for k in HOST_FIELDS})
+    return out
+
+
+def packed_state_from_numpy(d: dict, device="cpu") -> dict:
+    """The packed step's state dict from numpy: `hap` uint32 words, `cv`
+    uint8, `cv_idx` int32, `eff` float32, `clip` an integer."""
+    return {
+        "hap": _words_in(d["hap"], device),
+        "cv": torch.as_tensor(np.array(d["cv"]), device=device),
+        "cv_idx": torch.as_tensor(np.array(d["cv_idx"], np.int32),
+                                  device=device),
+        "eff": torch.as_tensor(np.array(d["eff"], np.float32),
+                               device=device),
+        "clip": torch.tensor(int(d["clip"]), dtype=torch.int64,
+                             device=device),
+    }
+
+
+def packed_state_to_numpy(state: dict) -> dict:
+    return {
+        "hap": _words_out(state["hap"]),
+        "cv": state["cv"].cpu().numpy(),
+        "cv_idx": state["cv_idx"].cpu().numpy(),
+        "eff": state["eff"].cpu().numpy(),
+        "clip": int(state["clip"]),
+    }

@@ -50,18 +50,20 @@ class SimulationError(RuntimeError):
 
 def check_slice(cfg: ScenarioConfig) -> None:
     """Refuse what this port does not run yet, naming the ROADMAP item
-    (queue 1) that ports it."""
+    (queue 1) that ports it. The dense backend writes genotype files; the
+    segment backend's painting is item 1.8."""
+    dense = cfg.backend == "dense"
+    outputs = (cfg.out_hap or cfg.out_plink or cfg.out_plink01 or cfg.out_vcf
+               or cfg.out_interval or bool(cfg.file_output_generations))
     later = [
-        (cfg.backend == "dense", "--backend dense", "1.12"),
         (bool(cfg.mesh), "--mesh", "1.14"),
         (cfg.device_mating, "--device_mating", "1.9"),
         (cfg.n_pop > 1, "more than one population / migration", "1.10"),
         (bool(cfg.resume) or cfg.checkpoint_every > 0,
          "--resume / --checkpoint_every", "1.11"),
-        (cfg.out_hap or cfg.out_plink or cfg.out_plink01 or cfg.out_vcf
-         or cfg.out_interval or bool(cfg.file_output_generations),
-         "genotype outputs (--out_hap/--out_plink/--out_plink01/--out_vcf/"
-         "--out_interval)", "1.8"),
+        (outputs and not dense,
+         "segment-backend genotype outputs (--out_hap/--out_plink/"
+         "--out_plink01/--out_vcf/--out_interval)", "1.8"),
         (cfg.debug, "--debug", "1.8"),
         (bool(cfg.profile_dir), "--profile", "1.15"),
         (cfg.ref_is_vcf, "--file_ref_vcf", "1.8"),
@@ -122,6 +124,8 @@ class PopRuntime:
     hap_offset: int
     mm_percent: float
     rm: bool
+    rmaps: Optional[Dict[int, tables.RecombinationMap]] = None
+    hap_addresses: List = field(default_factory=list)  # (chr, hap, legend, indv)
     smaps: Optional[segments.StackedMaps] = None
     state: Optional[PopState] = None
     prev_phen: Optional[np.ndarray] = None
@@ -258,12 +262,17 @@ class Simulation:
         p = PopRuntime(
             index=0, schedule=schedule, chrs=chrs, maps=maps, phenos=phenos,
             n_founders=n_founders, hap_offset=0,
-            mm_percent=pcfg.mm_percent, rm=pcfg.rm,
+            mm_percent=pcfg.mm_percent, rm=pcfg.rm, rmaps=rmaps,
+            hap_addresses=hap_addr,
         )
         p.smaps = segments.StackedMaps.build(maps, self.device)
         self.pops.append(p)
         self.tot_gen = int(schedule.n_generations)
         self.chrs = chrs
+        self.out_gens = (
+            tables.read_output_generations(cfg.file_output_generations)
+            if cfg.file_output_generations else []
+        )
         nchr = len(chrs)
 
         # CV tables stacked over chromosomes, padded to a common CV count
@@ -604,6 +613,9 @@ class Simulation:
                 p.prev_F = p.state.comp["F"].copy()
                 self._save_info(p, gen)
                 self._record_traj(p, gen)
+        if gen in self.out_gens:
+            with self.timer("genotype_output"):
+                self.save_genotypes(gen)
         vm, rss = telemetry.process_mem_usage()
         self._log("      -------------------------")
         self._log(f"      memory used: VM = {vm:.0f} Mb, RSS = {rss:.0f} Mb")
@@ -975,6 +987,15 @@ class Simulation:
                     row.append(f"{p.traj['var_sv'][gen]:g}")
                     f.write(" ".join(row) + "\n")
 
+    def save_genotypes(self, gen: int) -> None:
+        """Genotype files of generation `gen` (the dense backend's; the
+        segment backend's painting is not ported, and `check_slice`
+        refuses its output flags)."""
+        raise NotImplementedError(
+            "segment-backend genotype outputs are not ported to "
+            "geneevolve_tpu_torch yet (ROADMAP queue 1, item 1.8)"
+        )
+
     # ------------------------------------------------------------------- run
     def run(self) -> None:
         self.init_generation0()
@@ -985,4 +1006,8 @@ class Simulation:
         self.timer.report(self._log)
         self.show_results()
         self.write_summary()
+        cfg = self.cfg
+        if not self.out_gens and (cfg.out_hap or cfg.out_plink
+                                  or cfg.out_plink01 or cfg.out_vcf):
+            self.save_genotypes(self.tot_gen)  # last generation by default
         self._io_pool.shutdown(wait=True)

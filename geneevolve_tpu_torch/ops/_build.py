@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 Every `.cu` source under `csrc/` is compiled by `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, loaded with
+(`sm_90a`), one `nvcc` per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, loaded with
 `ctypes`. The build runs at first use, into `geneevolve_tpu_torch/_build/`,
 and is keyed on a hash of the sources and flags, so an edited kernel is
 rebuilt and an unchanged one is reused. Nothing here runs at import time:
@@ -25,10 +26,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +39,13 @@ SIGNATURES = {
     "ge_gather_rows": [_P, _P, _P, _I64, _I64, _P],
     "ge_meiose_merge": [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P,
+    ],
+    "ge_meiose_packed": [
+        _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
+        _I, _I, _I, _I, _P,
+    ],
+    "ge_meiose_planes": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P,
     ],
 }
 
@@ -84,12 +90,31 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sources() if s.suffix == ".cu"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in cus]
+    procs = [
+        subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for s, o in zip(cus, objs)
+    ]
+    logs, failed = [], []
+    for s, p in zip(cus, procs):
+        logs.append(f"== {s.name}\n{p.communicate()[0]}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     (BUILD_DIR / "build.log").write_text(build_log)
     return out

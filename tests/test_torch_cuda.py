@@ -13,8 +13,11 @@ import torch
 from geneevolve_tpu_torch.ops import cdf_bins as tbins
 from geneevolve_tpu_torch.ops import materialize as tmat
 from geneevolve_tpu_torch.ops import meiose_merge as tmerge
+from geneevolve_tpu_torch.ops import meiose_packed as tpacked
+from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
-from torch_cases import CASES, cdf, crossovers, ledger, probes
+from torch_cases import (CASES, cdf, crossovers, dense_plan, ledger,
+                         mutation_loci, probes)
 
 T = torch.as_tensor
 
@@ -67,3 +70,59 @@ def test_cuda_gather_kernel(cuda, shape, dtype):
     idx = torch.randint(0, shape[0], (500,), dtype=torch.int32, device=cuda)
     assert torch.equal(tmat.gather_rows(table, idx),
                        tmat.gather_rows_plain(table, idx))
+
+
+def _gametes(rng, cuda, N, n, n_chr, chr_len, K):
+    f = rng.integers(0, N, size=n).astype(np.int32)
+    mo = rng.integers(0, N, size=n).astype(np.int32)
+    xo_p, st_p = dense_plan(rng, n, n_chr, chr_len, K)
+    xo_m, st_m = dense_plan(rng, n, n_chr, chr_len, K)
+    return [T(x, device=cuda) for x in (f, mo, xo_p, st_p, xo_m, st_m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chr, chr_len, K, Km", [
+    (2, 4096, 5, 4),  # 16-byte loads (mw % 4 == 0)
+    (3, 96, 4, 3),  # 3-word chromosomes: word loads, chromosome edges
+    (8, 131072, 8, 8),  # the flagship's chromosome shape
+])
+def test_cuda_meiose_packed_kernel(cuda, n_chr, chr_len, K, Km):
+    """All three entries (combined with and without mutations, split)
+    against their plain versions; unsorted slots, words with several
+    crossovers, duplicated mutation loci."""
+    rng = np.random.default_rng(chr_len)
+    N, n = 50, 33
+    mw = n_chr * chr_len // 32
+    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, mw), dtype=torch.int32,
+                        device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
+    mu = T(mutation_loci(rng, n, n_chr * chr_len, Km), device=cuda)
+    kw = dict(n_chr=n_chr, chr_len=chr_len)
+    for m in (mu, None):
+        got = tpacked.meiose_packed(hap, *args, m, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tpacked.meiose_packed_plain(hap, *args, m,
+                                                            **kw))
+    a, b = hap[:, 0].contiguous(), hap[:, 1].contiguous()
+    got = tpacked.meiose_packed_split(a, b, *args, **kw)
+    want = tpacked.meiose_packed_split_plain(a, b, *args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chr, chr_len, K", [
+    (2, 8192, 5),  # 16-byte loads
+    (3, 104, 4),  # 16 loci straddle chromosome edges
+    (2, 99, 3),  # m % 16 != 0: byte loads
+])
+def test_cuda_meiose_planes_kernel(cuda, n_chr, chr_len, K):
+    rng = np.random.default_rng(chr_len)
+    N, n, m = 40, 29, n_chr * chr_len
+    hapA = torch.randint(0, 2, (N, m), dtype=torch.uint8, device=cuda)
+    hapB = torch.randint(0, 2, (N, m), dtype=torch.uint8, device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
+    got = tplanes.meiose_planes(hapA, hapB, *args, n_chr=n_chr)
+    want = tplanes.meiose_planes_plain(hapA, hapB, *args, n_chr=n_chr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

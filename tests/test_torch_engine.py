@@ -272,7 +272,7 @@ def test_cli_refuses_without_cuda(mini_scenario, tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "extra, item",
     [
-        (["--backend", "dense"], "1.12"),
+        (["--file_output_generations", "gens.txt"], "1.8"),
         (["--mesh", "auto"], "1.14"),
         (["--device_mating"], "1.9"),
         (["--resume", "x.ckpt.npz"], "1.11"),

@@ -1,5 +1,6 @@
-"""The PyTorch port never imports JAX: importing the package, its CLI and
-its engine in a fresh interpreter leaves `jax` out of `sys.modules`."""
+"""The PyTorch port never imports JAX: importing the package, its CLI, its
+engines and its kernel wrappers in a fresh interpreter leaves `jax` out of
+`sys.modules`."""
 
 import subprocess
 import sys
@@ -16,6 +17,11 @@ REPO = Path(__file__).resolve().parent.parent
     "geneevolve_tpu_torch.core.engine",
     "geneevolve_tpu_torch.core.convert",
     "geneevolve_tpu_torch.ops.meiose_merge",
+    "geneevolve_tpu_torch.ops.meiose_packed",
+    "geneevolve_tpu_torch.ops.meiose_planes",
+    "geneevolve_tpu_torch.dense.step",
+    "geneevolve_tpu_torch.dense.packed",
+    "geneevolve_tpu_torch.dense.backend",
 ])
 def test_import_leaves_jax_out(module):
     code = (

@@ -49,4 +49,38 @@ def crossovers(rng, n, K, st, span=30000):
     return xo
 
 
+def dense_plan(rng, n, n_chr, chr_len, K):
+    """(n, n_chr, K) crossover loci with the sampler's layout — real slots
+    first, unsorted, pad = m — where every third row carries two
+    crossovers in one 32-locus word and a duplicated locus; plus starts."""
+    m = n_chr * chr_len
+    xo = np.full((n, n_chr, K), m, dtype=np.int32)
+    cnt = rng.integers(0, K + 1, size=(n, n_chr))
+    for i in range(n):
+        for c in range(n_chr):
+            pts = rng.integers(c * chr_len, (c + 1) * chr_len, size=cnt[i, c])
+            if cnt[i, c] >= 3 and i % 3 == 0:
+                pts[1] = np.clip((pts[0] & ~31) + rng.integers(0, 32),
+                                 c * chr_len, (c + 1) * chr_len - 1)
+                pts[2] = pts[0]
+            xo[i, c, : cnt[i, c]] = pts
+    start = rng.integers(0, 2, size=(n, n_chr)).astype(np.int32)
+    return xo, start
+
+
+def mutation_loci(rng, n, m, Km):
+    """(n, 2, Km) loci, pad = m, with duplicates (which cancel) and pairs
+    in one word."""
+    mu = np.full((n, 2, Km), m, dtype=np.int32)
+    cnt = rng.integers(0, Km + 1, size=(n, 2))
+    for i in range(n):
+        for g in range(2):
+            pts = rng.integers(0, m, size=cnt[i, g])
+            if cnt[i, g] >= 3:
+                pts[1] = pts[0]
+                pts[2] = min((pts[0] & ~31) + rng.integers(0, 32), m - 1)
+            mu[i, g, : cnt[i, g]] = pts
+    return mu
+
+
 CASES = [(500, 49, 23, 14), (257, 8, 3, 5), (1024, 16, 9, 16), (300, 12, 5, 8)]
