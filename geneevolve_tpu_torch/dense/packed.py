@@ -41,7 +41,8 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(..., m) 0/1 -> (..., m/32) int32 words, LSB-first. Bit 31 is set by
     an int32 shift, never by an int64 -> int32 cast."""
     m = bits.shape[-1]
-    assert m % 32 == 0
+    if m % 32:
+        raise ValueError(f"pack_bits: {m} loci are not a multiple of 32")
     b = bits.reshape(*bits.shape[:-1], m // 32, 32)
     w = torch.zeros(b.shape[:-1], dtype=torch.int32, device=bits.device)
     for i in range(32):
@@ -94,7 +95,8 @@ def init_state(gen: torch.Generator, cfg: PackedConfig,
                maf_min: float = 0.05):
     """Packed founder planes + CV columns/effects: the byte engine's
     `init_state`, packed, so both engines start from the same founders."""
-    assert cfg.m % 32 == 0 and cfg.chr_len % 32 == 0
+    if cfg.chr_len % 32 or cfg.n_chr * cfg.chr_len != cfg.m:
+        raise ValueError("packed chromosomes must hold a multiple of 32 loci")
     st = dense_step.init_state(gen, cfg.as_dense(), maf_min)
     hap = torch.stack([pack_bits(st["hapA"]), pack_bits(st["hapB"])], 1)
     return {
@@ -239,14 +241,6 @@ def cv_child(
             flips ^= mu[:, k:k + 1] == cv_idx[None, :]
         child = child ^ flips.to(torch.uint8)
     return child
-
-
-def phenotype_additive_packed(hap, cv_idx, eff):
-    """Oracle path: breeding values via a plane column gather."""
-    t = (popcount_dosage(hap[:, 0], cv_idx)
-         + popcount_dosage(hap[:, 1], cv_idx)).to(torch.float32)
-    p = t.mean(0) / 2.0
-    return (t - 2.0 * p[None, :]) @ eff
 
 
 def phenotype_from_cv(cv, eff):

@@ -29,22 +29,21 @@ def _cfg(mw: int, n_chr: int, chr_len: int) -> packed.PackedConfig:
 
 
 def meiose_packed_split_plain(hapA, hapB, fathers, mothers, xo_p, st_p,
-                              xo_m, st_m, mu=None, *, n_chr, chr_len):
+                              xo_m, st_m, *, n_chr, chr_len):
     cfg = _cfg(hapA.shape[1], n_chr, chr_len)
-    a = packed.meiose_words_xla(hapA, hapB, fathers, xo_p, st_p, cfg)
-    b = packed.meiose_words_xla(hapA, hapB, mothers, xo_m, st_m, cfg)
-    if mu is not None:
-        a = packed.apply_mutations_packed(a, mu[:, 0])
-        b = packed.apply_mutations_packed(b, mu[:, 1])
-    return a, b
+    return (packed.meiose_words_xla(hapA, hapB, fathers, xo_p, st_p, cfg),
+            packed.meiose_words_xla(hapA, hapB, mothers, xo_m, st_m, cfg))
 
 
 def meiose_packed_plain(hap, fathers, mothers, xo_p, st_p, xo_m, st_m,
                         mu=None, *, n_chr, chr_len):
-    a, b = meiose_packed_split_plain(hap[:, 0], hap[:, 1], fathers, mothers,
-                                     xo_p, st_p, xo_m, st_m, mu, n_chr=n_chr,
-                                     chr_len=chr_len)
-    return torch.stack([a, b], 1)
+    ab = meiose_packed_split_plain(hap[:, 0], hap[:, 1], fathers, mothers,
+                                   xo_p, st_p, xo_m, st_m, n_chr=n_chr,
+                                   chr_len=chr_len)
+    if mu is not None:
+        ab = [packed.apply_mutations_packed(x, mu[:, g])
+              for g, x in enumerate(ab)]
+    return torch.stack(ab, 1)
 
 
 def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
@@ -117,13 +116,13 @@ def meiose_packed(
 
 
 def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
-                        st_m, mu=None, *, n_chr, chr_len):
+                        st_m, *, n_chr, chr_len):
     """(childA, childB), each (n, mw) int32, from split parent planes hapA,
-    hapB (N, mw): the same kernel, addressed with the split layout's
-    strides."""
+    hapB (N, mw), without mutations: the same kernel, addressed with the
+    split layout's strides."""
     if hapA.device.type == "cpu":
         return meiose_packed_split_plain(hapA, hapB, fathers, mothers, xo_p,
-                                         st_p, xo_m, st_m, mu, n_chr=n_chr,
+                                         st_p, xo_m, st_m, n_chr=n_chr,
                                          chr_len=chr_len)
     if hapA.dim() != 2 or hapB.shape != hapA.shape:
         raise ValueError("meiose_packed_split takes two (N, mw) planes")
@@ -132,7 +131,7 @@ def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
     outA = torch.empty((n, mw), dtype=torch.int32, device=hapA.device)
     outB = torch.empty_like(outA)
     _launch((hapA, hapB), (outA, outB), mw, mw, fathers, mothers, xo_p,
-            st_p, xo_m, st_m, mu, n_chr, chr_len, mw)
+            st_p, xo_m, st_m, None, n_chr, chr_len, mw)
     meiose_packed_split.launches += 1
     return outA, outB
 
