@@ -28,8 +28,11 @@ Phases, each of which raises on failure (exit code non-zero):
    planes and CV matrices equal every generation, genotype files
    byte-identical;
 5. dense slice: Table 3.1's shape with a 2,000-founder x 2,048-SNP panel
-   per chromosome through `cli.main --backend dense`, with the same checks
-   and one packed-meiosis launch per generation;
+   per chromosome through `cli.main --backend dense`, with the same checks,
+   one packed-meiosis launch per generation and the resident CV matrices
+   equal to the planes' CVs at the end; then the packed meiosis and the CV
+   row gather against their plain versions on the last generation's own
+   inputs (22 chromosomes of 64 words, 4,400-byte CV rows), bit-exact;
 6. packed engine: `dense.packed.make_step` at the flagship shape, 1 warm-up
    and 5 timed generations, the resident CV matrix checked against the
    planes at the end;
@@ -57,12 +60,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 N_CHILD = 30_000
 SCENARIO = dict(n0=10_000, pop_size=30_000, gens=5, nchr=22, ncv=100)
-# the dense slice: the same shape over a real 2,000 x 2,048-SNP panel.
+# the dense slice: the same shape over a real 2,000 x 2,048-SNP panel,
+# its CVs on panel sites (so the resident CVs must equal the planes').
 # Its variances are set (h2 = 0.5 at gen 0): with the raw effects (var_A
 # ~1,100) beside ve = 1, the sampling covariance of A and E at 2,000
 # founders (sd ~1.5) puts h2 above 1 about one run in four.
 DENSE_SCENARIO = dict(n0=2_000, pop_size=30_000, gens=5, nchr=22, ncv=100,
-                      snps=2_048)
+                      snps=2_048, cvs_on_panel=True)
 DENSE_VARIANCES = ["--va", "0.5", "--ve", "0.5"]
 KERNELS = {  # name -> (source, TPU function it replaces)
     "cdf_bins": ("geneevolve_tpu_torch/csrc/cdf_bins.cu",
@@ -164,6 +168,18 @@ def _max_abs_err(got, want) -> int:
             err = max(err, int((g[ne].long() - w[ne].long()).abs().max()))
     torch.cuda.synchronize()
     return err
+
+
+def _compare(name: str, kern, plain, reps_plain=3) -> dict:
+    """`kern()` bit-exact to `plain()`, then the median ms of each."""
+    err = _max_abs_err(kern(), plain())
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from plain by {err}")
+    r = dict(max_abs_err=err, ms=_time_ms(kern),
+             plain_ms=_time_ms(plain, reps_plain))
+    print(f" kernel {name:<26s} {r['ms']:.4f} ms   plain "
+          f"{r['plain_ms']:.4f} ms")
+    return r
 
 
 def kernel_phase(dev) -> list:
@@ -283,29 +299,18 @@ def dense_kernel_phase(dev) -> list:
     mu = torch.stack([packed.mutation_positions(g, n, cfg)[0]
                       for _ in range(2)], 1)
     results = []
-
-    def check(name, kern, plain, reps_plain=3):
-        err = _max_abs_err(kern(), plain())
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain by {err}")
-        r = dict(max_abs_err=err, ms=_time_ms(kern),
-                 plain_ms=_time_ms(plain, reps_plain))
-        print(f" kernel {name:<26s} {r['ms']:.4f} ms   plain "
-              f"{r['plain_ms']:.4f} ms")
-        return r
-
-    main = check("meiose_packed", lambda: mp.meiose_packed(hap, *args, mu,
-                                                           **kw),
-                 lambda: mp.meiose_packed_plain(hap, *args, mu, **kw))
+    main = _compare("meiose_packed",
+                    lambda: mp.meiose_packed(hap, *args, mu, **kw),
+                    lambda: mp.meiose_packed_plain(hap, *args, mu, **kw))
     entries = [dict(entry="no_mutations", replaces=PACKED_ENTRIES[
-        "no_mutations"], **check(
+        "no_mutations"], **_compare(
             "meiose_packed/no_mutations",
             lambda: mp.meiose_packed(hap, *args, None, **kw),
             lambda: mp.meiose_packed_plain(hap, *args, None, **kw)))]
     hapA, hapB = hap[:, 0].contiguous(), hap[:, 1].contiguous()
     del hap
     entries.append(dict(entry="split_planes", replaces=PACKED_ENTRIES[
-        "split_planes"], **check(
+        "split_planes"], **_compare(
             "meiose_packed/split_planes",
             lambda: mp.meiose_packed_split(hapA, hapB, *args, **kw),
             lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw))))
@@ -320,7 +325,7 @@ def dense_kernel_phase(dev) -> list:
     hapB = torch.randint(0, 2, (BYTE_N, cfg.m), generator=g, device=dev,
                          dtype=torch.uint8)
     args = (*parents(BYTE_N, BYTE_N), *plans(dcfg, BYTE_N))
-    results.append(dict(name="meiose_planes", **check(
+    results.append(dict(name="meiose_planes", **_compare(
         "meiose_planes",
         lambda: mpl.meiose_planes(hapA, hapB, *args, n_chr=cfg.n_chr),
         lambda: mpl.meiose_planes_plain(hapA, hapB, *args,
@@ -348,11 +353,37 @@ def _mutation_map(path: Path, rmap: Path) -> Path:
     return path
 
 
-def _scenario(root: Path, **kw) -> list:
+def _cvs_on_panel(root: Path, seed: int) -> None:
+    """Move every CV onto a panel site, as when CVs are taken from the
+    reference panel: `cv.info` keeps each chromosome's effects at sites
+    drawn from its legend, and each CV hap row becomes the panel's row at
+    that site. The founders' resident CVs then equal their planes at the
+    CV columns, and every later generation's must too."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head, *rows = (root / "cv.info").read_text().splitlines()
+    by_chr = {}
+    for r in rows:
+        by_chr.setdefault(r.split()[0], []).append(r.split())
+    out = [head]
+    for c, rs in by_chr.items():
+        legend = (root / f"ref.chr{c}.legend").read_text().splitlines()[1:]
+        idx = np.sort(rng.choice(len(legend), len(rs), replace=False))
+        panel = (root / f"ref.chr{c}.hap").read_bytes().splitlines(True)
+        (root / f"cv.chr{c}.hap").write_bytes(b"".join(panel[i] for i in idx))
+        out += [" ".join([c, legend[i].split()[1], *r[2:]])
+                for i, r in zip(idx, rs)]
+    (root / "cv.info").write_text("\n".join(out) + "\n")
+
+
+def _scenario(root: Path, cvs_on_panel=False, **kw) -> list:
     sys.path.insert(0, str(REPO / "tools"))
     from mkscenario import make_scenario
 
     flags = make_scenario(str(root), **kw)
+    if cvs_on_panel:
+        _cvs_on_panel(root, kw.get("seed", 1))
     flags["file_mutation_map"] = str(
         _mutation_map(root / "mut.txt", Path(flags["file_recom_map"]))
     )
@@ -495,17 +526,84 @@ def segment_slice(dev, work: Path) -> dict:
 
 
 def dense_slice(dev, work: Path) -> dict:
-    """`--backend dense` at Table 3.1's shape with a real panel."""
+    """`--backend dense` at Table 3.1's shape with a real panel; the
+    resident CV matrices equal the planes' CVs at the end. The last
+    generation's packed-meiosis and CV-gather inputs are kept under
+    `captured` for `dense_slice_kernels`."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import backend, packed
     from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
 
-    out = slice_phase(dev, work, "dense31", DENSE_SCENARIO,
-                      ["--backend", "dense", *DENSE_VARIANCES])
+    captured = {}
+    make_reproduce, cv_child = backend.make_reproduce, backend.cv_child
+
+    def make_reproduce_rec(cfg):
+        reproduce = make_reproduce(cfg)
+
+        def rec(*args):
+            captured["meiose_packed"] = (
+                args, dict(n_chr=cfg.n_chr, chr_len=cfg.chr_len))
+            return reproduce(*args)
+
+        return rec
+
+    def cv_child_rec(cv_par, parent, *rest):
+        captured["gather_rows"] = (cv_par, parent)
+        return cv_child(cv_par, parent, *rest)
+
+    backend.make_reproduce, backend.cv_child = make_reproduce_rec, cv_child_rec
+    try:
+        out = slice_phase(dev, work, "dense31", DENSE_SCENARIO,
+                          ["--backend", "dense", *DENSE_VARIANCES])
+    finally:
+        backend.make_reproduce, backend.cv_child = make_reproduce, cv_child
     sim = out.pop("sim")
     if meiose_packed.launches != DENSE_SCENARIO["gens"]:
         raise AssertionError(f"dense slice: {meiose_packed.launches} packed "
                              "meiosis launches, one per generation expected")
+    st = sim.pops[0].state
+    for j, cols in enumerate(sim.dp.cv_cols):
+        if not torch.equal(st.cv[j], packed.cv_from_planes(st.hap, cols)):
+            raise AssertionError(f"dense slice: phenotype {j + 1}'s resident "
+                                 "CVs differ from the planes' CVs")
+    print(f" dense31: resident CVs == planes' CVs ({len(sim.dp.cv_cols)} "
+          f"phenotype(s), {st.hap.shape[0]} rows)")
     out["panel"] = dict(loci=sim.dp.cfg.m, mut_rate=sim.dp.cfg.mut_rate)
+    out["captured"] = captured
     return out
+
+
+def dense_slice_kernels(kernels: list, captured: dict) -> None:
+    """The packed meiosis and the CV row gather against their plain
+    versions on the dense slice's last generation's own inputs, bit-exact;
+    each result is added to its kernel's `entries`."""
+    from geneevolve_tpu_torch.ops import materialize as mat
+    from geneevolve_tpu_torch.ops import meiose_packed as mp
+
+    args, kw = captured["meiose_packed"]
+    cv_par, parent = captured["gather_rows"]
+    hap = args[0]
+    cases = {
+        "meiose_packed": (
+            lambda: mp.meiose_packed(*args, **kw),
+            lambda: mp.meiose_packed_plain(*args, **kw),
+            f"{args[1].shape[0]} children of {hap.shape[0]} rows x "
+            f"{hap.shape[2]} words, {kw['n_chr']} chromosomes of "
+            f"{kw['chr_len'] // 32} words, K {args[3].shape[2]}, "
+            f"Km {0 if args[7] is None else args[7].shape[2]}"),
+        "gather_rows": (
+            lambda: mat.gather_rows(cv_par, parent),
+            lambda: mat.gather_rows_plain(cv_par, parent),
+            f"{parent.shape[0]} rows of {cv_par.shape[0]} x "
+            f"{cv_par[0].numel() * cv_par.element_size()} bytes"),
+    }
+    by_name = {k["name"]: k for k in kernels}
+    for name, (kern, plain, shape) in cases.items():
+        r = _compare(f"{name}/dense_slice", kern, plain)
+        by_name[name].setdefault("entries", []).append(
+            dict(entry="dense_slice", shape=shape, **r))
+        print(f"   ({shape})")
 
 
 def dense_parity_phase(dev, work: Path) -> int:
@@ -679,6 +777,9 @@ def main() -> int:
         dense_parity_phase(dev, work)
         res["dense_slice"] = counted("dense_slice", wrappers,
                                      lambda: dense_slice(dev, work), launches)
+    # after the counted run: these launches are comparisons, not the path's
+    dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+    torch.cuda.empty_cache()
     res["packed_engine"] = counted("packed_engine", wrappers,
                                    lambda: packed_engine_phase(dev), launches)
     if launches["packed_engine"]["meiose_packed"] != 6:

@@ -15,11 +15,15 @@ reinterpreted (`.view`), never converted, so every bit pattern survives.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
 from geneevolve_tpu_torch.core.engine import PopState
-from geneevolve_tpu_torch.dense.backend import DensePopState
+
+if TYPE_CHECKING:
+    from geneevolve_tpu_torch.dense.backend import DensePopState
 
 HOST_FIELDS = ("sex", "ids", "ped", "comp", "mv", "sv", "svf")
 PLANES = ("seg_st", "seg_hap", "mut", "cv")
@@ -55,6 +59,8 @@ def dense_state_from_numpy(d: dict, device="cpu") -> DensePopState:
     """`d` holds `n`, `hap` ((rows, 2, mw) uint32 words), `cv` (a list of
     (rows, 2, ncv_j) uint8 arrays, one per phenotype) and the host
     fields."""
+    from geneevolve_tpu_torch.dense.backend import DensePopState
+
     host = {k: d[k] for k in HOST_FIELDS if k in d}
     return DensePopState(
         n=int(d["n"]), hap=_words_in(d["hap"], device),

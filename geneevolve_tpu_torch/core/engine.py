@@ -269,10 +269,6 @@ class Simulation:
         self.pops.append(p)
         self.tot_gen = int(schedule.n_generations)
         self.chrs = chrs
-        self.out_gens = (
-            tables.read_output_generations(cfg.file_output_generations)
-            if cfg.file_output_generations else []
-        )
         nchr = len(chrs)
 
         # CV tables stacked over chromosomes, padded to a common CV count
@@ -613,9 +609,6 @@ class Simulation:
                 p.prev_F = p.state.comp["F"].copy()
                 self._save_info(p, gen)
                 self._record_traj(p, gen)
-        if gen in self.out_gens:
-            with self.timer("genotype_output"):
-                self.save_genotypes(gen)
         vm, rss = telemetry.process_mem_usage()
         self._log("      -------------------------")
         self._log(f"      memory used: VM = {vm:.0f} Mb, RSS = {rss:.0f} Mb")
@@ -987,15 +980,6 @@ class Simulation:
                     row.append(f"{p.traj['var_sv'][gen]:g}")
                     f.write(" ".join(row) + "\n")
 
-    def save_genotypes(self, gen: int) -> None:
-        """Genotype files of generation `gen` (the dense backend's; the
-        segment backend's painting is not ported, and `check_slice`
-        refuses its output flags)."""
-        raise NotImplementedError(
-            "segment-backend genotype outputs are not ported to "
-            "geneevolve_tpu_torch yet (ROADMAP queue 1, item 1.8)"
-        )
-
     # ------------------------------------------------------------------- run
     def run(self) -> None:
         self.init_generation0()
@@ -1006,8 +990,4 @@ class Simulation:
         self.timer.report(self._log)
         self.show_results()
         self.write_summary()
-        cfg = self.cfg
-        if not self.out_gens and (cfg.out_hap or cfg.out_plink
-                                  or cfg.out_plink01 or cfg.out_vcf):
-            self.save_genotypes(self.tot_gen)  # last generation by default
         self._io_pool.shutdown(wait=True)

@@ -7,14 +7,16 @@
 //   parity = (start[k] + #{crossovers x of chromosome k with x <= l}) & 1,
 //   child[c, l] = a ^ ((parity ? 0xFF : 0) & (a ^ b)),
 //
-// with a, b the parent's hapA / hapB bytes. A crossover of chromosome k is
-// counted only where it lies inside chromosome k (the sampler's layout;
-// pad slots = m and anything outside drop out), as the plain version's
-// scatter + per-chromosome cumsum counts it.
+// with a, b the parent's hapA / hapB bytes. A crossover counts in the
+// chromosome its locus lies in, whatever slot row holds it (pad slots = m
+// and loci outside [0, m) drop out), as the plain version's scatter +
+// per-chromosome cumsum counts it: the `cdf` sampler can put a slot of
+// chromosome k at chromosome k-1's last column.
 //
 // Bound: memory, 6 bytes per locus per child (two planes read per gamete,
 // one written). Design: one block per (child, chunk of 16,384 loci); the
-// block stages the child's real crossovers and starts in shared memory;
+// block stages the child's real crossovers, bucketed by the chromosome of
+// their locus (a shared-memory counting sort), and starts in shared memory;
 // each thread takes 16 loci as one 16-byte load per plane and one store
 // (when m % 16 == 0 and the rows are 16-byte aligned; otherwise byte by
 // byte). The 16 phases come from one 16-bit mask built like the packed
@@ -28,11 +30,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLociPerBlock = 16384;
 
-// Bit j set: locus col0 + j takes chromatid B (j < nb, all in chromosome
-// `c` when `one_chr`, else looked up per locus).
+// Bit j set: locus col0 + j takes chromatid B (j < nb; one chromosome's
+// crossovers when all nb loci lie in it, else looked up per locus).
+// Chromosome r = g * n_chr + c holds xcnt[r] crossovers from xs[xend[r] -
+// xcnt[r]].
 __device__ __forceinline__ uint32_t phase_bits(int col0, int nb, int g,
-                                               int n_chr, int K, int chr_len,
+                                               int n_chr, int chr_len,
                                                const int32_t* xs,
+                                               const int32_t* xend,
                                                const int32_t* xcnt,
                                                const int32_t* st) {
   const int c0 = col0 / chr_len;
@@ -41,7 +46,7 @@ __device__ __forceinline__ uint32_t phase_bits(int col0, int nb, int g,
   if (c0 == c1) {
     const int r = g * n_chr + c0;
     uint32_t bits = (st[r] & 1) ? full : 0u;
-    const int32_t* x = xs + r * K;
+    const int32_t* x = xs + xend[r] - xcnt[r];
     for (int k = 0; k < xcnt[r]; ++k) {
       const int d = x[k] - col0;
       if (d <= 0) {
@@ -57,7 +62,7 @@ __device__ __forceinline__ uint32_t phase_bits(int col0, int nb, int g,
     const int col = col0 + j;
     const int r = g * n_chr + col / chr_len;
     int par = st[r] & 1;
-    const int32_t* x = xs + r * K;
+    const int32_t* x = xs + xend[r] - xcnt[r];
     for (int k = 0; k < xcnt[r]; ++k) par ^= (x[k] <= col);
     bits |= (uint32_t)par << j;
   }
@@ -88,24 +93,40 @@ __global__ void __launch_bounds__(kThreads)
                          const int32_t* __restrict__ st_m, int m, int n_chr,
                          int K, int chr_len, int nchunks) {
   extern __shared__ int32_t smem[];
-  int32_t* xs = smem;                   // [2][n_chr][K] real crossovers
-  int32_t* xcnt = xs + 2 * n_chr * K;   // [2][n_chr]
-  int32_t* st = xcnt + 2 * n_chr;       // [2][n_chr]
+  const int slots = n_chr * K;           // crossover slots per gamete
+  int32_t* xs = smem;                    // [2 * slots] real crossovers,
+                                         // bucketed by (gamete, chromosome)
+  int32_t* xcnt = xs + 2 * slots;        // [2][n_chr] bucket sizes
+  int32_t* xend = xcnt + 2 * n_chr;      // [2][n_chr] bucket ends
+  int32_t* st = xend + 2 * n_chr;        // [2][n_chr]
   const int64_t child = blockIdx.x / nchunks;
   const int chunk = blockIdx.x - (int)(child * nchunks);
 
   for (int r = threadIdx.x; r < 2 * n_chr; r += blockDim.x) {
-    const int g = r / n_chr, c = r - (r / n_chr) * n_chr;
-    const int64_t row = child * n_chr + c;
-    const int32_t* src = (g ? xo_m : xo_p) + row * K;
-    const int lo = c * chr_len;
-    int cnt = 0;
-    for (int k = 0; k < K; ++k) {
-      const int x = src[k];
-      if (x >= lo && x - lo < chr_len && x < m) xs[r * K + cnt++] = x;
+    const int g = r / n_chr;
+    xcnt[r] = 0;
+    st[r] = (g ? st_m : st_p)[child * n_chr + (r - g * n_chr)];
+  }
+  __syncthreads();
+  // counting sort of the real crossovers by the chromosome of their locus
+  for (int i = threadIdx.x; i < 2 * slots; i += blockDim.x) {
+    const int g = i / slots;
+    const int x = (g ? xo_m : xo_p)[child * slots + (i - g * slots)];
+    if (x >= 0 && x < m) atomicAdd(&xcnt[g * n_chr + x / chr_len], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;  // xend holds each bucket's start until the placement
+    for (int r = 0; r < 2 * n_chr; ++r) {
+      xend[r] = acc;
+      acc += xcnt[r];
     }
-    xcnt[r] = cnt;
-    st[r] = (g ? st_m : st_p)[row];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * slots; i += blockDim.x) {
+    const int g = i / slots;
+    const int x = (g ? xo_m : xo_p)[child * slots + (i - g * slots)];
+    if (x >= 0 && x < m) xs[atomicAdd(&xend[g * n_chr + x / chr_len], 1)] = x;
   }
   __syncthreads();
 
@@ -120,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
          col0 += 16 * kThreads) {
       const int nb = min(16, l_hi - col0);
       const uint32_t bits =
-          phase_bits(col0, nb, g, n_chr, K, chr_len, xs, xcnt, st);
+          phase_bits(col0, nb, g, n_chr, chr_len, xs, xend, xcnt, st);
       if (kVec) {
         const uint4 a = *reinterpret_cast<const uint4*>(pa + col0);
         const uint4 b = *reinterpret_cast<const uint4*>(pb + col0);
@@ -153,7 +174,7 @@ GE_API int ge_meiose_planes(const void* hapA, const void* hapB, void* outA,
                             int K, int chr_len, void* stream) {
   if (n == 0 || m == 0) return (int)cudaGetLastError();
   const int nchunks = (m + kLociPerBlock - 1) / kLociPerBlock;
-  const size_t smem = sizeof(int32_t) * (2 * (size_t)n_chr * K + 4 * n_chr);
+  const size_t smem = sizeof(int32_t) * (2 * (size_t)n_chr * K + 6 * n_chr);
   const uintptr_t align =
       (uintptr_t)hapA | (uintptr_t)hapB | (uintptr_t)outA | (uintptr_t)outB;
   const bool vec = align % 16 == 0 && m % 16 == 0;

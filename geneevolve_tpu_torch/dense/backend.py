@@ -35,6 +35,7 @@ import torch
 from geneevolve_tpu.core import mating
 from geneevolve_tpu.io import hap as hap_io
 from geneevolve_tpu.io import plink as plink_io
+from geneevolve_tpu.io import tables
 from geneevolve_tpu.io import vcf as vcf_io
 from geneevolve_tpu_torch.core import phenotype
 from geneevolve_tpu_torch.core.engine import (
@@ -118,6 +119,11 @@ class DenseSimulation(Simulation):
     # ------------------------------------------------------------ panel load
     def _load(self) -> None:
         super()._load()
+        cfg = self.cfg
+        self.out_gens = (
+            tables.read_output_generations(cfg.file_output_generations)
+            if cfg.file_output_generations else []
+        )
         self.dp = self._load_panel(self.pops[0])
         # effects per phenotype over its CV columns (all chromosomes)
         self.dense_eff = [
@@ -313,6 +319,19 @@ class DenseSimulation(Simulation):
         return A, D
 
     # --------------------------------------------------------------- outputs
+    def step(self, gen: int) -> None:
+        super().step(gen)
+        if gen in self.out_gens:
+            with self.timer("genotype_output"):
+                self.save_genotypes(gen)
+
+    def run(self) -> None:
+        super().run()
+        cfg = self.cfg
+        if not self.out_gens and (cfg.out_hap or cfg.out_plink
+                                  or cfg.out_plink01 or cfg.out_vcf):
+            self.save_genotypes(self.tot_gen)  # last generation by default
+
     def save_genotypes(self, gen: int) -> None:
         """`.hap`/`.indv`, `.vcf` and `.ped`/`.map` per chromosome, as the
         JAX dense backend writes them."""

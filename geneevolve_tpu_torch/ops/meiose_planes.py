@@ -2,10 +2,10 @@
 
 CUDA kernel: `csrc/meiose_planes.cu` (replaces geneevolve_tpu/ops/
 meiosis_pallas.py `meiose_planes_pallas`). The plain version is
-`dense/step.py`'s `_meiose_xla`; the kernel equals it bit for bit on plans
-whose crossovers lie inside their own chromosome (or are pad = m), the
-sampler's layout. A CPU tensor goes to the plain version; a CUDA tensor to
-the kernel.
+`dense/step.py`'s `_meiose_xla`; the kernel equals it bit for bit, a
+crossover counting in the chromosome its locus lies in whatever slot row
+holds it. A CPU tensor goes to the plain version; a CUDA tensor to the
+kernel.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def meiose_planes(
             or xo_p.shape != (n, n_chr, K) or xo_m.shape != xo_p.shape
             or st_p.shape != (n, n_chr) or st_m.shape != st_p.shape):
         raise ValueError("meiose_planes: shape mismatch")
-    if 4 * (2 * n_chr * K + 4 * n_chr) > MAX_SMEM:
+    if 4 * (2 * n_chr * K + 6 * n_chr) > MAX_SMEM:
         raise ValueError("meiose_planes: plan too large for shared memory")
     if n * ((m + 16383) // 16384) >= 2**31:
         raise ValueError("meiose_planes: too many blocks")

@@ -16,8 +16,8 @@ from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
-from torch_cases import (CASES, cdf, crossovers, dense_plan, ledger,
-                         mutation_loci, probes)
+from torch_cases import (CASES, cdf, crossovers, dense_plan, foreign_slots,
+                         ledger, mutation_loci, probes)
 
 T = torch.as_tensor
 
@@ -126,3 +126,31 @@ def test_cuda_meiose_planes_kernel(cuda, n_chr, chr_len, K):
     want = tplanes.meiose_planes_plain(hapA, hapB, *args, n_chr=n_chr)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chr, chr_len, K", [(3, 8192, 5), (3, 104, 4)])
+def test_cuda_meiose_kernels_foreign_slot(cuda, n_chr, chr_len, K):
+    """A slot of chromosome c at chromosome c-1's last column: the byte
+    kernel counts it in chromosome c-1 and the packed kernel flips all of
+    chromosome c, each as its plain version does."""
+    rng = np.random.default_rng(chr_len + 1)
+    N, n, m = 40, 29, n_chr * chr_len
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
+    for i in (2, 4):
+        args[i] = T(foreign_slots(args[i].cpu().numpy(), chr_len),
+                    device=cuda)
+    hapA = torch.randint(0, 2, (N, m), dtype=torch.uint8, device=cuda)
+    hapB = torch.randint(0, 2, (N, m), dtype=torch.uint8, device=cuda)
+    got = tplanes.meiose_planes(hapA, hapB, *args, n_chr=n_chr)
+    want = tplanes.meiose_planes_plain(hapA, hapB, *args, n_chr=n_chr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if chr_len % 32 == 0:
+        hap = torch.randint(-2**31, 2**31 - 1, (N, 2, m // 32),
+                            dtype=torch.int32, device=cuda)
+        kw = dict(n_chr=n_chr, chr_len=chr_len)
+        got = tpacked.meiose_packed(hap, *args, None, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tpacked.meiose_packed_plain(hap, *args, None,
+                                                            **kw))

@@ -40,10 +40,14 @@ from geneevolve_tpu_torch.ops import meiose_packed as tmp
 from geneevolve_tpu_torch.ops import meiose_planes as tmpl
 from test_torch_engine import _argv, _assert_table_close
 from torch_cases import dense_plan as _plan
+from torch_cases import foreign_slots
 from torch_cases import mutation_loci as _mutations
 
 REPO = Path(__file__).resolve().parent.parent
 T = torch.as_tensor
+# one intra-op thread: under xdist these tests share the CPU with the JAX
+# tests' XLA device threads
+torch.set_num_threads(1)
 
 
 def _u32(t: torch.Tensor) -> np.ndarray:
@@ -231,6 +235,27 @@ def test_phase_batch_and_mutation_flips_exact():
     got = tpk.unpack_bits(tpk.apply_mutations_packed(
         tpk.pack_bits(T(plane)), T(mu)), m)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_foreign_slot_phase_exact():
+    """A slot of chromosome c at chromosome c-1's last column (the `cdf`
+    sampler's rounding case): `_phase_batch` counts it in chromosome c-1
+    and `phase_word_masks` flips all of chromosome c, each bit-exact
+    (tolerance 0) to the JAX function."""
+    rng = np.random.default_rng(13)
+    n, n_chr, chr_len, K = 16, 3, 96, 4
+    m = n_chr * chr_len
+    xo, st = _plan(rng, n, n_chr, chr_len, K)
+    xo = foreign_slots(xo, chr_len)
+    jxo, jst = jnp.asarray(xo), jnp.asarray(st)
+    np.testing.assert_array_equal(
+        tstep._phase_batch(T(xo), T(st), m, n_chr).numpy(),
+        np.asarray(jstep._phase_batch(jxo, jst, m, n_chr)))
+    np.testing.assert_array_equal(
+        _u32(tpk.phase_word_masks(T(xo), T(st), tpk.PackedConfig(
+            n=n, m=m, n_chr=n_chr))),
+        np.asarray(jpk.phase_word_masks(jxo, jst, jpk.PackedConfig(
+            n=n, m=m, n_chr=n_chr))))
 
 
 def test_cv_child_and_popcount_exact(packed_case):

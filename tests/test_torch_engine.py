@@ -25,6 +25,9 @@ from geneevolve_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 
 PLANES = ("seg_st", "seg_hap", "mut", "cv")
 MUT_RATE = 1.0 / 1200  # ~1 de novo mutation per gamete per chromosome
+# one intra-op thread: under xdist these tests share the CPU with the JAX
+# tests' XLA device threads
+torch.set_num_threads(1)
 
 
 def _argv(root: Path, prefix: Path, mutation_map=None):

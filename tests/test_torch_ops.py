@@ -24,6 +24,9 @@ from torch_cases import BIG, CASES, cdf as _cdf, crossovers as _crossovers
 from torch_cases import ledger as _ledger, probes as _probes
 
 T = torch.as_tensor
+# one intra-op thread: under xdist these tests share the CPU with the JAX
+# tests' XLA device threads
+torch.set_num_threads(1)
 
 
 def _bins_oracles(cum, u):

@@ -18,6 +18,9 @@ from geneevolve_tpu_torch.core import segments as tseg
 
 BIG = tseg.BIG
 P_MIN = 1e-4  # each statistical test fails a correct sampler w.p. <= 1e-4
+# one intra-op thread: under xdist these tests share the CPU with the JAX
+# tests' XLA device threads
+torch.set_num_threads(1)
 
 
 def _mut_rows(rng, n, M, span=5000):

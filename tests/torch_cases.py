@@ -68,6 +68,16 @@ def dense_plan(rng, n, n_chr, chr_len, K):
     return xo, start
 
 
+def foreign_slots(xo, chr_len):
+    """`xo` with the last slot of every odd row's chromosomes c >= 1 at
+    chromosome c-1's last column: the crossover the `cdf` sampler draws
+    when `lo + u * lam` rounds to `lo`."""
+    xo = xo.copy()
+    for c in range(1, xo.shape[1]):
+        xo[1::2, c, -1] = c * chr_len - 1
+    return xo
+
+
 def mutation_loci(rng, n, m, Km):
     """(n, 2, Km) loci, pad = m, with duplicates (which cancel) and pairs
     in one word."""
