@@ -9,11 +9,22 @@ Phases, each of which raises on failure (exit code non-zero):
    for sm_90a, one nvcc per source, all at once (seconds printed);
 1. kernels: each kernel against its plain PyTorch version on the card at
    main-path shapes, bit-exact (integer outputs), with median times from
-   CUDA events: the segment kernels at n = 30,000 children (K ~ 5,000 map
-   bins, S ~ 50 ledger slots, ~25 crossover slots); the packed meiosis at
-   the flagship shape (n 16,384 x 1 Mi loci, 8 chromosomes) with and
-   without mutations and in the split-plane layout; the byte meiosis at
-   n 4,096 x 1 Mi loci;
+   CUDA events taken in turns with the plain version and, where one
+   PyTorch call computes the same function, that call (`library_ms`:
+   `torch.searchsorted`, `torch.index_select` on the rows as stored and
+   on the rows viewed as whole integer words; a yardstick the port never
+   calls; these two kernels and their library calls are timed again with
+   10 calls queued between two events, `queued_ms`, where the device time
+   shows through the wrapper's host time), and each kernel's bound
+   (`bound_ms`: the larger of its bytes, each input read once and each
+   output written once, over HBM's 3.35 TB/s and its operations over the
+   scalar lanes' 67 T/s) and roofline share: the bins and the row gather
+   stacked over 22 chromosomes as the segment path launches them (n = 30,000 children, K ~ 5,000 map bins,
+   200-byte CV rows), the gather also as one table; the count and the
+   merge at chromosome 1's shape (S ~ 50 ledger slots, ~25 crossover
+   slots); the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
+   8 chromosomes) with and without mutations and in the split-plane
+   layout; the byte meiosis at n 4,096 x 1 Mi loci;
 2. parity: the segment slice on `cuda` and on `cpu` (plain versions) on a
    small scenario, the CUDA run fed the CPU run's mating and reproduce
    plans; ledgers, mutations and resident CVs identical every generation;
@@ -21,8 +32,10 @@ Phases, each of which raises on failure (exit code non-zero):
    10,000 founders, 22 chromosomes, 100 CVs each, here 5 generations, plus
    a mutation map of ~1 de novo mutation per gamete per chromosome) through
    `geneevolve_tpu_torch.cli.main`, with the probe/real-pass slot
-   tripwire, the outputs' shape and law, s/gen, the stage split and peak
-   device memory;
+   tripwire, the outputs' shape and law, s/gen, the stage split, peak
+   device memory and the stacked kernels' launches a generation (3 bins,
+   4 gathers); then those kernels against their plain versions on the
+   last generation's own inputs, bit-exact;
 4. dense parity: `--backend dense` with hap/VCF/PLINK output on `cuda`
    and on `cpu`, the CUDA run fed the CPU run's mating plans and draws:
    planes and CV matrices equal every generation, genotype files
@@ -41,10 +54,11 @@ Phases, each of which raises on failure (exit code non-zero):
    generators, equal after unpacking.
 
 Every path runs with the launch counts set to 0 just before it and read
-just after; a kernel of the path that never launched fails the run.
-Prints the card's name and power limit, then one JSON line of kernel
-results, then, last, `{"ok": true, "device": {...}}`. Without a CUDA
-device it exits non-zero and prints no result.
+just after; a kernel of the path that never launched fails the run. Each
+kernel's `launches` and `launches_per_gen` are those of its home path
+(`HOME_PATH`). Prints the card's name and power limit, then one JSON line
+of kernel results, then, last, `{"ok": true, "device": {...}}`. Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -100,6 +114,19 @@ PATHS = {
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
              "meiose_packed": "dense_slice", "meiose_planes": "byte_engine"}
+# launches a generation of the segment slice's stacked kernels: one bins
+# launch per kind of draw (father's and mother's crossovers, mutations), one
+# gather per parent and table (CV rows, mutation rows)
+SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4}
+# generations each counted path runs (packed engine: 1 warm-up + 5 timed)
+PATH_GENS = {"segment_slice": SCENARIO["gens"],
+             "dense_slice": DENSE_SCENARIO["gens"], "packed_engine": 6,
+             "byte_engine": 2}
+# H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
+# the tensor cores, taken as the scalar-lane rate for the kernels' integer
+# compares (the int32 lanes are no faster, so the bound stays a least time)
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
 
 
 def _wrappers():
@@ -133,22 +160,85 @@ def counted(path: str, wrappers: dict, fn, launches: dict):
     return out
 
 
-def _time_ms(fn, reps=20):
-    """Median ms of `fn()` over `reps` runs, CUDA events, after warm-up."""
+def _time_turns(fns: dict, reps: dict) -> dict:
+    """Median ms of each `fns[k]()` over `reps[k]` runs (CUDA events), the
+    functions timed in turns, forward then backward, after one warm-up
+    each, so that a drift of the card's clock hits them alike."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    for fn in fns.values():
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for r in range(max(reps.values())):
+        order = list(fns) if r % 2 == 0 else list(fns)[::-1]
+        for k in order:
+            if len(times[k]) >= reps[k]:
+                continue
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _rows_read(table, *idx, axis=0) -> int:
+    """Bytes of the distinct rows of `table` along `axis` (1 for stacked
+    tables, whose axis 0 is the batch) that the indices name: what a
+    gather must read once."""
+    import torch
+
+    rows = torch.unique(torch.cat([i.reshape(-1) for i in idx])).numel()
+    return rows * _nbytes(table) // table.shape[axis]
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM's rate and the operations over the scalar lanes' rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / SCALAR_OPS_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bytes=nbytes, ops=ops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _log2(x: int) -> int:
+    return max(int(x - 1).bit_length(), 1)
+
+
+def _bins_work(u, cum) -> dict:
+    # probes in and bins out once, the CDFs once; a binary search a probe
+    return _bound(_nbytes(u, cum) + 4 * u.numel(),
+                  2 * u.numel() * _log2(cum.shape[-1]))
+
+
+def _gather_work(table, idx, axis) -> dict:
+    # the distinct rows named read once, every gathered row written once
+    out = idx.numel() * _nbytes(table) // table.shape[axis]
+    return _bound(_rows_read(table, idx, axis=axis) + _nbytes(idx) + out, 0)
+
+
+def _gather_library(table, idx, axis) -> dict:
+    """`torch.index_select` of the rows as the table holds them, and of
+    the same rows viewed as their widest whole integer words (8, 4, 2 or 1
+    bytes): for byte rows the first indexes element by element."""
+    import torch
+
+    rows = table.reshape(table.shape[:axis + 1] + (-1,))
+    nbytes = rows.shape[-1] * rows.element_size()
+    word, size = next((dt, w) for dt, w in (
+        ("int64", 8), ("int32", 4), ("int16", 2), ("uint8", 1))
+        if nbytes % w == 0)
+    words = rows.view(torch.uint8).view(getattr(torch, word))
+    return {"index_select": lambda: torch.index_select(table, axis, idx),
+            f"index_select_{word}":
+                lambda: torch.index_select(words, axis, idx)}
 
 
 def _max_abs_err(got, want) -> int:
@@ -170,20 +260,59 @@ def _max_abs_err(got, want) -> int:
     return err
 
 
-def _compare(name: str, kern, plain, reps_plain=3) -> dict:
-    """`kern()` bit-exact to `plain()`, then the median ms of each."""
+def _compare(name: str, kern, plain, work: dict, library=None,
+             reps_plain=3) -> dict:
+    """`kern()` bit-exact to `plain()`, then the median ms of the kernel,
+    the plain version and each one-call library yardstick in `library`
+    (name -> call), timed in turns; `library_ms` is the fastest of those.
+    `work` is `_bound`'s dict for these inputs."""
     err = _max_abs_err(kern(), plain())
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain by {err}")
-    r = dict(max_abs_err=err, ms=_time_ms(kern),
-             plain_ms=_time_ms(plain, reps_plain))
+    library = library or {}
+    fns, reps = {"ms": kern, "plain_ms": plain}, {"ms": 20,
+                                                  "plain_ms": reps_plain}
+    fns.update(library)
+    reps.update(dict.fromkeys(library, 20))
+    t = _time_turns(fns, reps)
+    r = dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"], **work)
+    r["library_calls"] = {k: t[k] for k in library}
+    r["library_ms"] = min(r["library_calls"].values(), default=None)
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    lib = "".join(f"   {k} {v:.4f} ms" for k, v in r["library_calls"].items())
     print(f" kernel {name:<26s} {r['ms']:.4f} ms   plain "
-          f"{r['plain_ms']:.4f} ms")
+          f"{r['plain_ms']:.4f} ms{lib}   bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {r['roofline_share']:.1%})")
+    if library:
+        r["queued_ms"] = _time_queued(dict(kernel=kern, **library))
+        print("   queued: " + "   ".join(
+            f"{k} {v:.4f} ms" for k, v in r["queued_ms"].items()))
     return r
 
 
+def _time_queued(fns: dict, calls=10) -> dict:
+    """Median ms a call of each `fns[k]` with `calls` calls queued between
+    two CUDA events (5 runs, in turns): the wrapper's host work overlaps
+    the device's, so where a call's device work outlasts its host work
+    this reads the device time, which one call between two events does
+    not separate from the host's."""
+    def queued(fn):
+        def run():
+            for _ in range(calls):
+                fn()
+        return run
+
+    t = _time_turns({k: queued(f) for k, f in fns.items()},
+                    dict.fromkeys(fns, 5))
+    return {k: v / calls for k, v in t.items()}
+
+
 def kernel_phase(dev) -> list:
-    """Each kernel vs its plain version at main-path shapes."""
+    """Each kernel vs its plain version at main-path shapes: the stacked
+    kernels (cdf_bins, gather_rows) over all 22 chromosomes, as one
+    generation's launch gives them, the gather's one-table case (the dense
+    path's) as an entry; the per-chromosome kernels at chromosome 1's
+    shape."""
     import torch
 
     from geneevolve_tpu_torch.core import segments
@@ -195,21 +324,26 @@ def kernel_phase(dev) -> list:
     BIG = segments.BIG
     g = torch.Generator(device=dev).manual_seed(1234)
     n = N_CHILD + 4 * int(N_CHILD ** 0.5) + 16  # plane rows at 30k
-    # chr1 at 50 kb bins (4,981 bins), uneven mass with flat runs
-    K, width, chr_len = 4981, 50_000, 249_000_000
-    mass = torch.rand(K, generator=g, device=dev) * 1.3e-3
-    mass[torch.rand(K, generator=g, device=dev) < 0.2] = 0.0
-    mass[0] = 0.0
-    cum = torch.cumsum(mass, 0)
-    bp = torch.arange(K, device=dev, dtype=torch.int32) * width
-    xo_cap, S, live, M, C = 23, 49, 16, 27, 100
+    nchr = SCENARIO["nchr"]
+    # 50 kb bins, chr1's 4,981 down to ~960, padded as StackedMaps pads
+    # them; uneven mass with flat runs
+    KB, width, chr_len = 4981, 50_000, 249_000_000
+    kc = torch.linspace(KB, 961, nchr, device=dev).long()
+    mass = torch.rand((nchr, KB), generator=g, device=dev) * 1.3e-3
+    mass[torch.rand((nchr, KB), generator=g, device=dev) < 0.2] = 0.0
+    mass[:, 0] = 0.0
+    mass[torch.arange(KB, device=dev)[None, :] >= kc[:, None]] = 0.0
+    cum = torch.cumsum(mass, 1)
+    bp = torch.arange(KB, device=dev, dtype=torch.int32) * width
+    K, S, live, M, C = 23, 49, 16, 27, 100
     # the sampler's own u, as the main path produces it
-    lam = float(cum[-1])
-    counts = torch.poisson(torch.full((n,), lam, device=dev),
-                           generator=g).clamp_max(xo_cap).long()
-    s = torch.cumsum(-torch.log1p(-torch.rand((n, xo_cap + 1), generator=g,
-                                              device=dev)), 1)
-    u = s[:, :xo_cap] / s.gather(1, counts[:, None]).clamp_min(1e-30) * cum[-1]
+    counts = torch.poisson(cum[:, -1:].expand(nchr, n).contiguous(),
+                           generator=g).clamp_max(K).long()
+    s = torch.cumsum(-torch.log1p(-torch.rand(
+        (nchr, n, K + 1), generator=g, device=dev)), -1)
+    u = (s[..., :K] / s.gather(-1, counts[..., None]).clamp_min(1e-30)
+         * cum[:, -1, None, None])
+    del s
     # parent ledgers: sorted valid prefix of ~16 boundaries, BIG padded
     lens = torch.randint(1, live * 2, (n, 2, 1), generator=g, device=dev)
     pos = torch.randint(1, chr_len, (n, 2, S), generator=g, device=dev,
@@ -221,49 +355,70 @@ def kernel_phase(dev) -> list:
     par_hap = torch.randint(0, 20_000, (n, 2, S), generator=g, device=dev,
                             dtype=torch.int16)
     par_hap[par_st >= BIG] = 0
-    xo = segments.sample_point_process(g, n, xo_cap, cum, lam, bp,
-                                       float(width), False)
+    xo = segments.sample_point_process(g, n, K, cum[0], float(cum[0, -1]),
+                                       bp, float(width), False)
     start = torch.randint(0, 2, (n,), generator=g, device=dev,
                           dtype=torch.int32)
     idx = torch.randint(0, n, (n,), generator=g, device=dev,
                         dtype=torch.int32)
-    mut = torch.full((n, 2, M), BIG, dtype=torch.int32, device=dev)
-    cv = torch.randint(0, 2, (n, 2, C), generator=g, device=dev,
+    mut = torch.randint(0, chr_len, (nchr, n, 2, M), generator=g, device=dev,
+                        dtype=torch.int32)
+    cv = torch.randint(0, 2, (nchr, n, 2, C), generator=g, device=dev,
                        dtype=torch.uint8)
+    nc = n
+    idx_in = _nbytes(idx, xo, start)
+
     cases = {
-        "cdf_bins": (lambda: cb.cdf_bins(u, cum),
-                     lambda: cb.cdf_bins_plain(u, cum)),
-        "merge_count": (lambda: mc.merge_count(par_st, idx, xo, start),
-                        lambda: mc.merge_count_plain(par_st, idx, xo, start)),
-        "gather_rows": (lambda: mat.gather_rows(cv, idx),
-                        lambda: mat.gather_rows_plain(cv, idx)),
+        "cdf_bins": (
+            lambda: cb.cdf_bins(u, cum), lambda: cb.cdf_bins_plain(u, cum),
+            _bins_work(u, cum),
+            {"searchsorted": lambda: torch.searchsorted(
+                cum, u.view(nchr, -1), right=True, out_int32=True)},
+            None),
+        "merge_count": (
+            lambda: mc.merge_count(par_st, idx, xo, start),
+            lambda: mc.merge_count_plain(par_st, idx, xo, start),
+            _bound(_rows_read(par_st, idx) + idx_in + 4 * nc,
+                   nc * (2 * S + K) * _log2(K + 1)), None, None),
+        "gather_rows": (
+            lambda: mat.gather_rows_stacked(cv, idx),
+            lambda: mat.gather_rows_stacked_plain(cv, idx),
+            _gather_work(cv, idx, 1), _gather_library(cv, idx, 1),
+            ("one_table",
+             lambda: mat.gather_rows(cv[0], idx),
+             lambda: mat.gather_rows_plain(cv[0], idx),
+             _gather_work(cv[0], idx, 0), _gather_library(cv[0], idx, 0))),
         "meiose_merge": (
             lambda: mm.meiose_merge(par_st, par_hap, idx, xo, start, S),
             lambda: mm.meiose_merge_plain(par_st, par_hap, idx, xo, start, S,
                                           True),
-        ),
+            _bound(_rows_read(par_st, idx) + _rows_read(par_hap, idx)
+                   + idx_in + nc * (S * 6 + 4),
+                   nc * (K + 2 * S) * _log2(K + 2 * S)),
+            None, None),
     }
     results = []
-    for name, (kern, plain) in cases.items():
-        err = _max_abs_err(kern(), plain())
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain by {err}")
-        results.append(dict(
-            name=name, route="cuda", source=KERNELS[name][0],
-            replaces=KERNELS[name][1], max_abs_err=err,
-            ms=_time_ms(kern), plain_ms=_time_ms(plain),
-        ))
-    # the other merge mode and the mutation-row gather: exactness only
+    for name, (kern, plain, work, library, entry) in cases.items():
+        r = dict(name=name, route="cuda", source=KERNELS[name][0],
+                 replaces=KERNELS[name][1],
+                 **_compare(name, kern, plain, work, library, reps_plain=20))
+        if entry is not None:
+            r["entries"] = [dict(entry=entry[0], **_compare(
+                f"{name}/{entry[0]}", *entry[1:4], entry[4],
+                reps_plain=20))]
+        results.append(r)
+    # the other merge mode and the mutation-row gathers: exactness only
     for got, want in (
         (mm.meiose_merge(par_st, par_hap, idx, xo, start, S, False),
          mm.meiose_merge_plain(par_st, par_hap, idx, xo, start, S, False)),
-        (mat.gather_rows(mut, idx), mat.gather_rows_plain(mut, idx)),
+        (mat.gather_rows_stacked(mut, idx),
+         mat.gather_rows_stacked_plain(mut, idx)),
+        (mat.gather_rows(mut[0], idx), mat.gather_rows_plain(mut[0], idx)),
     ):
         if _max_abs_err(got, want) != 0:
             raise AssertionError("kernel differs from plain version")
-    for r in results:
-        print(f" kernel {r['name']:<13s} {r['ms']:.4f} ms   plain "
-              f"{r['plain_ms']:.4f} ms   (n={n}, median of 20)")
+    print(f"   (segment kernels at n={n} rows, {nchr} chromosomes stacked; "
+          "median of 20 in turns)")
     return results
 
 
@@ -299,21 +454,32 @@ def dense_kernel_phase(dev) -> list:
     mu = torch.stack([packed.mutation_positions(g, n, cfg)[0]
                       for _ in range(2)], 1)
     results = []
+
+    def work(planes, args, mu, out_bytes):
+        # parent words: the distinct parents' rows of each plane; child
+        # words written once; one select (and, andnot, or) per child word
+        rows = sum(_rows_read(h, args[0], args[1]) for h in planes)
+        return _bound(rows + _nbytes(*args, mu) + out_bytes, 3 * out_bytes)
+
+    out_b = 2 * n * cfg.mw * 4
     main = _compare("meiose_packed",
                     lambda: mp.meiose_packed(hap, *args, mu, **kw),
-                    lambda: mp.meiose_packed_plain(hap, *args, mu, **kw))
+                    lambda: mp.meiose_packed_plain(hap, *args, mu, **kw),
+                    work([hap], args, mu, out_b))
     entries = [dict(entry="no_mutations", replaces=PACKED_ENTRIES[
         "no_mutations"], **_compare(
             "meiose_packed/no_mutations",
             lambda: mp.meiose_packed(hap, *args, None, **kw),
-            lambda: mp.meiose_packed_plain(hap, *args, None, **kw)))]
+            lambda: mp.meiose_packed_plain(hap, *args, None, **kw),
+            work([hap], args, None, out_b)))]
     hapA, hapB = hap[:, 0].contiguous(), hap[:, 1].contiguous()
     del hap
     entries.append(dict(entry="split_planes", replaces=PACKED_ENTRIES[
         "split_planes"], **_compare(
             "meiose_packed/split_planes",
             lambda: mp.meiose_packed_split(hapA, hapB, *args, **kw),
-            lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw))))
+            lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw),
+            work([hapA, hapB], args, None, out_b))))
     results.append(dict(name="meiose_packed", entries=entries, **main))
     del hapA, hapB
     torch.cuda.empty_cache()
@@ -325,11 +491,14 @@ def dense_kernel_phase(dev) -> list:
     hapB = torch.randint(0, 2, (BYTE_N, cfg.m), generator=g, device=dev,
                          dtype=torch.uint8)
     args = (*parents(BYTE_N, BYTE_N), *plans(dcfg, BYTE_N))
+    rows = _rows_read(hapA, *args[:2]) + _rows_read(hapB, *args[:2])
     results.append(dict(name="meiose_planes", **_compare(
         "meiose_planes",
         lambda: mpl.meiose_planes(hapA, hapB, *args, n_chr=cfg.n_chr),
         lambda: mpl.meiose_planes_plain(hapA, hapB, *args,
-                                        n_chr=cfg.n_chr))))
+                                        n_chr=cfg.n_chr),
+        _bound(rows + _nbytes(*args) + 2 * BYTE_N * cfg.m,
+               2 * BYTE_N * cfg.m))))
     del hapA, hapB
     torch.cuda.empty_cache()
     for r in results:
@@ -398,7 +567,7 @@ def parity_phase(dev, work: Path) -> int:
     plans: identical planes every generation. Returns generations checked."""
     import torch
 
-    from geneevolve_tpu.config import parse_args
+    from geneevolve_tpu_torch.config import parse_args
     from geneevolve_tpu_torch.core.engine import Simulation
 
     argv = _scenario(work / "parity", n0=200, pop_size=300, gens=3, nchr=3,
@@ -512,9 +681,54 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
     return out
 
 
+def _checksum(u):
+    """An exact checksum of a float tensor's bits, left on the card."""
+    import torch
+
+    return u.view(torch.int32).sum(dtype=torch.int64)
+
+
 def segment_slice(dev, work: Path) -> dict:
-    """The segment engine's slice, and its probe/real-pass tripwire."""
-    out = slice_phase(dev, work, "table31", SCENARIO)
+    """The segment engine's slice, and its probe/real-pass tripwire. Kept
+    under `captured` for `segment_slice_kernels`: the last generation's
+    gather inputs (the parents' planes, live anyway) and its plan's
+    arguments with a checksum of each of its stacked probe tensors (one
+    reduction on the card, no copy and no host sync inside the timed run),
+    so that the probes are drawn again after the run."""
+    from geneevolve_tpu_torch.core import engine, segments
+
+    captured = {"cdf_bins": [], "gather_rows": [], "plan": None}
+    bins, gather = segments.cdf_bins, engine.gather_rows_stacked
+    plan = engine.Simulation._plan
+    last = {k: v * (SCENARIO["gens"] - 1) for k, v in SEGMENT_PER_GEN.items()}
+    seen = {k: 0 for k in SEGMENT_PER_GEN}
+
+    def last_gen(name):
+        seen[name] += 1
+        return seen[name] > last[name]  # the last generation's launches
+
+    def plan_rec(self, p, gen, n_pad):
+        captured["plan"] = (self, p, gen, n_pad)
+        return plan(self, p, gen, n_pad)
+
+    def bins_rec(u, cum):
+        if last_gen("cdf_bins"):
+            captured["cdf_bins"].append(_checksum(u))
+        return bins(u, cum)
+
+    def gather_rec(table, idx):
+        if last_gen("gather_rows"):
+            captured["gather_rows"].append((table, idx))
+        return gather(table, idx)
+
+    segments.cdf_bins, engine.gather_rows_stacked = bins_rec, gather_rec
+    engine.Simulation._plan = plan_rec
+    try:
+        out = slice_phase(dev, work, "table31", SCENARIO)
+    finally:
+        segments.cdf_bins, engine.gather_rows_stacked = bins, gather
+        engine.Simulation._plan = plan
+    out["captured"] = captured
     log = out.pop("sim").capacity_log
     if len(log) != SCENARIO["gens"] or any(
             c["seg_need"] != c["seg_used"] for c in log):
@@ -523,6 +737,68 @@ def segment_slice(dev, work: Path) -> dict:
         raise AssertionError("no de novo mutation was carried")
     out["seg_need_used"] = [(c["seg_need"], c["seg_used"]) for c in log]
     return out
+
+
+def segment_slice_kernels(kernels: list, captured: dict) -> None:
+    """The stacked bins and row gathers against their plain versions on
+    the segment slice's last generation's own inputs (its 3 bins and 4
+    gather launches), bit-exact; each result is added to its kernel's
+    `entries`. The probes are drawn again by the last generation's `_plan`
+    (a fresh generator per chromosome, seeded from the generation), and
+    must match the run's checksums."""
+    import torch
+
+    from geneevolve_tpu_torch.core import segments
+    from geneevolve_tpu_torch.ops import cdf_bins as cb
+    from geneevolve_tpu_torch.ops import materialize as mat
+
+    by_name = {k["name"]: k for k in kernels}
+    names = {"cdf_bins": ("crossovers_father", "crossovers_mother",
+                          "mutations"),
+             "gather_rows": ("cv_rows_father", "mutation_rows_father",
+                             "cv_rows_mother", "mutation_rows_mother")}
+    if any(len(captured[k]) != len(v) for k, v in names.items()):
+        raise AssertionError(
+            "segment slice: last generation's launches "
+            f"{ {k: len(captured[k]) for k in names} }")
+    sim, p, gen, n_pad = captured["plan"]
+    probes, bins = [], segments.cdf_bins
+
+    def bins_rec(u, cum):
+        probes.append((u, cum))
+        return bins(u, cum)
+
+    segments.cdf_bins = bins_rec
+    try:
+        sim._plan(p, gen, n_pad)
+    finally:
+        segments.cdf_bins = bins
+    del sim
+    if [int(_checksum(u)) for u, _ in probes] != [
+            int(c) for c in captured["cdf_bins"]]:
+        raise AssertionError("segment slice: the last generation's probes, "
+                             "drawn again, differ from the run's")
+    for (u, cum), what in zip(probes, names["cdf_bins"]):
+        shape = f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs"
+        r = _compare(f"cdf_bins/segment_slice/{what}",
+                     lambda: cb.cdf_bins(u, cum),
+                     lambda: cb.cdf_bins_plain(u, cum), _bins_work(u, cum),
+                     {"searchsorted": lambda: torch.searchsorted(
+                         cum, u.view(cum.shape[0], -1), right=True,
+                         out_int32=True)})
+        by_name["cdf_bins"].setdefault("entries", []).append(
+            dict(entry=f"segment_slice/{what}", shape=shape, **r))
+    for (table, idx), what in zip(captured["gather_rows"],
+                                  names["gather_rows"]):
+        shape = (f"{idx.shape[0]} rows of {tuple(table.shape)} "
+                 f"{table.dtype}")
+        r = _compare(f"gather_rows/segment_slice/{what}",
+                     lambda: mat.gather_rows_stacked(table, idx),
+                     lambda: mat.gather_rows_stacked_plain(table, idx),
+                     _gather_work(table, idx, 1),
+                     _gather_library(table, idx, 1))
+        by_name["gather_rows"].setdefault("entries", []).append(
+            dict(entry=f"segment_slice/{what}", shape=shape, **r))
 
 
 def dense_slice(dev, work: Path) -> dict:
@@ -581,13 +857,18 @@ def dense_slice_kernels(kernels: list, captured: dict) -> None:
     from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_packed as mp
 
+    import torch
+
     args, kw = captured["meiose_packed"]
     cv_par, parent = captured["gather_rows"]
     hap = args[0]
+    out_b = args[1].shape[0] * 2 * hap.shape[2] * 4
     cases = {
         "meiose_packed": (
             lambda: mp.meiose_packed(*args, **kw),
             lambda: mp.meiose_packed_plain(*args, **kw),
+            _bound(_rows_read(hap, args[1], args[2]) + _nbytes(*args[1:])
+                   + out_b, 3 * out_b), None,
             f"{args[1].shape[0]} children of {hap.shape[0]} rows x "
             f"{hap.shape[2]} words, {kw['n_chr']} chromosomes of "
             f"{kw['chr_len'] // 32} words, K {args[3].shape[2]}, "
@@ -595,12 +876,14 @@ def dense_slice_kernels(kernels: list, captured: dict) -> None:
         "gather_rows": (
             lambda: mat.gather_rows(cv_par, parent),
             lambda: mat.gather_rows_plain(cv_par, parent),
+            _gather_work(cv_par, parent, 0),
+            _gather_library(cv_par, parent, 0),
             f"{parent.shape[0]} rows of {cv_par.shape[0]} x "
             f"{cv_par[0].numel() * cv_par.element_size()} bytes"),
     }
     by_name = {k["name"]: k for k in kernels}
-    for name, (kern, plain, shape) in cases.items():
-        r = _compare(f"{name}/dense_slice", kern, plain)
+    for name, (kern, plain, work, library, shape) in cases.items():
+        r = _compare(f"{name}/dense_slice", kern, plain, work, library)
         by_name[name].setdefault("entries", []).append(
             dict(entry="dense_slice", shape=shape, **r))
         print(f"   ({shape})")
@@ -615,7 +898,7 @@ def dense_parity_phase(dev, work: Path) -> int:
 
     import torch
 
-    from geneevolve_tpu.config import parse_args
+    from geneevolve_tpu_torch.config import parse_args
     from geneevolve_tpu_torch.dense.backend import DenseSimulation
 
     root = work / "dense_parity"
@@ -774,6 +1057,15 @@ def main() -> int:
         parity_phase(dev, work)
         res["slice"] = counted("segment_slice", wrappers,
                                lambda: segment_slice(dev, work), launches)
+        gens = SCENARIO["gens"]
+        for name, per_gen in SEGMENT_PER_GEN.items():
+            if launches["segment_slice"][name] != per_gen * gens:
+                raise AssertionError(
+                    f"segment slice: {launches['segment_slice'][name]} "
+                    f"{name} launches in {gens} generations, {per_gen} a "
+                    "generation expected")
+        # after the counted run: these launches are comparisons
+        segment_slice_kernels(kernels, res["slice"].pop("captured"))
         dense_parity_phase(dev, work)
         res["dense_slice"] = counted("dense_slice", wrappers,
                                      lambda: dense_slice(dev, work), launches)
@@ -788,7 +1080,9 @@ def main() -> int:
     res["byte_engine"] = counted("byte_engine", wrappers,
                                  lambda: byte_engine_phase(dev), launches)
     for k in kernels:
-        k["launches"] = launches[HOME_PATH[k["name"]]][k["name"]]
+        home = HOME_PATH[k["name"]]
+        k["launches"] = launches[home][k["name"]]
+        k["launches_per_gen"] = k["launches"] / PATH_GENS[home]
         k["launches_by_path"] = {p: launches[p][k["name"]]
                                  for p, ks in PATHS.items() if k["name"] in ks}
     print(json.dumps(res))

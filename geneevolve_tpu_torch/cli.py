@@ -14,7 +14,7 @@ from __future__ import annotations
 import sys
 import time
 
-from geneevolve_tpu.config import ConfigError, parse_args, print_config
+from geneevolve_tpu_torch.config import ConfigError, parse_args, print_config
 
 _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
 

@@ -200,16 +200,59 @@ def sample_point_process(
     offset, so two same-bin points may be out of order within a row.
     `inclusive_bins=False` is the crossover convention (`bp[j] +
     U[0, width)`), True the mutation one (uniform over [bp[j-1], bp[j]])."""
-    device = cum.device
     if lam <= 0.0:
-        return torch.full((n, cap), BIG, dtype=POS, device=device)
+        return torch.full((n, cap), BIG, dtype=POS, device=cum.device)
+    counts, u = _probes(gen, n, cap, cum, lam)
+    bins = cdf_bins(u[None], cum[None])[0]  # the stacked kernel, C = 1
+    return _place(gen, counts, bins, bp, width, inclusive_bins, bp0, bp_step)
+
+
+def sample_point_process_stacked(
+    gens, n: int, cap: int, cum: torch.Tensor, lam, bp: torch.Tensor, width,
+    inclusive_bins: bool, bp0=None, bp_step=None,
+) -> torch.Tensor:
+    """(C, n, cap): `sample_point_process` for C chromosomes at once, row c
+    drawn from `gens[c]` over `cum[c]`, `lam[c]`, `bp[c]`, `width[c]` (and
+    `bp0[c]`, `bp_step[c]` when given). Each generator makes the same draws
+    in the same order as the one-chromosome call (the bins consume none),
+    so the result equals C such calls; the bins of every chromosome are
+    one `cdf_bins` launch over the stacked CDFs."""
+    C = len(gens)
+    device = cum.device
+    live = [float(lam[c]) > 0.0 for c in range(C)]
+    u = torch.zeros((C, n, cap), dtype=torch.float32, device=device)
+    counts = [None] * C
+    for c in range(C):
+        if live[c]:
+            counts[c], u[c] = _probes(gens[c], n, cap, cum[c], float(lam[c]))
+    bins = cdf_bins(u, cum) if any(live) else None
+    out = torch.full((C, n, cap), BIG, dtype=POS, device=device)
+    for c in range(C):
+        if live[c]:
+            out[c] = _place(
+                gens[c], counts[c], bins[c], bp[c], float(width[c]),
+                inclusive_bins, None if bp0 is None else int(bp0[c]),
+                None if bp_step is None else int(bp_step[c]),
+            )
+    return out
+
+
+def _probes(gen, n, cap, cum, lam):
+    """The Poisson counts and the uniforms on [0, total mass) whose bins
+    the points take: normalized cumulative Exp(1) gaps."""
+    device = cum.device
     rate = torch.full((n,), float(lam), dtype=torch.float32, device=device)
     counts = torch.poisson(rate, generator=gen).clamp_max(cap).long()
     unif = torch.rand((n, cap + 1), generator=gen, device=device)
     s = torch.cumsum(-torch.log1p(-unif), dim=1)
     denom = s.gather(1, counts[:, None])
-    u = s[:, :cap] / torch.clamp(denom, min=1e-30) * cum[-1]
-    bins = cdf_bins(u, cum)
+    return counts, s[:, :cap] / torch.clamp(denom, min=1e-30) * cum[-1]
+
+
+def _place(gen, counts, bins, bp, width, inclusive_bins, bp0, bp_step):
+    """Positions in the drawn bins, from a fresh within-bin uniform."""
+    n, cap = bins.shape
+    device = bins.device
     v = torch.clamp(
         torch.rand((n, cap), generator=gen, device=device), max=1.0 - 1e-7
     )

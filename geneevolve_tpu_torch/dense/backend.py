@@ -32,12 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from geneevolve_tpu.core import mating
-from geneevolve_tpu.io import hap as hap_io
-from geneevolve_tpu.io import plink as plink_io
-from geneevolve_tpu.io import tables
-from geneevolve_tpu.io import vcf as vcf_io
-from geneevolve_tpu_torch.core import phenotype
+from geneevolve_tpu_torch.core import mating, phenotype
 from geneevolve_tpu_torch.core.engine import (
     PopRuntime,
     Simulation,
@@ -52,6 +47,10 @@ from geneevolve_tpu_torch.dense.packed import (
     unpack_bits,
 )
 from geneevolve_tpu_torch.dense.step import _sample_gamete_plan
+from geneevolve_tpu_torch.io import hap as hap_io
+from geneevolve_tpu_torch.io import plink as plink_io
+from geneevolve_tpu_torch.io import tables
+from geneevolve_tpu_torch.io import vcf as vcf_io
 from geneevolve_tpu_torch.utils import telemetry
 
 UNIT = 32  # loci per chromosome are padded to a multiple of this

@@ -33,11 +33,64 @@ def cuda():
 @pytest.mark.parametrize("K", [7, 1000, 5120, 20000])
 def test_cuda_bins_kernel(cuda, K):
     rng = np.random.default_rng(K)
-    cum = T(cdf(rng, K), device=cuda)
-    u = T(probes(rng, cum.cpu().numpy()), device=cuda)
+    cum = T(cdf(rng, K)[None], device=cuda)
+    u = T(probes(rng, cum[0].cpu().numpy())[None], device=cuda)
     got = tbins.cdf_bins(u, cum)
     torch.cuda.synchronize()
     assert torch.equal(got, tbins.cdf_bins_plain(u, cum))
+
+
+def _stacked_probes(rng, cum, size=3600):
+    """-1, -inf, +inf, NaN, 0, every chunk's last entry and its float
+    neighbours, a sample of exact entries, then uniforms past both ends."""
+    last = cum[np.minimum(np.arange(31, len(cum) + 31, 32), len(cum) - 1)]
+    u = np.concatenate([
+        [-1.0, -np.inf, np.inf, np.nan, 0.0], last,
+        np.nextafter(last, np.float32(np.inf)),
+        np.nextafter(last, np.float32(-np.inf)),
+        rng.choice(cum, size=min(len(cum), 500))]).astype(np.float32)
+    fill = rng.uniform(-0.1, float(cum[-1]) * 1.1, size=size - len(u))
+    return np.concatenate([u, fill.astype(np.float32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, K", [(1, 7), (3, 31), (3, 32), (4, 65),
+                                  (5, 1), (22, 4981)])
+def test_cuda_bins_stacked_kernel(cuda, C, K):
+    """Stacked CDFs, padded as `StackedMaps` pads them, K around the
+    32-entry chunk: the kernel equals the plain version (itself
+    `torch.searchsorted`), one row or all at once."""
+    rng = np.random.default_rng(C * 100 + K)
+    cum = np.stack([cdf(rng, K) for _ in range(C)])
+    cum[0, K // 2:] = cum[0, K // 2]
+    u = T(np.stack([_stacked_probes(rng, c) for c in cum]).reshape(C, 60, 60),
+          device=cuda)
+    cum = T(cum, device=cuda)
+    got = tbins.cdf_bins(u, cum)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tbins.cdf_bins_plain(u, cum))
+    assert torch.equal(tbins.cdf_bins(u[C - 1:], cum[C - 1:]), got[C - 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, R, dtype", [
+    (22, (2, 100), torch.uint8),  # the slice's CV rows: 8-byte units
+    (22, (2, 27), torch.int32),  # mutation rows
+    (3, (2, 13), torch.int16),  # 2-byte units
+    (2, (4400,), torch.uint8),  # the dense slice's rows: 16-byte units
+    (4, (3,), torch.uint8),  # byte units
+    (2, (20000,), torch.uint8),  # rows wider than a block's tile
+])
+def test_cuda_gather_stacked_kernel(cuda, B, R, dtype):
+    table = torch.randint(0, 100, (B, 90) + R, dtype=dtype, device=cuda)
+    # 501 rows: the last block's tile of rows is cut short at every width
+    # but the widest (one row a tile)
+    idx = torch.randint(0, 90, (501,), dtype=torch.int32, device=cuda)
+    want = tmat.gather_rows_stacked_plain(table, idx)
+    assert torch.equal(tmat.gather_rows_stacked(table, idx), want)
+    # a slice of the stacked tables, as the real pass takes a chunk
+    assert torch.equal(tmat.gather_rows_stacked(table[1:], idx), want[1:])
+    assert torch.equal(tmat.gather_rows(table[B - 1], idx), want[B - 1])
 
 
 @pytest.mark.cuda

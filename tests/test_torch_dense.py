@@ -27,11 +27,12 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from geneevolve_tpu.config import parse_args
+from geneevolve_tpu.config import parse_args as jax_parse_args
 from geneevolve_tpu.core import mating
 from geneevolve_tpu.dense import backend as jbackend
 from geneevolve_tpu.dense import packed as jpk
 from geneevolve_tpu.dense import step as jstep
+from geneevolve_tpu_torch.config import parse_args
 from geneevolve_tpu_torch.core import convert
 from geneevolve_tpu_torch.dense import backend as tbackend
 from geneevolve_tpu_torch.dense import packed as tpk
@@ -455,7 +456,7 @@ class JaxDenseRun:
             mp.setattr(jbackend, "_sample_gamete_plan", sample_rec)
             mp.setattr(jbackend, "_mutation_cols", mcols_rec)
             mp.setattr(mating, "assort_mate", assort_rec)
-            sim = jbackend.DenseSimulation(parse_args(argv), verbose=False)
+            sim = jbackend.DenseSimulation(jax_parse_args(argv), verbose=False)
             sim.init_generation0()
             self._keep(sim)
             for gen in range(1, sim.tot_gen + 1):

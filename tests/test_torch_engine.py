@@ -17,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from geneevolve_tpu.config import parse_args
+from geneevolve_tpu.config import parse_args as jax_parse_args
 from geneevolve_tpu.core import engine as jax_engine
 from geneevolve_tpu.core import mating
+from geneevolve_tpu_torch.config import parse_args
 from geneevolve_tpu_torch.core import engine as torch_engine
 from geneevolve_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 
@@ -83,7 +84,7 @@ class JaxRun:
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax_engine, "_capacity_probe", probe_rec)
             mp.setattr(mating, "assort_mate", assort_rec)
-            sim = jax_engine.Simulation(parse_args(argv), verbose=False)
+            sim = jax_engine.Simulation(jax_parse_args(argv), verbose=False)
             sim.init_generation0()
             self._keep(sim)
             for gen in range(1, sim.tot_gen + 1):
@@ -172,6 +173,94 @@ def test_plan_injected_run_bit_exact(jax_run, mini_scenario, tmp_path):
         _assert_table_close(tmp_path / name, jax_run.out / name)
     _assert_table_close(tmp_path / "out.pop1.summary",
                         jax_run.out / "out.pop1.summary")
+
+
+def test_gathers_in_chromosome_chunks(jax_run, mini_scenario, tmp_path,
+                                      monkeypatch):
+    """With too little free memory for every chromosome's parent rows at
+    once, the real pass gathers them a chromosome at a time: the same
+    planes as the JAX run, in one gather per parent, table and chromosome."""
+    calls = []
+    gather = torch_engine.gather_rows_stacked
+
+    def gather_rec(table, idx):
+        calls.append(table.shape[0])
+        return gather(table, idx)
+
+    check_fits = torch_engine.Simulation._check_fits
+
+    def one_chromosome(self):  # as `_check_fits` sets it when memory is short
+        check_fits(self)
+        self.gather_chunk = 1
+
+    monkeypatch.setattr(torch_engine, "gather_rows_stacked", gather_rec)
+    monkeypatch.setattr(torch_engine.Simulation, "_check_fits",
+                        one_chromosome)
+    tsim = torch_engine.Simulation(
+        parse_args(_argv(mini_scenario, tmp_path / "out", jax_run.mmap)),
+        device="cpu", verbose=False,
+    )
+    _inject(tsim, jax_run)
+    tsim.init_generation0()
+    for gen in range(1, tsim.tot_gen + 1):
+        tsim.step(gen)
+        got = _planes(tsim.pops[0].state)
+        for k in PLANES:
+            np.testing.assert_array_equal(got[k], jax_run.states[gen][k],
+                                          err_msg=f"{gen} {k}")
+    tables = 2 if tsim.has_mut else 1
+    assert calls == [1] * (tsim.tot_gen * 2 * tables * len(tsim.chrs))
+
+
+def _plan_chromosome_by_chromosome(sim, p, gen, n_pad):
+    """The plan as drawn one chromosome at a time (every draw of a
+    chromosome before the next chromosome's), one bins call per draw."""
+    from geneevolve_tpu_torch.core import segments
+    from geneevolve_tpu_torch.core.rng import Stage, generator
+
+    sm, BIG, outs = p.smaps, segments.BIG, []
+    for ci in range(len(sim.chrs)):
+        g = generator(sim.device, sim.cfg.seed, gen, Stage.CROSSOVER,
+                      p.index, ci)
+        aff = {} if sm.bp0 is None else dict(bp0=int(sm.bp0[ci]),
+                                             bp_step=int(sm.bp_step[ci]))
+        xo = [segments.sample_point_process(
+            g, n_pad, sim.xo_cap, sm.xo_cum[ci], float(sm.xo_lambda[ci]),
+            sm.bp[ci], float(sm.bin_width[ci]), False, **aff)
+            for _ in range(2)]
+        sh = torch.randint(0, 2, (n_pad, 2), generator=g, dtype=torch.int32)
+        if sim.has_mut:
+            aff = {} if sm.mut_bp0 is None else dict(
+                bp0=int(sm.mut_bp0[ci]), bp_step=int(sm.mut_bp_step[ci]))
+            new = segments.sample_point_process(
+                g, n_pad, sim.mn_cap, sm.mut_cum[ci],
+                float(sm.mut_lambda[ci]), sm.mut_bp[ci], 0.0, True, **aff)
+            which = torch.randint(0, 2, (n_pad, sim.mn_cap), generator=g)
+            nf, nm = (torch.where(which == w, new, BIG) for w in (0, 1))
+        else:
+            nf = nm = torch.full((n_pad, 1), BIG, dtype=torch.int32)
+        outs.append((xo[0], xo[1], sh, nf, nm))
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(5))
+
+
+@pytest.mark.parametrize("mutations", [False, True])
+def test_plan_keeps_draw_order(mini_scenario, tmp_path, mutations):
+    """`_plan` draws every chromosome's crossovers, then starts, then
+    mutations, to map all chromosomes' bins in one launch per kind: each
+    chromosome's generator still makes the same draws in the same order,
+    so the plan equals the chromosome-by-chromosome one exactly."""
+    mmap = _mutation_map(tmp_path / "mut.txt") if mutations else None
+    sim = torch_engine.Simulation(
+        parse_args(_argv(mini_scenario, tmp_path / "out", mmap)),
+        device="cpu", verbose=False)
+    p = sim.pops[0]
+    for gen in (1, 2):
+        got = sim._plan(p, gen, 77)
+        want = _plan_chromosome_by_chromosome(sim, p, gen, 77)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert bool((got[0] < 2**30).any())
+    assert bool((got[3] < 2**30).any()) == mutations
 
 
 def test_state_handover(jax_run, mini_scenario, tmp_path):

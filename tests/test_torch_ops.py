@@ -44,7 +44,7 @@ def test_bins_match_pallas_and_searchsorted(K):
     rng = np.random.default_rng(K)
     cum = _cdf(rng, K)
     u = _probes(rng, cum)
-    got = tbins.cdf_bins(T(u), T(cum)).numpy()
+    got = tbins.cdf_bins(T(u[None]), T(cum[None]))[0].numpy()
     assert got.dtype == np.int32
     for want in _bins_oracles(cum, u):
         np.testing.assert_array_equal(got, want)
@@ -56,7 +56,7 @@ def test_bins_padded_tail_and_single_bin():
                           np.full(28, 100.0, np.float32)])
     u = np.array([0.0, 0.5, 1.0, 99.0, 99.5, 100.0, 101.0], np.float32)
     for c, q in ((cum, u), (np.float32([2.5]), np.float32([0, 2.4, 2.5, 3]))):
-        got = tbins.cdf_bins(T(q), T(c)).numpy()
+        got = tbins.cdf_bins(T(q[None]), T(c[None]))[0].numpy()
         for want in _bins_oracles(c, q):
             np.testing.assert_array_equal(got, want)
 
@@ -65,11 +65,30 @@ def test_bins_keep_shape():
     rng = np.random.default_rng(1)
     cum = _cdf(rng, 300, flat=0.0)
     u = rng.uniform(0, cum[-1], size=(37, 11)).astype(np.float32)
-    got = tbins.cdf_bins(T(u), T(cum))
-    assert got.shape == (37, 11)
+    got = tbins.cdf_bins(T(u[None]), T(cum[None]))
+    assert got.shape == (1, 37, 11)
     np.testing.assert_array_equal(
-        got.numpy(), np.minimum(np.searchsorted(cum, u, side="right"), 299)
+        got[0].numpy(), np.minimum(np.searchsorted(cum, u, side="right"), 299)
     )
+
+
+@pytest.mark.parametrize("C, K", [(3, 7), (4, 1000), (22, 130), (2, 1)])
+def test_bins_stacked_match_rows_and_jax(C, K):
+    """Stacked CDFs (C, K), padded as `StackedMaps` pads them (repeating
+    the last value): row c's bins equal the C = 1 call on row c and the JAX
+    oracles on row c."""
+    rng = np.random.default_rng(C * K)
+    cum = np.stack([_cdf(rng, K) for _ in range(C)])
+    cum[0, K // 2:] = cum[0, K // 2]  # a short map padded to K
+    u = np.stack([_probes(rng, c) for c in cum])  # (C, P)
+    u3 = u.reshape(C, -1, 1)  # any trailing shape
+    got = tbins.cdf_bins(T(u3), T(cum)).numpy().reshape(C, -1)
+    assert got.dtype == np.int32
+    for c in range(C):
+        one = tbins.cdf_bins(T(u[c:c + 1]), T(cum[c:c + 1]))[0]
+        np.testing.assert_array_equal(got[c], one.numpy())
+        for want in _bins_oracles(cum[c], u[c]):
+            np.testing.assert_array_equal(got[c], want)
 
 
 @pytest.mark.parametrize("n, S, K, live", CASES)
@@ -99,6 +118,24 @@ def test_gather_matches_jax(dtype):
     want = np.asarray(jmat.gather_rows(jnp.asarray(table), jnp.asarray(idx)))
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype, R", [(np.int16, (2, 13)), (np.int32, (2, 27)),
+                                      (np.uint8, (2, 100)), (np.uint8, (3,))])
+def test_gather_stacked_matches_jax(dtype, R):
+    """The stacked gather equals `table[:, idx]` and the JAX gather on each
+    table."""
+    rng = np.random.default_rng(len(R) + R[-1])
+    B, n, nc = 5, 90, 200
+    table = rng.integers(0, 100, size=(B, n) + R).astype(dtype)
+    idx = rng.integers(0, n, size=nc).astype(np.int32)
+    got = tmat.gather_rows_stacked(T(table), T(idx)).numpy()
+    np.testing.assert_array_equal(got, table[:, idx])
+    for b in range(B):
+        want = np.asarray(jmat.gather_rows(jnp.asarray(table[b]),
+                                           jnp.asarray(idx)))
+        assert got[b].dtype == want.dtype
+        np.testing.assert_array_equal(got[b], want)
 
 
 @pytest.mark.parametrize("merge_ibd", [True, False])

@@ -103,9 +103,9 @@ def test_sampler_bins_exact_on_shared_u(monkeypatch):
     seen = {}
     real = tseg.cdf_bins
 
-    def spy(u, c):
+    def spy(u, c):  # the stacked call, C = 1
         bins = real(u, c)
-        seen["u"], seen["bins"] = u.clone(), bins.clone()
+        seen["u"], seen["bins"] = u[0].clone(), bins[0].clone()
         return bins
 
     monkeypatch.setattr(tseg, "cdf_bins", spy)
@@ -157,6 +157,37 @@ def test_sampler_law(affine):
     # offsets uniform in [0, width)
     off = pos[live] % width
     assert stats.kstest(off / width, "uniform").pvalue > P_MIN
+
+
+@pytest.mark.parametrize("inclusive, affine", [(False, False), (False, True),
+                                               (True, False)])
+def test_stacked_sampler_equals_per_chromosome(inclusive, affine):
+    """C chromosomes sampled at once (one stacked bins call) equal C
+    one-chromosome calls on identically seeded generators, a zero-rate
+    chromosome included (it draws nothing)."""
+    maps = [_map(K=900, seed=1), _map(K=1200, seed=2), _map(K=600, seed=3)]
+    K = max(len(c) for c, _, _ in maps)
+    pad = lambda a: np.concatenate([a, np.full(K - len(a), a[-1])])
+    cum = torch.as_tensor(np.stack([pad(c) for c, _, _ in maps]))
+    bp = torch.as_tensor(np.stack([pad(b) for _, b, _ in maps]))
+    lam = np.array([float(c[-1]) for c, _, _ in maps] + [0.0], np.float32)
+    cum = torch.cat([cum, cum[:1]])
+    bp = torch.cat([bp, bp[:1]])
+    width = np.full(4, 50_000.0 if not inclusive else 0.0, np.float32)
+    kw = dict(bp0=np.zeros(4, np.int32),
+              bp_step=np.full(4, 50_000, np.int32)) if affine else {}
+    seeds = [11, 12, 13, 14]
+    got = tseg.sample_point_process_stacked(
+        [torch.Generator().manual_seed(x) for x in seeds], 700, 9, cum, lam,
+        bp, width, inclusive, **kw)
+    assert got.shape == (4, 700, 9)
+    for c, x in enumerate(seeds):
+        one = tseg.sample_point_process(
+            torch.Generator().manual_seed(x), 700, 9, cum[c], float(lam[c]),
+            bp[c], float(width[c]), inclusive,
+            **({k: int(v[c]) for k, v in kw.items()}))
+        assert torch.equal(got[c], one), c
+    assert bool((got[3] == BIG).all()) and bool((got[:3] < BIG).any())
 
 
 def test_mutation_sampler_inclusive_bins():
