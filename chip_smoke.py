@@ -18,11 +18,12 @@ Phases, each of which raises on failure (exit code non-zero):
    shows through the wrapper's host time), and each kernel's bound
    (`bound_ms`: the larger of its bytes, each input read once and each
    output written once, over HBM's 3.35 TB/s and its operations over the
-   scalar lanes' 67 T/s) and roofline share: the bins and the row gather
-   stacked over 22 chromosomes as the segment path launches them (n = 30,000 children, K ~ 5,000 map bins,
-   200-byte CV rows), the gather also as one table; the count and the
-   merge at chromosome 1's shape (S ~ 50 ledger slots, ~25 crossover
-   slots); the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
+   scalar lanes' 67 T/s) and roofline share: the bins, the row gather,
+   the count and the merge stacked over 22 chromosomes (and both parents)
+   as the segment path launches them (n = 30,000 children, K ~ 5,000 map
+   bins, 200-byte CV rows, S 49 ledger slots, 23 crossover slots), the
+   gather also as one table, the count and the merge also at one
+   chromosome; the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
    8 chromosomes) with and without mutations and in the split-plane
    layout; the byte meiosis at n 4,096 x 1 Mi loci;
 2. parity: the segment slice on `cuda` and on `cpu` (plain versions) on a
@@ -34,8 +35,9 @@ Phases, each of which raises on failure (exit code non-zero):
    `geneevolve_tpu_torch.cli.main`, with the probe/real-pass slot
    tripwire, the outputs' shape and law, s/gen, the stage split, peak
    device memory and the stacked kernels' launches a generation (3 bins,
-   4 gathers); then those kernels against their plain versions on the
-   last generation's own inputs, bit-exact;
+   4 gathers, 1 count, 1 merge); then those kernels against their plain
+   versions on the last generation's own inputs (the merge in both modes),
+   bit-exact;
 4. dense parity: `--backend dense` with hap/VCF/PLINK output on `cuda`
    and on `cpu`, the CUDA run fed the CPU run's mating plans and draws:
    planes and CV matrices equal every generation, genotype files
@@ -116,8 +118,10 @@ HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "meiose_packed": "dense_slice", "meiose_planes": "byte_engine"}
 # launches a generation of the segment slice's stacked kernels: one bins
 # launch per kind of draw (father's and mother's crossovers, mutations), one
-# gather per parent and table (CV rows, mutation rows)
-SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4}
+# gather per parent and table (CV rows, mutation rows), one count (the
+# probe) and one merge (the real pass) over every chromosome and parent
+SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
+                   "meiose_merge": 1}
 # generations each counted path runs (packed engine: 1 warm-up + 5 timed)
 PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "dense_slice": DENSE_SCENARIO["gens"], "packed_engine": 6,
@@ -224,6 +228,29 @@ def _gather_work(table, idx, axis) -> dict:
     return _bound(_rows_read(table, idx, axis=axis) + _nbytes(idx) + out, 0)
 
 
+def _count_work(seg_st, parents, xo_f, xo_m, sh) -> dict:
+    # the distinct parent rows of every chromosome read once, crossover
+    # rows and starts once, a count a gamete written; a binary search over
+    # the sorted crossovers a slot and a crossover
+    gametes = 2 * xo_f.shape[0] * xo_f.shape[1]
+    S, K = seg_st.shape[-1], xo_f.shape[-1]
+    return _bound(_rows_read(seg_st, parents, axis=1)
+                  + _nbytes(parents, xo_f, xo_m, sh) + 4 * gametes,
+                  gametes * (2 * S + K) * _log2(K + 1))
+
+
+def _merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap) -> dict:
+    # as the count, plus the parents' hap rows and the child rows written;
+    # a binary search over the merged candidates a candidate
+    gametes = 2 * xo_f.shape[0] * xo_f.shape[1]
+    S, K = seg_st.shape[-1], xo_f.shape[-1]
+    return _bound(_rows_read(seg_st, parents, axis=1)
+                  + _rows_read(seg_hap, parents, axis=1)
+                  + _nbytes(parents, xo_f, xo_m, sh)
+                  + gametes * (cap * (4 + seg_hap.element_size()) + 4),
+                  gametes * (K + 2 * S) * _log2(K + 2 * S))
+
+
 def _gather_library(table, idx, axis) -> dict:
     """`torch.index_select` of the rows as the table holds them, and of
     the same rows viewed as their widest whole integer words (8, 4, 2 or 1
@@ -308,11 +335,11 @@ def _time_queued(fns: dict, calls=10) -> dict:
 
 
 def kernel_phase(dev) -> list:
-    """Each kernel vs its plain version at main-path shapes: the stacked
-    kernels (cdf_bins, gather_rows) over all 22 chromosomes, as one
-    generation's launch gives them, the gather's one-table case (the dense
-    path's) as an entry; the per-chromosome kernels at chromosome 1's
-    shape."""
+    """Each segment kernel vs its plain version at main-path shapes,
+    stacked over all 22 chromosomes (the count and the merge over both
+    parents too) as one generation's launch gives them; as entries, the
+    gather's one-table case (the dense path's) and the count and the merge
+    at one chromosome."""
     import torch
 
     from geneevolve_tpu_torch.core import segments
@@ -344,29 +371,39 @@ def kernel_phase(dev) -> list:
     u = (s[..., :K] / s.gather(-1, counts[..., None]).clamp_min(1e-30)
          * cum[:, -1, None, None])
     del s
-    # parent ledgers: sorted valid prefix of ~16 boundaries, BIG padded
-    lens = torch.randint(1, live * 2, (n, 2, 1), generator=g, device=dev)
-    pos = torch.randint(1, chr_len, (n, 2, S), generator=g, device=dev,
+    # parent ledgers of every chromosome: sorted valid prefix of ~16
+    # boundaries, BIG padded
+    lens = torch.randint(1, live * 2, (nchr, n, 2, 1), generator=g,
+                         device=dev)
+    pos = torch.randint(1, chr_len, (nchr, n, 2, S), generator=g, device=dev,
                         dtype=torch.int32)
     slot = torch.arange(S, device=dev)
     pos = torch.where(slot < lens, pos, BIG).sort(-1).values
     pos[..., 0] = 0
-    par_st = pos.contiguous()
-    par_hap = torch.randint(0, 20_000, (n, 2, S), generator=g, device=dev,
+    seg_st = pos.contiguous()
+    del pos
+    seg_hap = torch.randint(0, 20_000, seg_st.shape, generator=g, device=dev,
                             dtype=torch.int16)
-    par_hap[par_st >= BIG] = 0
-    xo = segments.sample_point_process(g, n, K, cum[0], float(cum[0, -1]),
-                                       bp, float(width), False)
-    start = torch.randint(0, 2, (n,), generator=g, device=dev,
-                          dtype=torch.int32)
-    idx = torch.randint(0, n, (n,), generator=g, device=dev,
-                        dtype=torch.int32)
+    seg_hap[seg_st >= BIG] = 0
+    # each chromosome's crossovers from its own map and generator, for the
+    # father's gametes and the mother's, as `_plan` draws them
+    gens = [torch.Generator(device=dev).manual_seed(77 + c)
+            for c in range(nchr)]
+    xo_f, xo_m = (segments.sample_point_process_stacked(
+        gens, n, K, cum, cum[:, -1].tolist(), bp.expand(nchr, -1),
+        [float(width)] * nchr, False) for _ in range(2))
+    sh = torch.randint(0, 2, (nchr, n, 2), generator=g, device=dev,
+                       dtype=torch.int32)
+    parents = torch.randint(0, n, (2, n), generator=g, device=dev,
+                            dtype=torch.int32)
+    idx = parents[0]
     mut = torch.randint(0, chr_len, (nchr, n, 2, M), generator=g, device=dev,
                         dtype=torch.int32)
     cv = torch.randint(0, 2, (nchr, n, 2, C), generator=g, device=dev,
                        dtype=torch.uint8)
-    nc = n
-    idx_in = _nbytes(idx, xo, start)
+    count_args = (seg_st, parents, xo_f, xo_m, sh)
+    merge_args = (seg_st, seg_hap, parents, xo_f, xo_m, sh)
+    one = [x if x is parents else x[:1] for x in merge_args]  # chromosome 1
 
     cases = {
         "cdf_bins": (
@@ -376,10 +413,13 @@ def kernel_phase(dev) -> list:
                 cum, u.view(nchr, -1), right=True, out_int32=True)},
             None),
         "merge_count": (
-            lambda: mc.merge_count(par_st, idx, xo, start),
-            lambda: mc.merge_count_plain(par_st, idx, xo, start),
-            _bound(_rows_read(par_st, idx) + idx_in + 4 * nc,
-                   nc * (2 * S + K) * _log2(K + 1)), None, None),
+            lambda: mc.merge_count(*count_args),
+            lambda: mc.merge_count_plain(*count_args),
+            _count_work(*count_args), None,
+            ("one_chromosome",
+             lambda: mc.merge_count(one[0], *one[2:]),
+             lambda: mc.merge_count_plain(one[0], *one[2:]),
+             _count_work(one[0], *one[2:]), None)),
         "gather_rows": (
             lambda: mat.gather_rows_stacked(cv, idx),
             lambda: mat.gather_rows_stacked_plain(cv, idx),
@@ -389,13 +429,13 @@ def kernel_phase(dev) -> list:
              lambda: mat.gather_rows_plain(cv[0], idx),
              _gather_work(cv[0], idx, 0), _gather_library(cv[0], idx, 0))),
         "meiose_merge": (
-            lambda: mm.meiose_merge(par_st, par_hap, idx, xo, start, S),
-            lambda: mm.meiose_merge_plain(par_st, par_hap, idx, xo, start, S,
-                                          True),
-            _bound(_rows_read(par_st, idx) + _rows_read(par_hap, idx)
-                   + idx_in + nc * (S * 6 + 4),
-                   nc * (K + 2 * S) * _log2(K + 2 * S)),
-            None, None),
+            lambda: mm.meiose_merge(*merge_args, S),
+            lambda: mm.meiose_merge_plain(*merge_args, S, True),
+            _merge_work(*merge_args, S), None,
+            ("one_chromosome",
+             lambda: mm.meiose_merge(*one, S),
+             lambda: mm.meiose_merge_plain(*one, S, True),
+             _merge_work(*one, S), None)),
     }
     results = []
     for name, (kern, plain, work, library, entry) in cases.items():
@@ -409,8 +449,8 @@ def kernel_phase(dev) -> list:
         results.append(r)
     # the other merge mode and the mutation-row gathers: exactness only
     for got, want in (
-        (mm.meiose_merge(par_st, par_hap, idx, xo, start, S, False),
-         mm.meiose_merge_plain(par_st, par_hap, idx, xo, start, S, False)),
+        (mm.meiose_merge(*merge_args, S, False),
+         mm.meiose_merge_plain(*merge_args, S, False)),
         (mat.gather_rows_stacked(mut, idx),
          mat.gather_rows_stacked_plain(mut, idx)),
         (mat.gather_rows(mut[0], idx), mat.gather_rows_plain(mut[0], idx)),
@@ -691,14 +731,18 @@ def _checksum(u):
 def segment_slice(dev, work: Path) -> dict:
     """The segment engine's slice, and its probe/real-pass tripwire. Kept
     under `captured` for `segment_slice_kernels`: the last generation's
-    gather inputs (the parents' planes, live anyway) and its plan's
-    arguments with a checksum of each of its stacked probe tensors (one
-    reduction on the card, no copy and no host sync inside the timed run),
-    so that the probes are drawn again after the run."""
+    gather inputs (the parents' planes, live anyway), its count's and
+    merge's parent ledgers and parent rows (references), and its plan's
+    arguments with a checksum of each of its stacked probe tensors and of
+    the crossovers and starts the count and the merge took (one reduction
+    on the card each, no copy and no host sync inside the timed run), so
+    that the plan is drawn again after the run."""
     from geneevolve_tpu_torch.core import engine, segments
 
-    captured = {"cdf_bins": [], "gather_rows": [], "plan": None}
+    captured = {"cdf_bins": [], "gather_rows": [], "merge_count": [],
+                "meiose_merge": [], "plan": None}
     bins, gather = segments.cdf_bins, engine.gather_rows_stacked
+    count, merge = engine.merge_count, engine.meiose_merge
     plan = engine.Simulation._plan
     last = {k: v * (SCENARIO["gens"] - 1) for k, v in SEGMENT_PER_GEN.items()}
     seen = {k: 0 for k in SEGMENT_PER_GEN}
@@ -721,12 +765,27 @@ def segment_slice(dev, work: Path) -> dict:
             captured["gather_rows"].append((table, idx))
         return gather(table, idx)
 
+    def count_rec(seg_st, parents, xo_f, xo_m, sh):
+        if last_gen("merge_count"):
+            captured["merge_count"].append((seg_st, parents, [
+                _checksum(x) for x in (xo_f, xo_m, sh)]))
+        return count(seg_st, parents, xo_f, xo_m, sh)
+
+    def merge_rec(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap, merge_ibd):
+        if last_gen("meiose_merge"):
+            captured["meiose_merge"].append((seg_st, seg_hap, parents, cap,
+                                             merge_ibd, [_checksum(x) for x
+                                                         in (xo_f, xo_m, sh)]))
+        return merge(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap, merge_ibd)
+
     segments.cdf_bins, engine.gather_rows_stacked = bins_rec, gather_rec
+    engine.merge_count, engine.meiose_merge = count_rec, merge_rec
     engine.Simulation._plan = plan_rec
     try:
         out = slice_phase(dev, work, "table31", SCENARIO)
     finally:
         segments.cdf_bins, engine.gather_rows_stacked = bins, gather
+        engine.merge_count, engine.meiose_merge = count, merge
         engine.Simulation._plan = plan
     out["captured"] = captured
     log = out.pop("sim").capacity_log
@@ -740,23 +799,27 @@ def segment_slice(dev, work: Path) -> dict:
 
 
 def segment_slice_kernels(kernels: list, captured: dict) -> None:
-    """The stacked bins and row gathers against their plain versions on
-    the segment slice's last generation's own inputs (its 3 bins and 4
-    gather launches), bit-exact; each result is added to its kernel's
-    `entries`. The probes are drawn again by the last generation's `_plan`
-    (a fresh generator per chromosome, seeded from the generation), and
-    must match the run's checksums."""
+    """The stacked kernels against their plain versions on the segment
+    slice's last generation's own inputs (its 3 bins, 4 gather, 1 count and
+    1 merge launches; the merge in both modes), bit-exact; each result is
+    added to its kernel's `entries`. The plan is drawn again by the last
+    generation's `_plan` (a fresh generator per chromosome, seeded from the
+    generation): its probes, crossovers and starts must match the run's
+    checksums."""
     import torch
 
     from geneevolve_tpu_torch.core import segments
     from geneevolve_tpu_torch.ops import cdf_bins as cb
     from geneevolve_tpu_torch.ops import materialize as mat
+    from geneevolve_tpu_torch.ops import meiose_merge as mm
+    from geneevolve_tpu_torch.ops import merge_count as mc
 
     by_name = {k["name"]: k for k in kernels}
     names = {"cdf_bins": ("crossovers_father", "crossovers_mother",
                           "mutations"),
              "gather_rows": ("cv_rows_father", "mutation_rows_father",
-                             "cv_rows_mother", "mutation_rows_mother")}
+                             "cv_rows_mother", "mutation_rows_mother"),
+             "merge_count": ("probe",), "meiose_merge": ("real_pass",)}
     if any(len(captured[k]) != len(v) for k, v in names.items()):
         raise AssertionError(
             "segment slice: last generation's launches "
@@ -770,7 +833,7 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
 
     segments.cdf_bins = bins_rec
     try:
-        sim._plan(p, gen, n_pad)
+        xo_f, xo_m, sh = sim._plan(p, gen, n_pad)[:3]
     finally:
         segments.cdf_bins = bins
     del sim
@@ -778,6 +841,11 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
             int(c) for c in captured["cdf_bins"]]:
         raise AssertionError("segment slice: the last generation's probes, "
                              "drawn again, differ from the run's")
+    sums = [int(_checksum(x)) for x in (xo_f, xo_m, sh)]
+    for k in ("merge_count", "meiose_merge"):
+        if [int(c) for c in captured[k][0][-1]] != sums:
+            raise AssertionError(f"segment slice: the crossovers and starts "
+                                 f"drawn again differ from the {k} run's")
     for (u, cum), what in zip(probes, names["cdf_bins"]):
         shape = f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs"
         r = _compare(f"cdf_bins/segment_slice/{what}",
@@ -799,6 +867,32 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
                      _gather_library(table, idx, 1))
         by_name["gather_rows"].setdefault("entries", []).append(
             dict(entry=f"segment_slice/{what}", shape=shape, **r))
+    seg_st, parents, _ = captured["merge_count"][0]
+    count = (seg_st, parents, xo_f, xo_m, sh)
+    shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
+             f"parents of {tuple(seg_st.shape)} ledgers, K {xo_f.shape[2]}")
+    r = _compare("merge_count/segment_slice/probe",
+                 lambda: mc.merge_count(*count),
+                 lambda: mc.merge_count_plain(*count), _count_work(*count))
+    by_name["merge_count"].setdefault("entries", []).append(
+        dict(entry="segment_slice/probe", shape=shape, **r))
+    seg_st, seg_hap, parents, cap, merge_ibd, _ = captured["meiose_merge"][0]
+    merge = (seg_st, seg_hap, parents, xo_f, xo_m, sh)
+    shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
+             f"parents of {tuple(seg_st.shape)} {seg_hap.dtype} ledgers, "
+             f"K {xo_f.shape[2]}, cap {cap}")
+    r = _compare("meiose_merge/segment_slice/real_pass",
+                 lambda: mm.meiose_merge(*merge, cap, merge_ibd),
+                 lambda: mm.meiose_merge_plain(*merge, cap, merge_ibd),
+                 _merge_work(*merge, cap))
+    if _max_abs_err(mm.meiose_merge(*merge, cap, not merge_ibd),
+                    mm.meiose_merge_plain(*merge, cap, not merge_ibd)) != 0:
+        raise AssertionError("meiose_merge differs from its plain version "
+                             f"on the slice's ledgers, merge_ibd "
+                             f"{not merge_ibd}")
+    by_name["meiose_merge"].setdefault("entries", []).append(
+        dict(entry="segment_slice/real_pass", shape=shape,
+             other_mode_exact=True, **r))
 
 
 def dense_slice(dev, work: Path) -> dict:

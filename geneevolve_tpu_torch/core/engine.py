@@ -692,22 +692,19 @@ class Simulation:
         return (xo_f, xo_m, sh, torch.where(which == 0, new, BIG),
                 torch.where(which == 1, new, BIG))
 
-    def _capacity_probe(self, st: PopState, father, mother, plan):
+    def _capacity_probe(self, st: PopState, parents, plan):
         """Exact ledger-slot and (conservative) mutation-slot needs of the
-        coming real pass: (seg_need, mut_need) as host ints."""
+        coming real pass: (seg_need, mut_need) as host ints. One count
+        launch over every chromosome and both parents."""
         xo_f, xo_m, sh, new_f, new_m = plan
-        seg, mut = [], []
-        for ci in range(st.seg_st.shape[0]):
-            nv0 = merge_count(st.seg_st[ci], father, xo_f[ci], sh[ci, :, 0])
-            nv1 = merge_count(st.seg_st[ci], mother, xo_m[ci], sh[ci, :, 1])
-            seg.append(torch.maximum(nv0.max(), nv1.max()))
-            if self.has_mut:
-                mreal = (st.mut[ci] < BIG).sum((1, 2))
-                newr = (new_f[ci] < BIG).sum(1) + (new_m[ci] < BIG).sum(1)
-                mut.append(torch.maximum(mreal[father.long()],
-                                         mreal[mother.long()]).add(newr).max())
-        seg_need = int(torch.stack(seg).max())  # one host sync
-        mut_need = int(torch.stack(mut).max()) if mut else 0
+        seg = merge_count(st.seg_st, parents, xo_f, xo_m, sh).amax().long()
+        if not self.has_mut:
+            return int(seg), 0
+        mreal = (st.mut < BIG).sum((2, 3))  # (nchr, rows) parent mutations
+        newr = (new_f < BIG).sum(2) + (new_m < BIG).sum(2)  # (nchr, nc)
+        p = parents.long()
+        mut = torch.maximum(mreal[:, p[0]], mreal[:, p[1]]).add(newr).amax()
+        seg_need, mut_need = torch.stack([seg, mut]).tolist()  # one sync
         return seg_need, mut_need
 
     def _check_capacity_guard(self) -> None:
@@ -736,15 +733,14 @@ class Simulation:
         n_child = len(plan.child_father)
         n_pad = self._child_rows(p, gen, n_child, st.seg_st.shape[1])
 
-        def idx(a):  # parent rows, padded with parent 0
-            return torch.as_tensor(np.pad(a, (0, n_pad - n_child)),
-                                   dtype=torch.int32, device=self.device)
-
-        father, mother = idx(plan.child_father), idx(plan.child_mother)
+        # (2, n_pad) father's and mother's rows, padded with parent 0
+        parents = torch.as_tensor(
+            np.pad(np.stack([plan.child_father, plan.child_mother]),
+                   ((0, 0), (0, n_pad - n_child))),
+            dtype=torch.int32, device=self.device)
         with self.timer("reproduce/probe"):
             draws = self._plan(p, gen, n_pad)
-            seg_need, mut_need = self._capacity_probe(st, father, mother,
-                                                      draws)
+            seg_need, mut_need = self._capacity_probe(st, parents, draws)
         if seg_need > self.s_cap:
             self.s_cap = seg_need * 3 // 2 + 8
             st.seg_st = _pad_last(st.seg_st, self.s_cap, BIG)
@@ -757,8 +753,7 @@ class Simulation:
             self._log(f"      [capacity grow] M={self.m_cap}")
             self._check_fits()
         t0 = time.perf_counter()
-        planes, seg_used, mut_used = self._real_pass(st, father, mother,
-                                                     draws)
+        planes, seg_used, mut_used = self._real_pass(st, parents, draws)
         if self.cfg.stage_sync:
             telemetry.device_fence(self.device)
         self.timer.add("reproduce/real", time.perf_counter() - t0)
@@ -772,7 +767,7 @@ class Simulation:
             **self._child_host_fields(p, gen, plan),
         )
 
-    def _real_pass(self, st: PopState, father, mother, draws):
+    def _real_pass(self, st: PopState, parents, draws):
         """Every chromosome's children, written into fresh planes
         (`reproduce`, `Simulation.cpp:2394-2493`; the JAX `_make_per_chr` /
         `_per_chr_rows`). Returns ((seg_st,
@@ -780,36 +775,28 @@ class Simulation:
         on the device."""
         xo_f, xo_m, sh, new_f, new_m = draws
         nchr = st.seg_st.shape[0]
-        nc = father.shape[0]
+        nc = parents.shape[1]
         dev = self.device
-        c_st = torch.empty((nchr, nc, 2, self.s_cap), dtype=torch.int32,
-                           device=dev)
-        c_hap = torch.empty((nchr, nc, 2, self.s_cap), dtype=self.hap_dtype,
-                            device=dev)
+        # every chromosome's and both parents' ledgers: one merge launch
+        c_st, c_hap, nv = meiose_merge(st.seg_st, st.seg_hap, parents, xo_f,
+                                       xo_m, sh, self.s_cap, self.merge_ibd)
         c_mut = torch.full((nchr, nc, 2, self.m_cap), BIG, dtype=torch.int32,
                            device=dev)
         c_cv = torch.empty((nchr, nc) + tuple(st.cv.shape[2:]),
                            dtype=torch.uint8, device=dev)
-        seg_used, mut_used = [], []
+        mut_used = []
         chunk = self.gather_chunk
         for g, c0 in itertools.product(range(2), range(0, nchr, chunk)):
             # this parent's CV and mutation rows of `chunk` chromosomes: one
             # stacked gather each (4 launches a generation when chunk is
             # every chromosome)
-            par = (father, mother)[g]
+            par = parents[g]
             cv_rows = gather_rows_stacked(st.cv[c0:c0 + chunk], par)
             mut_rows = (gather_rows_stacked(st.mut[c0:c0 + chunk], par)
                         if self.has_mut else None)
             for ci in range(c0, min(c0 + chunk, nchr)):
                 xo = (xo_f, xo_m)[g][ci]
                 start = sh[ci, :, g].contiguous()
-                s_g, h_g, nv = meiose_merge(
-                    st.seg_st[ci], st.seg_hap[ci], par, xo, start,
-                    self.s_cap, self.merge_ibd,
-                )
-                c_st[ci, :, g] = s_g
-                c_hap[ci, :, g] = h_g
-                seg_used.append(nv.max())
                 pm = None if mut_rows is None else mut_rows[ci - c0]
                 new_g = (new_f, new_m)[g][ci]
                 if self.has_mut:
@@ -826,7 +813,7 @@ class Simulation:
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return (
             (c_st, c_hap, c_mut, c_cv),
-            torch.stack(seg_used).max(),
+            nv.amax(),
             torch.stack(mut_used).max() if mut_used else zero,
         )
 

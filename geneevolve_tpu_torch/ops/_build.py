@@ -35,10 +35,13 @@ _I64 = ctypes.c_int64
 # name -> argtypes (restype is always int: a cudaError_t)
 SIGNATURES = {
     "ge_cdf_bins": [_P, _P, _P, _I64, _I64, _I, _P],
-    "ge_merge_count": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "ge_merge_count": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
+    ],
     "ge_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "ge_meiose_merge": [
-        _P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P,
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,
+        _I, _I, _I, _P,
     ],
     "ge_meiose_packed": [
         _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _I64,

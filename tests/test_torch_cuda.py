@@ -16,8 +16,8 @@ from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
-from torch_cases import (CASES, cdf, crossovers, dense_plan, foreign_slots,
-                         ledger, mutation_loci, probes)
+from torch_cases import (BIG, CASES, STACKED_CASES, cdf, dense_plan,
+                         foreign_slots, mutation_loci, probes, stacked)
 
 T = torch.as_tensor
 
@@ -93,24 +93,99 @@ def test_cuda_gather_stacked_kernel(cuda, B, R, dtype):
     assert torch.equal(tmat.gather_rows(table[B - 1], idx), want[B - 1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n, S, K, live", CASES)
-def test_cuda_count_and_merge_kernels(cuda, n, S, K, live):
-    rng = np.random.default_rng(n)
-    st, hap = ledger(rng, n, S, live, hap_dtype=np.int16)
-    xo = crossovers(rng, n, K, st)
-    sh = rng.integers(0, 2, size=n).astype(np.int32)
-    idx = rng.integers(0, n, size=n).astype(np.int32)
-    a = [T(x, device=cuda) for x in (st, hap, idx, xo, sh)]
-    got = tcount.merge_count(a[0], a[2], a[3], a[4])
-    assert torch.equal(got, tcount.merge_count_plain(a[0], a[2], a[3], a[4]))
+def _count_and_merge(cuda, st, hap, parents, xo_f, xo_m, sh, caps):
+    """Both kernels against their plain versions, the merge in both modes
+    at each cap; returns the operands on the card."""
+    a = [T(x, device=cuda) for x in (st, hap, parents, xo_f, xo_m, sh)]
+    count = (a[0], *a[2:])
+    got = tcount.merge_count(*count)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tcount.merge_count_plain(*count))
     for merge_ibd in (True, False):
-        for cap in (S + K, 4):
+        for cap in caps:
             got = tmerge.meiose_merge(*a, cap, merge_ibd)
             want = tmerge.meiose_merge_plain(*a, cap, merge_ibd)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, S, K, live", CASES)
+def test_cuda_count_and_merge_kernels(cuda, n, S, K, live):
+    rng = np.random.default_rng(n)
+    _count_and_merge(cuda, *stacked(rng, 1, n, S, K, live), (S + K, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hap_dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("nchr, n, S, K, live", STACKED_CASES + [
+    (1, 24, 3000, 40, 2900),  # one gamete's rows past 48 KB (opt-in)
+])
+def test_cuda_stacked_count_and_merge_kernels(cuda, nchr, n, S, K, live,
+                                              hap_dtype):
+    """Several chromosomes and both parents a launch, K past 32, S past 64,
+    caps below the counts; a slice of the stacked chromosomes gives that
+    slice of the result."""
+    rng = np.random.default_rng(nchr * n + S)
+    a = _count_and_merge(cuda, *stacked(rng, nchr, n, S, K, live, hap_dtype),
+                         (S + K, S // 3))
+    part = [x[1:] if x.dim() > 2 else x for x in a]
+    if nchr > 1:
+        assert torch.equal(tcount.merge_count(part[0], *part[2:]),
+                           tcount.merge_count(a[0], *a[2:])[1:])
+        for g, w in zip(tmerge.meiose_merge(*part, S), tmerge.meiose_merge(
+                *a, S)):
+            assert torch.equal(g, w[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_merge_refuses_rows_past_shared_memory(cuda):
+    """One gamete's rows above a block's 227 KB: the wrapper raises."""
+    rng = np.random.default_rng(5)
+    a = [T(x, device=cuda)
+         for x in stacked(rng, 1, 4, 10_000, 8, 20, np.int32)]
+    with pytest.raises(ValueError):
+        tmerge.meiose_merge(*a, 10_000)
+
+
+@pytest.mark.cuda
+def test_cuda_count_and_merge_at_slice_shape(cuda):
+    """The segment slice's stacked shape: 22 chromosomes x 30,708 plane
+    rows, S 49, K 23, ledgers of ~16 live boundaries, crossovers at parent
+    boundaries and duplicated."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    nchr, n, S, K = 22, 30_708, 49, 23
+    lens = torch.randint(1, 32, (nchr, n, 2, 1), generator=g, device=cuda)
+    pos = torch.randint(1, 249_000_000, (nchr, n, 2, S), generator=g,
+                        device=cuda, dtype=torch.int32)
+    slot = torch.arange(S, device=cuda)
+    st = torch.where(slot < lens, pos, BIG).sort(-1).values
+    st[..., 0] = 0
+    hap = torch.randint(0, 20_000, st.shape, generator=g, device=cuda,
+                        dtype=torch.int16)
+    hap[st >= BIG] = 0
+    parents = torch.randint(0, n, (2, n), generator=g, device=cuda,
+                            dtype=torch.int32)
+    xo = []
+    for p in parents.long():
+        cnt = torch.randint(0, K + 1, (nchr, n, 1), generator=g, device=cuda)
+        x = torch.randint(1, 249_000_000, (nchr, n, K), generator=g,
+                          device=cuda, dtype=torch.int32)
+        x[..., 0] = st[:, p, 0, 1].clamp(max=248_999_999)  # a boundary
+        x[..., 1] = x[..., 0]  # duplicated
+        xo.append(torch.where(torch.arange(K, device=cuda) < cnt, x, BIG))
+    sh = torch.randint(0, 2, (nchr, n, 2), generator=g, device=cuda,
+                       dtype=torch.int32)
+    a = (st.contiguous(), hap, parents, *xo, sh)
+    assert torch.equal(tcount.merge_count(a[0], *a[2:]),
+                       tcount.merge_count_plain(a[0], *a[2:]))
+    for merge_ibd in (True, False):
+        got = tmerge.meiose_merge(*a, S, merge_ibd)
+        want = tmerge.meiose_merge_plain(*a, S, merge_ibd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, w) for x, w in zip(got, want))
 
 
 @pytest.mark.cuda

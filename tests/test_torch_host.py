@@ -11,6 +11,8 @@ C formatter. Every comparison is exact: no tolerance.
 
 import dataclasses
 import io
+import os
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -252,16 +254,35 @@ def test_vcf_and_plink_files_equal(mini_scenario, codec, tmp_path):
                          tmp_path / f"jax.{letters}.{ext}")
 
 
+def _info_rows(ids, vals) -> bytes:
+    """The info-file body as the engines' Python row loop writes it when
+    no codec is built."""
+    return b"".join(
+        (" ".join(str(x) for x in i) + " "
+         + " ".join(f"{x:g}" for x in v) + "\n").encode()
+        for i, v in zip(ids, vals))
+
+
 def test_format_info_equal():
+    """The port's C formatter writes the JAX package's bytes: its codec's
+    where that loaded in this process, else its Python row loop's text.
+    The JAX loader builds `_codecs.so` in place, so a process that raced
+    another's build may hold no codec; the port's own loader builds under
+    a temporary name and must load wherever `g++` is present."""
     rng = np.random.default_rng(9)
     ids = rng.integers(0, 10**9, size=(513, 8), dtype=np.int64)
     vals = rng.normal(scale=1e3, size=(513, 10))
     vals[::7, 3] = 0.0
     vals[5, 1] = np.nan
-    got, want = tnative.format_info(ids, vals), jnative.format_info(ids, vals)
+    got = tnative.format_info(ids, vals)
+    if shutil.which("g++") and os.environ.get("GE_NO_NATIVE") != "1":
+        assert tnative.load() is not None
+    if got is None:  # no toolchain here: the pure-Python paths serve
+        pytest.skip("no C++ toolchain: the port's codec is not built")
+    want = (jnative.format_info(ids, vals) if jnative.load() is not None
+            else _info_rows(ids, vals))
     assert got == want
-    if tnative.load() is not None:  # a C toolchain: the codec built
-        assert got is not None and got.count(b"\n") == 513
+    assert got == _info_rows(ids, vals)
 
 
 def test_codec_builds_outside_the_source_tree():

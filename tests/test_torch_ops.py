@@ -20,8 +20,8 @@ from geneevolve_tpu_torch.ops import cdf_bins as tbins
 from geneevolve_tpu_torch.ops import materialize as tmat
 from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import merge_count as tcount
-from torch_cases import BIG, CASES, cdf as _cdf, crossovers as _crossovers
-from torch_cases import ledger as _ledger, probes as _probes
+from torch_cases import CASES, STACKED_CASES, cdf as _cdf, probes as _probes
+from torch_cases import stacked as _stacked_case
 
 T = torch.as_tensor
 # one intra-op thread: under xdist these tests share the CPU with the JAX
@@ -91,22 +91,69 @@ def test_bins_stacked_match_rows_and_jax(C, K):
             np.testing.assert_array_equal(got[c], want)
 
 
+def _stacked(seed, nchr, n, S, K, live, hap_dtype=np.int16):
+    return _stacked_case(np.random.default_rng(seed), nchr, n, S, K, live,
+                         hap_dtype)
+
+
+def _gametes(st, parents, xo_f, xo_m, sh):
+    """Each chromosome's and parent's JAX operands: (c, g, parent rows of
+    chromosome c, crossovers, starts)."""
+    for c in range(st.shape[0]):
+        for g, xo in enumerate((xo_f, xo_m)):
+            yield c, g, st[c][parents[g]], xo[c], sh[c, :, g]
+
+
+def _check_count(st, parents, xo_f, xo_m, sh):
+    """The stacked count equals the JAX count and the Pallas kernel in
+    interpret mode for every chromosome and parent."""
+    got = tcount.merge_count(T(st), T(parents), T(xo_f), T(xo_m),
+                             T(sh)).numpy()
+    assert got.shape == xo_f.shape[:2] + (2,) and got.dtype == np.int32
+    for c, g, rows, xo, start in _gametes(st, parents, xo_f, xo_m, sh):
+        n, _, S = rows.shape
+        xla = np.asarray(jseg.count_merge_valid(
+            jnp.asarray(rows), jnp.asarray(xo), jnp.asarray(start)))
+        pallas = np.asarray(mcp.count_merge_valid_pallas(
+            jnp.asarray(rows.reshape(n, 2 * S)), jnp.asarray(xo),
+            jnp.asarray(start), interpret=True))
+        np.testing.assert_array_equal(got[c, :, g], xla)
+        np.testing.assert_array_equal(got[c, :, g], pallas)
+
+
+def _check_merge(st, hap, parents, xo_f, xo_m, sh, cap, merge_ibd):
+    """The stacked merge equals the JAX `meiose` (`merge3_T`) for every
+    chromosome and parent; returns the JAX uncapped counts."""
+    got = tmerge.meiose_merge(T(st), T(hap), T(parents), T(xo_f), T(xo_m),
+                              T(sh), cap, merge_ibd)
+    nchr, n = xo_f.shape[:2]
+    assert [tuple(x.shape) for x in got] == [(nchr, n, 2, cap)] * 2 + [
+        (nchr, n, 2)]
+    assert got[1].dtype == torch.from_numpy(hap).dtype
+    counts = []
+    for c, g, rows, xo, start in _gametes(st, parents, xo_f, xo_m, sh):
+        want = jseg.meiose(jnp.asarray(rows), jnp.asarray(hap[c][parents[g]]),
+                           jnp.asarray(xo), jnp.asarray(start), cap,
+                           merge_ibd)
+        for x, w in zip(got, want):
+            np.testing.assert_array_equal(x[c, :, g].numpy(), np.asarray(w))
+        counts.append(np.asarray(want[2]))
+    return np.concatenate(counts)
+
+
 @pytest.mark.parametrize("n, S, K, live", CASES)
 def test_count_matches_pallas_and_xla(n, S, K, live):
-    rng = np.random.default_rng(n + S)
-    st, _ = _ledger(rng, n, S, live)
-    xo = _crossovers(rng, n, K, st)
-    sh = rng.integers(0, 2, size=n).astype(np.int32)
-    idx = rng.permutation(n).astype(np.int32)
-    got = tcount.merge_count(T(st), T(idx), T(xo), T(sh)).numpy()
-    rows = st[idx]
-    xla = np.asarray(jseg.count_merge_valid(
-        jnp.asarray(rows), jnp.asarray(xo), jnp.asarray(sh)))
-    pallas = np.asarray(mcp.count_merge_valid_pallas(
-        jnp.asarray(rows.reshape(n, 2 * S)), jnp.asarray(xo),
-        jnp.asarray(sh), interpret=True))
-    np.testing.assert_array_equal(got, xla)
-    np.testing.assert_array_equal(got, pallas)
+    st, _, *rest = _stacked(n + S, 1, n, S, K, live)
+    _check_count(st, *rest)
+
+
+@pytest.mark.parametrize("nchr, n, S, K, live", STACKED_CASES)
+def test_stacked_count_matches_pallas_and_xla(nchr, n, S, K, live):
+    """Several chromosomes and both parents in one call; K past 32 and S
+    past 64 (the warp kernel's second crossover a lane and several
+    32-slot words)."""
+    st, _, *rest = _stacked(nchr * n + S, nchr, n, S, K, live)
+    _check_count(st, *rest)
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.int32, np.uint8])
@@ -141,47 +188,48 @@ def test_gather_stacked_matches_jax(dtype, R):
 @pytest.mark.parametrize("merge_ibd", [True, False])
 @pytest.mark.parametrize("n, S, K, live", CASES)
 def test_merge_matches_meiose(n, S, K, live, merge_ibd):
-    rng = np.random.default_rng(3 * n + K)
-    st, hap = _ledger(rng, n, S, live, hap_dtype=np.int16)
-    xo = _crossovers(rng, n, K, st)
-    sh = rng.integers(0, 2, size=n).astype(np.int32)
-    idx = rng.integers(0, n, size=n).astype(np.int32)
-    cap = S + K  # room for every boundary: nothing truncated
-    got = tmerge.meiose_merge(T(st), T(hap), T(idx), T(xo), T(sh), cap,
-                              merge_ibd)
-    want = jseg.meiose(jnp.asarray(st[idx]), jnp.asarray(hap[idx]),
-                       jnp.asarray(xo), jnp.asarray(sh), cap, merge_ibd)
-    assert got[1].dtype == torch.int16
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    args = _stacked(3 * n + K, 1, n, S, K, live)
+    _check_merge(*args, S + K, merge_ibd)  # room for every boundary
 
 
 def test_merge_truncates_like_meiose():
     """A cap below the boundary count: both keep the first `cap` slots and
-    report the uncapped count."""
-    rng = np.random.default_rng(11)
-    st, hap = _ledger(rng, 200, 16, 16)
-    xo = _crossovers(rng, 200, 9, st)
-    sh = rng.integers(0, 2, size=200).astype(np.int32)
-    idx = np.arange(200, dtype=np.int32)
+    report the uncapped count (the kept count without `merge_ibd`)."""
+    args = _stacked(11, 1, 200, 16, 9, 16, hap_dtype=np.int32)
     for merge_ibd in (True, False):
-        got = tmerge.meiose_merge(T(st), T(hap), T(idx), T(xo), T(sh), 6,
-                                  merge_ibd)
-        want = jseg.meiose(jnp.asarray(st), jnp.asarray(hap),
-                           jnp.asarray(xo), jnp.asarray(sh), 6, merge_ibd)
+        counts = _check_merge(*args, 6, merge_ibd)
         if merge_ibd:
-            assert (np.asarray(want[2]) > 6).any()
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert (counts > 6).any()
+
+
+@pytest.mark.parametrize("merge_ibd", [True, False])
+@pytest.mark.parametrize("nchr, n, S, K, live", STACKED_CASES)
+def test_stacked_merge_matches_meiose(nchr, n, S, K, live, merge_ibd):
+    args = _stacked(nchr * n + K, nchr, n, S, K, live)
+    _check_merge(*args, S + K, merge_ibd)
+
+
+@pytest.mark.parametrize("merge_ibd", [True, False])
+@pytest.mark.parametrize("S, K, cap", [(49, 23, 12), (130, 64, 40)])
+def test_stacked_merge_truncates_like_meiose(S, K, cap, merge_ibd):
+    """Caps below many gametes' counts, over several 32-slot words of the
+    output row; without `merge_ibd` the kept entries of the cut row."""
+    args = _stacked(S + cap, 3, 40, S, K, S - 8)
+    counts = _check_merge(*args, cap, merge_ibd)
+    if merge_ibd:
+        assert (counts > cap).any()
 
 
 @pytest.mark.parametrize("fn, args", [
     ("cdf_bins", lambda: (torch.zeros(3, dtype=torch.float64),
                           torch.zeros(3))),
     ("merge_count", lambda: (torch.zeros(2, 2, 3, dtype=torch.int32,
-                                         device="meta"),) * 4),
+                                         device="meta"),) * 5),
+    ("meiose_merge", lambda: (torch.zeros(1, 2, 2, 3, dtype=torch.int32,
+                                          device="meta"),) * 6 + (3,)),
 ])
 def test_wrappers_reject_bad_inputs(fn, args):
-    mod = {"cdf_bins": tbins, "merge_count": tcount}[fn]
+    mod = {"cdf_bins": tbins, "merge_count": tcount,
+           "meiose_merge": tmerge}[fn]
     with pytest.raises((TypeError, ValueError)):
         getattr(mod, fn)(*args())

@@ -49,6 +49,22 @@ def crossovers(rng, n, K, st, span=30000):
     return xo
 
 
+def stacked(rng, nchr, n, S, K, live, hap_dtype=np.int16):
+    """The segment path's stacked merge operands: (nchr, n, 2, S) ledgers
+    and haps, (2, n) father's and mother's rows, (nchr, n, K) crossovers of
+    each parent's gametes (some at that parent's boundaries) and (nchr, n,
+    2) start chromatids."""
+    st = np.empty((nchr, n, 2, S), np.int32)
+    hap = np.empty((nchr, n, 2, S), hap_dtype)
+    for c in range(nchr):
+        st[c], hap[c] = ledger(rng, n, S, live, hap_dtype=hap_dtype)
+    parents = rng.integers(0, n, size=(2, n)).astype(np.int32)
+    xo_f, xo_m = (np.stack([crossovers(rng, n, K, st[c][parents[g]])
+                            for c in range(nchr)]) for g in range(2))
+    sh = rng.integers(0, 2, size=(nchr, n, 2)).astype(np.int32)
+    return st, hap, parents, xo_f, xo_m, sh
+
+
 def dense_plan(rng, n, n_chr, chr_len, K):
     """(n, n_chr, K) crossover loci with the sampler's layout — real slots
     first, unsorted, pad = m — where every third row carries two
@@ -94,3 +110,8 @@ def mutation_loci(rng, n, m, Km):
 
 
 CASES = [(500, 49, 23, 14), (257, 8, 3, 5), (1024, 16, 9, 16), (300, 12, 5, 8)]
+# (nchr, n, S, K, live) for the stacked merge and count: the slice's S and
+# K, then K past one warp's lanes (two crossovers a lane) and S past two
+# and four 32-slot words with most slots live
+STACKED_CASES = [(3, 120, 49, 23, 14), (3, 60, 65, 33, 60),
+                 (3, 40, 130, 64, 120), (3, 40, 130, 33, 128)]
