@@ -13,9 +13,11 @@ Phases, each of which raises on failure (exit code non-zero):
    PyTorch call computes the same function, that call (`library_ms`:
    `torch.searchsorted`, `torch.index_select` on the rows as stored and
    on the rows viewed as whole integer words; a yardstick the port never
-   calls; these two kernels and their library calls are timed again with
-   10 calls queued between two events, `queued_ms`, where the device time
-   shows through the wrapper's host time), and each kernel's bound
+   calls; these two kernels and their library calls, and each entry of
+   the packed meiosis, are timed again with 10 calls queued between two
+   events, `queued_ms`, where the device time shows through the wrapper's
+   host time; the packed meiosis also prints the launch plan each entry
+   used), and each kernel's bound
    (`bound_ms`: the larger of its bytes, each input read once and each
    output written once, over HBM's 3.35 TB/s and its operations over the
    scalar lanes' 67 T/s) and roofline share: the bins, the row gather,
@@ -251,6 +253,46 @@ def _merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap) -> dict:
                   gametes * (K + 2 * S) * _log2(K + 2 * S))
 
 
+def _packed_need(rows: int, args, n_chr: int, chr_len: int,
+                 chunk=2048) -> int:
+    """Bytes of parent words the packed meiosis must read for these inputs
+    (`args`: fathers, mothers, xo_p, st_p, xo_m, st_m): each (parent row,
+    plane, word) that some gamete takes a bit from, read once. A word whose
+    phase mask is all zeros takes plane A only, all ones plane B only."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+
+    cfg = packed.PackedConfig(n=0, m=n_chr * chr_len, n_chr=n_chr)
+    fathers, mothers, xo_p, st_p, xo_m, st_m = args[:6]
+    need = torch.zeros((2, rows, cfg.mw), dtype=torch.int32,
+                       device=fathers.device)
+    for par, xo, st in ((fathers, xo_p, st_p), (mothers, xo_m, st_m)):
+        for i in range(0, par.shape[0], chunk):
+            mask = packed.phase_word_masks(xo[i:i + chunk], st[i:i + chunk],
+                                           cfg)
+            idx = par[i:i + chunk].long()
+            need[0].index_add_(0, idx, (mask != -1).int())
+            need[1].index_add_(0, idx, (mask != 0).int())
+    return 4 * int((need > 0).sum())
+
+
+def _packed_work(need: int, args, mu, n_chr: int, chr_len: int) -> dict:
+    """The packed meiosis's bound: the parent words it must read (`need`,
+    `_packed_need`'s bytes), the plan once, the child words written once;
+    one select (and, andnot, or) a child word. `full_rows_bound_ms`: the
+    same with both planes of every distinct parent row."""
+    import torch
+
+    n, mw = args[0].shape[0], n_chr * chr_len // 32
+    out_b = 2 * n * mw * 4
+    rest = _nbytes(*args[:6], mu) + out_b
+    work = _bound(need + rest, 3 * out_b)
+    full = torch.unique(torch.cat(args[:2])).numel() * 2 * mw * 4
+    work["full_rows_bound_ms"] = _bound(full + rest, 3 * out_b)["bound_ms"]
+    return work
+
+
 def _gather_library(table, idx, axis) -> dict:
     """`torch.index_select` of the rows as the table holds them, and of
     the same rows viewed as their widest whole integer words (8, 4, 2 or 1
@@ -288,11 +330,13 @@ def _max_abs_err(got, want) -> int:
 
 
 def _compare(name: str, kern, plain, work: dict, library=None,
-             reps_plain=3) -> dict:
+             reps_plain=3, queued=False) -> dict:
     """`kern()` bit-exact to `plain()`, then the median ms of the kernel,
     the plain version and each one-call library yardstick in `library`
     (name -> call), timed in turns; `library_ms` is the fastest of those.
-    `work` is `_bound`'s dict for these inputs."""
+    `work` is `_bound`'s dict for these inputs. With a library, or with
+    `queued`, the kernel (and the library) is also timed with 10 calls
+    queued (`queued_ms`)."""
     err = _max_abs_err(kern(), plain())
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain by {err}")
@@ -310,7 +354,7 @@ def _compare(name: str, kern, plain, work: dict, library=None,
     print(f" kernel {name:<26s} {r['ms']:.4f} ms   plain "
           f"{r['plain_ms']:.4f} ms{lib}   bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}, {r['roofline_share']:.1%})")
-    if library:
+    if library or queued:
         r["queued_ms"] = _time_queued(dict(kernel=kern, **library))
         print("   queued: " + "   ".join(
             f"{k} {v:.4f} ms" for k, v in r["queued_ms"].items()))
@@ -462,6 +506,18 @@ def kernel_phase(dev) -> list:
     return results
 
 
+def _compare_packed(name: str, kern, plain, work: dict, wrapper) -> dict:
+    """`_compare` for an entry of the packed meiosis, with the kernel also
+    timed queued (at the dense slice's shape the wrapper's host time is a
+    large part of one call) and the launch plan the entry used."""
+    import dataclasses
+
+    r = _compare(name, kern, plain, work, queued=True)
+    r["plan"] = dataclasses.asdict(wrapper.plan)
+    print("   plan: " + json.dumps(r["plan"]))
+    return r
+
+
 def dense_kernel_phase(dev) -> list:
     """The packed meiosis (three entries) at the flagship shape and the
     byte meiosis at n 4,096 x 1 Mi loci, each against its plain version,
@@ -495,31 +551,30 @@ def dense_kernel_phase(dev) -> list:
                       for _ in range(2)], 1)
     results = []
 
-    def work(planes, args, mu, out_bytes):
-        # parent words: the distinct parents' rows of each plane; child
-        # words written once; one select (and, andnot, or) per child word
-        rows = sum(_rows_read(h, args[0], args[1]) for h in planes)
-        return _bound(rows + _nbytes(*args, mu) + out_bytes, 3 * out_bytes)
+    need = _packed_need(n, args, cfg.n_chr, cfg.chr_len)
 
-    out_b = 2 * n * cfg.mw * 4
-    main = _compare("meiose_packed",
-                    lambda: mp.meiose_packed(hap, *args, mu, **kw),
-                    lambda: mp.meiose_packed_plain(hap, *args, mu, **kw),
-                    work([hap], args, mu, out_b))
+    def work(m):
+        return _packed_work(need, args, m, cfg.n_chr, cfg.chr_len)
+
+    main = _compare_packed("meiose_packed",
+                           lambda: mp.meiose_packed(hap, *args, mu, **kw),
+                           lambda: mp.meiose_packed_plain(hap, *args, mu,
+                                                          **kw),
+                           work(mu), mp.meiose_packed)
     entries = [dict(entry="no_mutations", replaces=PACKED_ENTRIES[
-        "no_mutations"], **_compare(
+        "no_mutations"], **_compare_packed(
             "meiose_packed/no_mutations",
             lambda: mp.meiose_packed(hap, *args, None, **kw),
             lambda: mp.meiose_packed_plain(hap, *args, None, **kw),
-            work([hap], args, None, out_b)))]
+            work(None), mp.meiose_packed))]
     hapA, hapB = hap[:, 0].contiguous(), hap[:, 1].contiguous()
     del hap
     entries.append(dict(entry="split_planes", replaces=PACKED_ENTRIES[
-        "split_planes"], **_compare(
+        "split_planes"], **_compare_packed(
             "meiose_packed/split_planes",
             lambda: mp.meiose_packed_split(hapA, hapB, *args, **kw),
             lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw),
-            work([hapA, hapB], args, None, out_b))))
+            work(None), mp.meiose_packed_split)))
     results.append(dict(name="meiose_packed", entries=entries, **main))
     del hapA, hapB
     torch.cuda.empty_cache()
@@ -951,18 +1006,15 @@ def dense_slice_kernels(kernels: list, captured: dict) -> None:
     from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_packed as mp
 
-    import torch
-
     args, kw = captured["meiose_packed"]
     cv_par, parent = captured["gather_rows"]
     hap = args[0]
-    out_b = args[1].shape[0] * 2 * hap.shape[2] * 4
     cases = {
         "meiose_packed": (
             lambda: mp.meiose_packed(*args, **kw),
             lambda: mp.meiose_packed_plain(*args, **kw),
-            _bound(_rows_read(hap, args[1], args[2]) + _nbytes(*args[1:])
-                   + out_b, 3 * out_b), None,
+            _packed_work(_packed_need(hap.shape[0], args[1:7], **kw),
+                         args[1:7], args[7], **kw), None,
             f"{args[1].shape[0]} children of {hap.shape[0]} rows x "
             f"{hap.shape[2]} words, {kw['n_chr']} chromosomes of "
             f"{kw['chr_len'] // 32} words, K {args[3].shape[2]}, "
@@ -977,7 +1029,11 @@ def dense_slice_kernels(kernels: list, captured: dict) -> None:
     }
     by_name = {k["name"]: k for k in kernels}
     for name, (kern, plain, work, library, shape) in cases.items():
-        r = _compare(f"{name}/dense_slice", kern, plain, work, library)
+        if name == "meiose_packed":
+            r = _compare_packed(f"{name}/dense_slice", kern, plain, work,
+                                mp.meiose_packed)
+        else:
+            r = _compare(f"{name}/dense_slice", kern, plain, work, library)
         by_name[name].setdefault("entries", []).append(
             dict(entry="dense_slice", shape=shape, **r))
         print(f"   ({shape})")

@@ -29,7 +29,7 @@ HOST_FIELDS = ("sex", "ids", "ped", "comp", "mv", "sv", "svf")
 PLANES = ("seg_st", "seg_hap", "mut", "cv")
 
 
-def state_from_numpy(d: dict, device="cpu") -> PopState:
+def state_from_numpy(d: dict, device="cuda") -> PopState:
     """`d` holds `n`, the four planes as arrays ((nchr, rows, 2, ...),
     rows >= n) and the host fields."""
     planes = {k: torch.as_tensor(np.array(d[k]), device=device)
@@ -55,7 +55,7 @@ def _words_out(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().view(np.uint32)
 
 
-def dense_state_from_numpy(d: dict, device="cpu") -> DensePopState:
+def dense_state_from_numpy(d: dict, device="cuda") -> DensePopState:
     """`d` holds `n`, `hap` ((rows, 2, mw) uint32 words), `cv` (a list of
     (rows, 2, ncv_j) uint8 arrays, one per phenotype) and the host
     fields."""
@@ -76,7 +76,7 @@ def dense_state_to_numpy(st: DensePopState) -> dict:
     return out
 
 
-def packed_state_from_numpy(d: dict, device="cpu") -> dict:
+def packed_state_from_numpy(d: dict, device="cuda") -> dict:
     """The packed step's state dict from numpy: `hap` uint32 words, `cv`
     uint8, `cv_idx` int32, `eff` float32, `clip` an integer."""
     return {

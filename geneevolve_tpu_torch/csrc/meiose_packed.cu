@@ -1,4 +1,4 @@
-// Packed meiosis: one child's two gametes, 32 loci per 32-bit word.
+// Packed meiosis: both gametes of every child, 32 loci per 32-bit word.
 //
 // Replaces geneevolve_tpu/ops/meiosis_packed_pallas.py `meiose_packed_pallas`
 // and its layout experiments tools/kexp.py `meiose_v2` (split planes, no
@@ -14,139 +14,359 @@
 // the combined (N, 2, mw) layout (stride 2*mw, B at +mw) and the split
 // (N, mw) x 2 layout of `meiose_v2` are the same kernel.
 //
-// Bound: memory. A generation moves 6 x n x mw x 4 bytes (two parent
-// planes read per gamete, one child plane written per gamete); the mask
-// costs a few integer ops per real crossover per word. Design: one block
-// per (child, chunk of 4,096 words); the block stages that child's real
-// crossover loci (slots < m, in any order, compacted), their counts, the
-// start chromatids and the real mutation loci in shared memory, then each
-// thread moves 16 bytes (four words) per load and store, consecutive
-// threads on consecutive words, so every access coalesces. Slots are not
-// assumed sorted, nor a prefix: every slot < m is XORed in, exactly as the
-// plain version XORs every slot (a pad slot = m contributes zero there).
-// Mutations flip per occurrence: a locus drawn twice cancels.
+// Bound: memory. A child word needs its parent's word of one chromatid
+// only, unless a crossover lies inside it, so a generation must move about
+// 4 x n x mw x 4 bytes (a parent plane read and a child plane written per
+// gamete), less where siblings share parents' words.
+//
+// Design: the work is cut into tiles aligned to chromosomes, a tile being
+// (child, gamete, chromosome, span of words), in that order, so siblings'
+// tiles (children sorted by couple sit next to each other) run close
+// together and read their parents' words again while still in L2. A group
+// of G threads owns a tile (G a power of two, 4..256): a warp holds 32 / G
+// tiles, or a tile spans G / 32 warps. Thread t of a group moves the tile's
+// accesses t, t + G, ... (an access is VW = 4 words, one 16-byte copy, or
+// VW = 1 word where the layout is not 16-byte aligned), at most kPerThread
+// of them. The host's launch plan (ops/meiose_packed.py `launch_plan`)
+// picks VW, G, the accesses a thread and the tiles a chromosome.
+//
+// Each warp copies its tiles' plan into its own slice of shared memory with
+// asynchronous copies, 32 slots a copy instruction (the tiles' crossover
+// rows end to end, then their gametes' mutation rows), and classifies it in
+// place, 32 slots a pass, waiting at __syncwarp only: one ballot marks the
+// crossovers whose word lies before their tile (their parity and the start
+// chromatid give the tile's phase; the foreign slots of an earlier
+// chromosome, whose local locus is negative, are among them), another those
+// inside it, a third the mutations inside it. Slots are not assumed sorted,
+// nor a prefix: every slot is classified, as the plain version XORs every
+// slot (a pad slot = m, or any slot past the chromosome, lies after the
+// tile). A thread's phase at each of its accesses is then O(1) a word: each
+// crossover of the tile flips the phase of the thread's accesses after it
+// (a bit mask over its accesses). So the thread copies only the parent
+// plane an access takes, both planes only where a crossover lies inside the
+// access, and only such an access, or one that holds a mutation, takes the
+// per-word path. Mutations flip per occurrence: a locus drawn twice
+// cancels. Child words are written with streaming stores: nothing here
+// reads them again.
+#include <climits>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWordsPerBlock = 4096;
+constexpr int kPerThread = 4;  // accesses of each parent plane a thread moves
+constexpr int kRows = 8;  // tiles a warp holds, at most
 
-struct Staged {
-  const int32_t* xs;    // [2][n_chr][K] real crossovers, local loci
-  const int32_t* xcnt;  // [2][n_chr]
-  const int32_t* st;    // [2][n_chr] start chromatids
-  const int32_t* mus;   // [2][km] real mutation loci, global
-  const int32_t* mcnt;  // [2]
+struct Params {
+  const uint32_t* a;  // chromatid A of parent row 0
+  const uint32_t* b;  // chromatid B of parent row 0
+  int64_t par_stride;
+  uint32_t* out0;  // gamete 0 of child 0
+  uint32_t* out1;  // gamete 1 of child 0
+  int64_t out_stride;
+  const int32_t* fathers;
+  const int32_t* mothers;
+  const int32_t* xo_p;
+  const int32_t* st_p;
+  const int32_t* xo_m;
+  const int32_t* st_m;
+  const int32_t* mu;  // null when km == 0
+  int km, n_chr, K;
+  int cw;  // words a chromosome
+  int acc;  // accesses a chromosome row: cw / VW
+  int span;  // accesses a tile: G x accesses a thread
+  int per_thread;
+  int splits;  // tiles a chromosome row
+  int log_group;  // log2 G
+  int tpw;  // tiles a warp: 32 / G, or 1
+  int n_tiles;
+  int plan_words;  // shared words of a warp's plan (a multiple of 4)
+  int warp_words;  // shared words a warp: its plan, then its parent words
 };
 
-__device__ __forceinline__ uint32_t child_word(uint32_t a, uint32_t b, int w,
-                                               int g, int n_chr, int K,
-                                               int km, int cw,
-                                               const Staged& s) {
-  const int c = w / cw;
-  const int wl = w - c * cw;
-  const int r = g * n_chr + c;
-  uint32_t mask = (s.st[r] & 1) ? 0xFFFFFFFFu : 0u;
-  const int32_t* x = s.xs + r * K;
-  const int nx = s.xcnt[r];
-  for (int k = 0; k < nx; ++k) {
-    const int xl = x[k];
-    const int xw = xl >> 5;  // arithmetic, as the plain version's int32 >>
-    if (wl > xw) {
-      mask = ~mask;
-    } else if (wl == xw) {
-      mask ^= 0xFFFFFFFFu << (xl & 31);
-    }
+struct Tile {
+  int child, g, ch, s;  // child, gamete, chromosome, span of the chromosome
+};
+
+__device__ __forceinline__ Tile tile_at(int tile, const Params& p) {
+  int u = tile, s = 0;
+  if (p.splits > 1) {
+    u = tile / p.splits;
+    s = tile - u * p.splits;
   }
-  uint32_t out = a ^ (mask & (a ^ b));
-  const int32_t* mu = s.mus + g * km;
-  const int nm = s.mcnt[g];
-  for (int k = 0; k < nm; ++k) {
-    const int p = mu[k];
-    if ((p >> 5) == w) out ^= 1u << (p & 31);
-  }
-  return out;
+  const int gc = u / p.n_chr;
+  return Tile{gc >> 1, gc & 1, u - gc * p.n_chr, s};
 }
 
-template <bool kVec>
+// Asynchronous copies into shared memory (no registers held while in flight)
+__device__ __forceinline__ void copy_async(void* dst, const uint4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async(void* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async(void* dst, const int32_t* src) {
+  copy_async(dst, reinterpret_cast<const uint32_t*>(src));
+}
+// wait for every copy this thread has issued
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+__device__ __forceinline__ void words_of(const uint4& v, uint32_t* w) {
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+__device__ __forceinline__ void words_of(const uint32_t& v, uint32_t* w) {
+  w[0] = v;
+}
+__device__ __forceinline__ void set_words(uint4& v, const uint32_t* w) {
+  v = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void set_words(uint32_t& v, const uint32_t* w) {
+  v = w[0];
+}
+
+// A warp's plan, flat: its tile r's K crossover slots at fx[r K ...] and
+// its gamete's km mutation slots at fm[r km ...]; bit b of mask word w
+// marks flat slot 32 w + b: inside its tile (`x_in`, `m_in`) or, for a
+// crossover, before it (`x_before`).
+__device__ __forceinline__ uint32_t range_bits(int w, int lo, int n) {
+  const int a = max(lo - 32 * w, 0), b = min(lo + n - 32 * w, 32);
+  return (b == 32 ? GE_FULL : (1u << b) - 1) & ~((1u << a) - 1);
+}
+
+// f(flat slot) for every bit of `masks` set in the flat slots [lo, lo + n)
+template <typename F>
+__device__ __forceinline__ void for_each(const uint32_t* masks, int lo, int n,
+                                         F f) {
+  for (int w = lo >> 5; w < (lo + n + 31) >> 5; ++w)
+    for (uint32_t m = masks[w] & range_bits(w, lo, n); m; m &= m - 1)
+      f(32 * w + __ffs(m) - 1);
+}
+
+// the row of flat slot f of rows of n slots: floor(f / n), exactly
+__device__ __forceinline__ int row_of(int f, int n, float inv_n) {
+  int r = (int)((f + 0.5f) * inv_n);
+  r -= r * n > f;
+  r += (r + 1) * n <= f;
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ T* shfl_ptr(T* ptr, int lane) {
+  return reinterpret_cast<T*>(__shfl_sync(
+      GE_FULL, reinterpret_cast<unsigned long long>(ptr), lane));
+}
+
+template <int VW>
 __global__ void __launch_bounds__(kThreads)
-    meiose_packed_kernel(const uint32_t* __restrict__ a_plane,
-                         const uint32_t* __restrict__ b_plane,
-                         int64_t par_stride, uint32_t* __restrict__ out0,
-                         uint32_t* __restrict__ out1, int64_t out_stride,
-                         const int32_t* __restrict__ fathers,
-                         const int32_t* __restrict__ mothers,
-                         const int32_t* __restrict__ xo_p,
-                         const int32_t* __restrict__ st_p,
-                         const int32_t* __restrict__ xo_m,
-                         const int32_t* __restrict__ st_m,
-                         const int32_t* __restrict__ mu, int km, int n_chr,
-                         int K, int cw, int mw, int nchunks) {
-  extern __shared__ int32_t smem[];
-  int32_t* xs = smem;
-  int32_t* xcnt = xs + 2 * n_chr * K;
-  int32_t* st = xcnt + 2 * n_chr;
-  int32_t* mus = st + 2 * n_chr;
-  int32_t* mcnt = mus + 2 * km;
-  const int64_t child = blockIdx.x / nchunks;
-  const int chunk = blockIdx.x - (int)(child * nchunks);
-  const int m = mw * 32;
-  const int chr_len = cw * 32;
+    meiose_packed_kernel(const Params p) {
+  using Vec = typename std::conditional<VW == 4, uint4, uint32_t>::type;
+  extern __shared__ __align__(16) int32_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = 1 << p.log_group;
+  const int first = blockIdx.x * (kThreads >> p.log_group) +
+                    ((warp * 32) >> p.log_group);
+  const int rows = min(p.tpw, p.n_tiles - first);  // the warp's tiles
+  if (rows <= 0) return;
+  const int mine = p.tpw > 1 ? lane >> p.log_group : 0;  // the lane's tile
+  const int t = threadIdx.x & (group - 1);
+  const Tile tl = tile_at(first, p);
+  // the warp's tile r: past the first only where a tile is a whole
+  // chromosome (splits == 1)
+  auto tile_of = [&](int r) -> Tile {
+    int ch = tl.ch + r, gc = 2 * tl.child + tl.g;
+    while (ch >= p.n_chr) {
+      ch -= p.n_chr;
+      ++gc;
+    }
+    return Tile{gc >> 1, gc & 1, ch, tl.s};
+  };
+  const Tile own = tile_of(mine);
+  const bool active = mine < rows;
 
-  // one thread per (gamete, chromosome) row and per gamete's mutations
-  for (int r = threadIdx.x; r < 2 * n_chr + 2; r += blockDim.x) {
-    if (r < 2 * n_chr) {
-      const int g = r / n_chr, c = r - (r / n_chr) * n_chr;
-      const int64_t row = child * n_chr + c;
-      const int32_t* src = (g ? xo_m : xo_p) + row * K;
-      int cnt = 0;
-      for (int k = 0; k < K; ++k) {
-        const int x = src[k];
-        if (x < m) xs[r * K + cnt++] = x - c * chr_len;
-      }
-      xcnt[r] = cnt;
-      st[r] = (g ? st_m : st_p)[row];
-    } else {
-      const int g = r - 2 * n_chr;
-      int cnt = 0;
-      if (mu != nullptr) {
-        const int32_t* src = mu + (child * 2 + g) * km;
-        for (int k = 0; k < km; ++k) {
-          const int p = src[k];
-          if (p >= 0 && p < m) mus[g * km + cnt++] = p;
-        }
-      }
-      mcnt[g] = cnt;
+  // the warp's slice of shared memory: its plan (layout above), then its
+  // lanes' parent words [A or the plane taken, B][access][lane]
+  const int wx = (kRows * p.K + 31) >> 5, wm = (kRows * p.km + 31) >> 5;
+  int32_t* wsm = smem + warp * p.warp_words;
+  int32_t* st = wsm;  // [kRows] start chromatids
+  uint32_t* x_before = reinterpret_cast<uint32_t*>(st + kRows);
+  uint32_t* x_in = x_before + wx;
+  uint32_t* m_in = x_in + wx;
+  int32_t* fx = reinterpret_cast<int32_t*>(m_in + wm);
+  int32_t* fm = fx + kRows * p.K;
+  Vec* buf = reinterpret_cast<Vec*>(wsm + p.plan_words);
+
+  // 1. the plan, copied as it is: lane r takes tile r's start chromatid
+  // and keeps its rows' addresses; the slots follow, 32 a copy instruction
+  const int chr_len = 32 * p.cw;
+  const int32_t* xrow = p.xo_p;
+  const int32_t* mrow = p.mu;
+  int base = 0;  // the first global locus of lane r's tile's chromosome
+  if (lane < rows) {
+    const Tile u = tile_of(lane);
+    const int64_t row = (int64_t)u.child * p.n_chr + u.ch;
+    xrow = (u.g ? p.xo_m : p.xo_p) + row * p.K;
+    mrow = p.mu + ((int64_t)u.child * 2 + u.g) * p.km;
+    base = u.ch * chr_len;
+    copy_async(st + lane, (u.g ? p.st_m : p.st_p) + row);
+  }
+  int64_t par = 0;
+  if (active) par = (own.g ? p.mothers : p.fathers)[own.child];
+  const int n_x = rows * p.K, n_m = rows * p.km;
+  const float inv_k = 1.0f / p.K, inv_km = 1.0f / p.km;
+  for (int f0 = 0; f0 < n_x; f0 += 32) {
+    const int f = f0 + lane, r = row_of(min(f, n_x - 1), p.K, inv_k);
+    const int32_t* src = shfl_ptr(xrow, r) + (f - r * p.K);
+    if (f < n_x) copy_async(fx + f, src);
+  }
+  for (int f0 = 0; f0 < n_m; f0 += 32) {
+    const int f = f0 + lane, r = row_of(min(f, n_m - 1), p.km, inv_km);
+    const int32_t* src = shfl_ptr(mrow, r) + (f - r * p.km);
+    if (f < n_m) copy_async(fm + f, src);
+  }
+
+  // 2. classify the plan in place, 32 slots a pass: a crossover's local
+  // locus (wrapping as the plain version's int32 subtraction does) before
+  // the tile or inside it, there made tile-relative; a mutation inside the
+  // tile, likewise
+  wait_copies();
+  __syncwarp();
+  const int lo = 32 * VW * tl.s * p.span;  // the tile's first local locus
+  const int n_loci = 32 * VW * min(p.acc, (tl.s + 1) * p.span) - lo;
+  for (int f0 = 0; f0 < n_x; f0 += 32) {
+    const int f = f0 + lane, r = row_of(min(f, n_x - 1), p.K, inv_k);
+    const int b = __shfl_sync(GE_FULL, base, r);
+    const int xl = f < n_x ? (int)((uint32_t)fx[f] - (uint32_t)b) : INT_MAX;
+    const bool in = xl >= lo && xl - lo < n_loci;
+    const uint32_t before = __ballot_sync(GE_FULL, xl < lo);
+    const uint32_t inside = __ballot_sync(GE_FULL, in);
+    if (in) fx[f] = xl - lo;
+    if (lane == 0) {
+      x_before[f0 >> 5] = before;
+      x_in[f0 >> 5] = inside;
     }
   }
-  __syncthreads();
-  const Staged s{xs, xcnt, st, mus, mcnt};
+  for (int f0 = 0; f0 < n_m; f0 += 32) {
+    const int f = f0 + lane, r = row_of(min(f, n_m - 1), p.km, inv_km);
+    const int glo = __shfl_sync(GE_FULL, base, r) + lo;
+    const int m = f < n_m ? fm[f] : -1;
+    const bool in = m >= glo && m - glo < n_loci;
+    const uint32_t inside = __ballot_sync(GE_FULL, in);
+    if (in) fm[f] = m - glo;
+    if (lane == 0) m_in[f0 >> 5] = inside;
+  }
+  __syncwarp();
+  if (!active) return;
 
-  const int w_lo = chunk * kWordsPerBlock;
-  const int w_hi = min(mw, w_lo + kWordsPerBlock);
-  for (int g = 0; g < 2; ++g) {
-    const int64_t par = (g ? mothers : fathers)[child];
-    const uint32_t* pa = a_plane + par * par_stride;
-    const uint32_t* pb = b_plane + par * par_stride;
-    uint32_t* po = (g ? out1 : out0) + child * out_stride;
-    if (kVec) {
-      for (int w = w_lo + 4 * threadIdx.x; w < w_hi; w += 4 * kThreads) {
-        const uint4 a = *reinterpret_cast<const uint4*>(pa + w);
-        const uint4 b = *reinterpret_cast<const uint4*>(pb + w);
-        uint4 o;
-        o.x = child_word(a.x, b.x, w, g, n_chr, K, km, cw, s);
-        o.y = child_word(a.y, b.y, w + 1, g, n_chr, K, km, cw, s);
-        o.z = child_word(a.z, b.z, w + 2, g, n_chr, K, km, cw, s);
-        o.w = child_word(a.w, b.w, w + 3, g, n_chr, K, km, cw, s);
-        *reinterpret_cast<uint4*>(po + w) = o;
-      }
-    } else {
-      for (int w = w_lo + threadIdx.x; w < w_hi; w += kThreads) {
-        po[w] = child_word(pa[w], pb[w], w, g, n_chr, K, km, cw, s);
-      }
+  // 3. the lane's phase: its tile's start chromatid XOR the parity of the
+  // crossovers before the tile; bit i of `flips` the parity of the tile's
+  // crossovers before access i, of `cross` and `mut` an access that holds
+  // a crossover or a mutation
+  const int xlo = mine * p.K, mlo = mine * p.km;
+  int phase = st[mine];
+  for (int w = xlo >> 5; w < (xlo + p.K + 31) >> 5; ++w)
+    phase ^= __popc(x_before[w] & range_bits(w, xlo, p.K));
+  const int w0 = VW * t;  // the thread's first word, tile-relative
+  const int lp = p.log_group + (VW == 4 ? 2 : 0);  // log2 words apart
+  uint32_t flips = 0, cross = 0, mut = 0;
+  for_each(x_in, xlo, p.K, [&](int f) {
+    const int d = (fx[f] >> 5) - w0;
+    const int q = d >> lp;  // floor: accesses after q lie past it
+    flips ^= 0xFFu << (q + 1);
+    if (q >= 0 && d - (q << lp) < VW) cross |= 1u << q;
+  });
+  for_each(m_in, mlo, p.km, [&](int f) {
+    const int d = (fm[f] >> 5) - w0;
+    const int q = d >> lp;
+    if (q >= 0 && d - (q << lp) < VW) mut |= 1u << q;
+  });
+
+  // 4. the parent's words the lane's accesses take: the one plane its
+  // phase selects, both planes where a crossover lies inside the access
+  const int j_lo = own.s * p.span + t;  // the thread's first access
+  const int j_hi = min(p.acc, (own.s + 1) * p.span);
+  const int64_t word0 = (int64_t)own.ch * p.cw;
+  const Vec* pa = reinterpret_cast<const Vec*>(p.a + par * p.par_stride +
+                                               word0);
+  const Vec* pb = reinterpret_cast<const Vec*>(p.b + par * p.par_stride +
+                                               word0);
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = j_lo + (i << p.log_group);
+    if (i < p.per_thread && j < j_hi) {
+      const bool both = (cross >> i) & 1;  // then A here and B beside it
+      const bool take_b = !both && ((phase ^ (int)(flips >> i)) & 1);
+      copy_async(buf + i * 32 + lane, (take_b ? pb : pa) + j);
+      if (both) copy_async(buf + (kPerThread + i) * 32 + lane, pb + j);
     }
   }
+  wait_copies();
+
+  // 5. the child's words
+  Vec* po = reinterpret_cast<Vec*>((own.g ? p.out1 : p.out0) +
+                                   own.child * p.out_stride + word0);
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int j = j_lo + (i << p.log_group);
+    if (i >= p.per_thread || j >= j_hi) break;
+    uint32_t o[VW];
+    words_of(buf[i * 32 + lane], o);
+    const int s0 = w0 + (i << lp);  // the access's first word
+    if ((cross >> i) & 1) {  // A here, B beside it: select per word
+      uint32_t b[VW], m[VW];
+      words_of(buf[(kPerThread + i) * 32 + lane], b);
+      const uint32_t full = ((phase ^ (int)(flips >> i)) & 1) ? GE_FULL : 0u;
+#pragma unroll
+      for (int c = 0; c < VW; ++c) m[c] = full;
+      for_each(x_in, xlo, p.K, [&](int f) {
+        const int e = (fx[f] >> 5) - s0;  // earlier ones are in `flips`
+        if (e < 0 || e >= VW) return;
+        const uint32_t part = GE_FULL << (fx[f] & 31);
+#pragma unroll
+        for (int c = 0; c < VW; ++c)
+          m[c] ^= c > e ? GE_FULL : (c == e ? part : 0u);
+      });
+#pragma unroll
+      for (int c = 0; c < VW; ++c) o[c] ^= m[c] & (o[c] ^ b[c]);
+    }
+    if ((mut >> i) & 1) {
+      for_each(m_in, mlo, p.km, [&](int f) {
+        const int e = (fm[f] >> 5) - s0;
+#pragma unroll
+        for (int c = 0; c < VW; ++c)
+          if (c == e) o[c] ^= 1u << (fm[f] & 31);
+      });
+    }
+    Vec out;
+    set_words(out, o);
+    __stcs(po + j, out);
+  }
+}
+
+template <int VW>
+int launch(const Params& p, int64_t blocks, int smem, cudaStream_t s) {
+  static bool configured = false;  // shared memory above 48 KB, and a
+  if (!configured) {               // carve-out that fits several blocks
+    cudaFuncSetAttribute(meiose_packed_kernel<VW>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         227 * 1024);
+    cudaFuncSetAttribute(meiose_packed_kernel<VW>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    configured = true;
+  }
+  meiose_packed_kernel<VW><<<dim3((unsigned)blocks), kThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -154,37 +374,38 @@ __global__ void __launch_bounds__(kThreads)
 // a_plane/b_plane: chromatid A/B of parent row 0, rows `par_stride` words
 // apart; out0/out1: gamete 0/1 of child 0, rows `out_stride` words apart;
 // fathers/mothers (n,) int32; xo_p/xo_m (n, n_chr, K) int32 global loci
-// (pad = m); st_p/st_m (n, n_chr) int32; mu (n, 2, km) int32 or null.
+// (pad = m); st_p/st_m (n, n_chr) int32; mu (n, 2, km) int32 or null. The
+// launch plan (vw, log_group, per_thread, splits, blocks, smem) is the
+// host's `launch_plan` for these shapes.
 GE_API int ge_meiose_packed(const void* a_plane, const void* b_plane,
                             int64_t par_stride, void* out0, void* out1,
                             int64_t out_stride, const void* fathers,
                             const void* mothers, const void* xo_p,
                             const void* st_p, const void* xo_m,
                             const void* st_m, const void* mu, int km,
-                            int64_t n, int n_chr, int K, int cw, int mw,
-                            void* stream) {
-  if (n == 0 || mw == 0) return (int)cudaGetLastError();
-  const int nchunks = (mw + kWordsPerBlock - 1) / kWordsPerBlock;
-  const size_t smem =
-      sizeof(int32_t) * (2 * (size_t)n_chr * K + 4 * n_chr + 2 * km + 2);
-  const uintptr_t align = (uintptr_t)a_plane | (uintptr_t)b_plane |
-                          (uintptr_t)out0 | (uintptr_t)out1;
-  const bool vec = align % 16 == 0 && mw % 4 == 0 && par_stride % 4 == 0 &&
-                   out_stride % 4 == 0;
-  const dim3 grid((unsigned)(n * nchunks));
+                            int64_t n, int n_chr, int K, int cw, int vw,
+                            int log_group, int per_thread, int splits,
+                            int64_t blocks, int smem, void* stream) {
+  if (blocks == 0) return (int)cudaGetLastError();
+  Params p{(const uint32_t*)a_plane, (const uint32_t*)b_plane, par_stride,
+           (uint32_t*)out0, (uint32_t*)out1, out_stride,
+           (const int32_t*)fathers, (const int32_t*)mothers,
+           (const int32_t*)xo_p, (const int32_t*)st_p, (const int32_t*)xo_m,
+           (const int32_t*)st_m, (const int32_t*)mu, km, n_chr, K, cw};
+  p.acc = cw / vw;
+  p.per_thread = per_thread;
+  p.span = per_thread << log_group;
+  p.splits = splits;
+  p.log_group = log_group;
+  p.tpw = log_group < 5 ? 32 >> log_group : 1;
+  p.n_tiles = (int)(n * 2 * n_chr * splits);
+  p.plan_words = kRows + 2 * ((kRows * K + 31) / 32) +
+                 (kRows * km + 31) / 32 + kRows * (K + km);
+  p.plan_words = (p.plan_words + 3) & ~3;  // the parent words are 16-byte
+  p.warp_words = p.plan_words + 2 * kPerThread * 32 * vw;
+  if ((int64_t)smem < 4 * (kThreads / 32) * (int64_t)p.warp_words)
+    return (int)cudaErrorInvalidValue;  // the host sized another layout
   cudaStream_t s = (cudaStream_t)stream;
-#define GE_LAUNCH(V)                                                         \
-  meiose_packed_kernel<V><<<grid, kThreads, smem, s>>>(                      \
-      (const uint32_t*)a_plane, (const uint32_t*)b_plane, par_stride,        \
-      (uint32_t*)out0, (uint32_t*)out1, out_stride, (const int32_t*)fathers, \
-      (const int32_t*)mothers, (const int32_t*)xo_p, (const int32_t*)st_p,   \
-      (const int32_t*)xo_m, (const int32_t*)st_m, (const int32_t*)mu, km,    \
-      n_chr, K, cw, mw, nchunks)
-  if (vec) {
-    GE_LAUNCH(true);
-  } else {
-    GE_LAUNCH(false);
-  }
-#undef GE_LAUNCH
-  return (int)cudaGetLastError();
+  return vw == 4 ? launch<4>(p, blocks, smem, s)
+                 : launch<1>(p, blocks, smem, s);
 }

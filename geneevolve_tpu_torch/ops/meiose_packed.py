@@ -8,16 +8,78 @@ experiments tools/kexp.py `meiose_v3` (combined planes, no mutations:
 `meiose_packed_split`)). The plain version is `dense/packed.py`'s
 `meiose_packed_xla` + `apply_mutations_packed`; the kernel equals it bit for
 bit. A CPU tensor goes to the plain version; a CUDA tensor to the kernel.
+
+The kernel cuts the work into tiles aligned to chromosomes, (child, gamete,
+chromosome, span of words); `launch_plan` sizes them from the shapes alone,
+so the CPU tests hold it to covering every child word exactly once.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from geneevolve_tpu_torch.dense import packed
 from geneevolve_tpu_torch.ops import _build
 
-MAX_SMEM = 48 * 1024  # bytes of staged plan per block (no opt-in needed)
+MAX_SMEM = 227 * 1024  # shared memory a block may use (opted in above 48 KB)
+THREADS = 256  # threads a block
+PER_THREAD = 4  # accesses of each parent plane a thread moves, at most
+MIN_GROUP = 4  # threads a tile, at least: at most 8 tiles a warp
+ROWS = 8  # tiles a warp holds, at most (groups of 4 threads)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch cuts (n children x 2 gametes x n_chr chromosomes of
+    cw words) into tiles: a group of `group` threads owns a tile of
+    group x per_thread accesses of `vw` words (the last of a chromosome cut
+    short); thread t moves accesses t, t + group, ... (at most
+    `per_thread`)."""
+
+    vw: int  # words an access moves: 4 (16-byte copies) or 1
+    group: int  # threads a tile, a power of two in [MIN_GROUP, THREADS]
+    per_thread: int
+    splits: int  # tiles a (child, gamete, chromosome) row
+    tiles: int
+    blocks: int
+    smem: int  # bytes of shared memory a block
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, mw: int, n_chr: int, chr_len: int, K: int, km: int,
+                par_stride: int, out_stride: int,
+                aligned: bool = True) -> LaunchPlan:
+    """The tiling of one launch, from the shapes and the planes' row strides
+    (words); `aligned`: every plane base pointer is 16-byte aligned. Raises
+    on a shape the kernel cannot take."""
+    _cfg(mw, n_chr, chr_len)
+    if 32 * mw >= 2**31:
+        raise ValueError("meiose_packed: loci (and the pad m) must fit int32")
+    cw = chr_len // 32
+    vw = 4 if (aligned and cw % 4 == 0 and par_stride % 4 == 0
+               and out_stride % 4 == 0) else 1
+    acc = cw // vw
+    need = -(-acc // PER_THREAD)
+    group = min(THREADS, max(MIN_GROUP, 1 << max(need - 1, 0).bit_length()))
+    per_thread = max(1, min(PER_THREAD, -(-acc // group)))
+    splits = -(-acc // (group * per_thread))  # 0 for empty rows
+    tiles = n * 2 * n_chr * splits
+    # each warp keeps the plan of up to 8 tiles (starts, 32-slot masks of
+    # the crossovers before and inside each tile and of the mutations
+    # inside it, the slots) and its lanes' parent words
+    nx, nm = ROWS * K, ROWS * km
+    plan = ROWS + 2 * -(-nx // 32) + -(-nm // 32) + nx + nm
+    smem = 4 * THREADS // 32 * (-(-plan // 4) * 4 + 2 * PER_THREAD * 32 * vw)
+    if smem > MAX_SMEM:
+        raise ValueError("meiose_packed: plan too large for shared memory")
+    if tiles + THREADS >= 2**31:
+        raise ValueError("meiose_packed: too many tiles")
+    return LaunchPlan(vw=vw, group=group, per_thread=per_thread,
+                      splits=splits, tiles=tiles,
+                      blocks=-(-tiles // (THREADS // group)), smem=smem)
 
 
 def _cfg(mw: int, n_chr: int, chr_len: int) -> packed.PackedConfig:
@@ -57,7 +119,6 @@ def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
                          "device")
     if any(t.dtype != torch.int32 for t in ts):
         raise TypeError("meiose_packed takes int32 words, rows and loci")
-    _cfg(mw, n_chr, chr_len)
     n = fathers.shape[0]
     K = xo_p.shape[2]
     km = 0 if mu is None else mu.shape[2]
@@ -66,23 +127,24 @@ def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
             or st_m.shape != st_p.shape
             or (mu is not None and mu.shape != (n, 2, km))):
         raise ValueError("meiose_packed: shape mismatch")
-    if 4 * (2 * n_chr * K + 4 * n_chr + 2 * km + 2) > MAX_SMEM:
-        raise ValueError("meiose_packed: plan too large for shared memory")
-    if n * ((mw + 4095) // 4096) >= 2**31:
-        raise ValueError("meiose_packed: too many blocks")
+    ptrs = (*(t.data_ptr() for t in planes), *(t.data_ptr() for t in outs))
+    plan = launch_plan(n, mw, n_chr, chr_len, K, km, par_stride, out_stride,
+                       all(p % 16 == 0 for p in ptrs))
     fathers, mothers, xo_p, st_p, xo_m, st_m = (
         t.contiguous() for t in (fathers, mothers, xo_p, st_p, xo_m, st_m)
     )
-    mu = None if mu is None else mu.contiguous()
+    mu = None if mu is None or km == 0 else mu.contiguous()
     code = _build.lib().ge_meiose_packed(
-        planes[0].data_ptr(), planes[1].data_ptr(), par_stride,
-        outs[0].data_ptr(), outs[1].data_ptr(), out_stride,
+        *ptrs[:2], par_stride, *ptrs[2:], out_stride,
         fathers.data_ptr(), mothers.data_ptr(), xo_p.data_ptr(),
         st_p.data_ptr(), xo_m.data_ptr(), st_m.data_ptr(),
         None if mu is None else mu.data_ptr(), km, n, n_chr, K,
-        chr_len // 32, mw, torch.cuda.current_stream(dev).cuda_stream,
+        chr_len // 32, plan.vw, plan.group.bit_length() - 1, plan.per_thread,
+        plan.splits, plan.blocks, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(code, "meiose_packed")
+    return plan
 
 
 def meiose_packed(
@@ -109,8 +171,9 @@ def meiose_packed(
     mw = hap.shape[2]
     out = torch.empty((fathers.shape[0], 2, mw), dtype=torch.int32,
                       device=hap.device)
-    _launch((hap, hap[:, 1]), (out, out[:, 1]), 2 * mw, 2 * mw, fathers,
-            mothers, xo_p, st_p, xo_m, st_m, mu, n_chr, chr_len, mw)
+    meiose_packed.plan = _launch(
+        (hap, hap[:, 1]), (out, out[:, 1]), 2 * mw, 2 * mw, fathers, mothers,
+        xo_p, st_p, xo_m, st_m, mu, n_chr, chr_len, mw)
     meiose_packed.launches += 1
     return out
 
@@ -130,11 +193,13 @@ def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
     n, mw = fathers.shape[0], hapA.shape[1]
     outA = torch.empty((n, mw), dtype=torch.int32, device=hapA.device)
     outB = torch.empty_like(outA)
-    _launch((hapA, hapB), (outA, outB), mw, mw, fathers, mothers, xo_p,
-            st_p, xo_m, st_m, None, n_chr, chr_len, mw)
+    meiose_packed_split.plan = _launch(
+        (hapA, hapB), (outA, outB), mw, mw, fathers, mothers, xo_p, st_p,
+        xo_m, st_m, None, n_chr, chr_len, mw)
     meiose_packed_split.launches += 1
     return outA, outB
 
 
 meiose_packed.launches = 0  # kernel launches since the last reset
 meiose_packed_split.launches = 0
+meiose_packed.plan = meiose_packed_split.plan = None  # last LaunchPlan

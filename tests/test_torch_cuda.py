@@ -208,24 +208,9 @@ def _gametes(rng, cuda, N, n, n_chr, chr_len, K):
     return [T(x, device=cuda) for x in (f, mo, xo_p, st_p, xo_m, st_m)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_chr, chr_len, K, Km", [
-    (2, 4096, 5, 4),  # 16-byte loads (mw % 4 == 0)
-    (3, 96, 4, 3),  # 3-word chromosomes: word loads, chromosome edges
-    (8, 131072, 8, 8),  # the flagship's chromosome shape
-])
-def test_cuda_meiose_packed_kernel(cuda, n_chr, chr_len, K, Km):
+def _check_packed_entries(hap, args, mu, kw):
     """All three entries (combined with and without mutations, split)
-    against their plain versions; unsorted slots, words with several
-    crossovers, duplicated mutation loci."""
-    rng = np.random.default_rng(chr_len)
-    N, n = 50, 33
-    mw = n_chr * chr_len // 32
-    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, mw), dtype=torch.int32,
-                        device=cuda)
-    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
-    mu = T(mutation_loci(rng, n, n_chr * chr_len, Km), device=cuda)
-    kw = dict(n_chr=n_chr, chr_len=chr_len)
+    against their plain versions."""
     for m in (mu, None):
         got = tpacked.meiose_packed(hap, *args, m, **kw)
         torch.cuda.synchronize()
@@ -236,6 +221,67 @@ def test_cuda_meiose_packed_kernel(cuda, n_chr, chr_len, K, Km):
     want = tpacked.meiose_packed_split_plain(a, b, *args, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chr, chr_len, K, Km", [
+    (2, 4096, 5, 4),  # 16-byte loads (mw % 4 == 0)
+    (3, 96, 4, 3),  # 3-word chromosomes: word loads, chromosome edges
+    (8, 131072, 8, 8),  # the flagship's chromosome shape
+    (22, 2048, 23, 8),  # the dense slice's: 22 chromosomes of 64 words
+    (2, 4096, 40, 40),  # K and Km past a warp's lanes: two slots a lane
+    (3, 160, 6, 4),  # mw 15: word loads in every entry, the split's too
+])
+def test_cuda_meiose_packed_kernel(cuda, n_chr, chr_len, K, Km):
+    """All three entries against their plain versions; unsorted slots,
+    words with several crossovers, duplicated mutation loci."""
+    rng = np.random.default_rng(chr_len)
+    N, n = 50, 33
+    mw = n_chr * chr_len // 32
+    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, mw), dtype=torch.int32,
+                        device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
+    mu = T(mutation_loci(rng, n, n_chr * chr_len, Km), device=cuda)
+    _check_packed_entries(hap, args, mu, dict(n_chr=n_chr, chr_len=chr_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chr, chr_len, K", [
+    (2, 32 * 8192, 8),  # two tiles of 4,096 words a chromosome
+    (22, 2048, 23),  # the dense slice: a tile of 64 words a chromosome
+])
+def test_cuda_meiose_packed_tile_edges(cuda, n_chr, chr_len, K):
+    """Crossovers on the first and last words of every tile and of a
+    thread's accesses, two in one word, slots unsorted and not a prefix;
+    mutations in the first and the last word of a tile: each entry equals
+    its plain version."""
+    rng = np.random.default_rng(n_chr)
+    N, n, cw, m = 20, 9, chr_len // 32, n_chr * chr_len
+    plan = tpacked.launch_plan(n, m // 32, n_chr, chr_len, K, 4, m // 16,
+                               m // 16)
+    tile = plan.vw * plan.group * plan.per_thread  # words
+    step = plan.vw * plan.group  # words between a thread's accesses
+    edges = np.array(sorted({w for s in range(0, cw, tile) for w in (
+        s, s + plan.vw - 1, s + plan.vw, s + step - 1, s + step,
+        min(s + tile, cw) - 1) if w < cw}))
+    xo = np.full((2, n, n_chr, K), m, dtype=np.int32)
+    for g, i, c in np.ndindex(2, n, n_chr):
+        k = rng.integers(2, K + 1)
+        loci = c * chr_len + 32 * rng.choice(edges, k) + rng.integers(0, 32, k)
+        loci[1] = (loci[0] & ~31) + rng.integers(0, 32)  # two in one word
+        xo[g, i, c, rng.choice(K, k, replace=False)] = loci
+    word = (rng.choice(np.arange(0, cw, tile), (n, 2, 4))
+            + rng.choice([0, tile - 1], (n, 2, 4)))
+    mu = (rng.integers(0, n_chr, (n, 2, 4)) * chr_len + 32 * word
+          + rng.integers(0, 32, (n, 2, 4))).astype(np.int32)
+    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, m // 32), dtype=torch.int32,
+                        device=cuda)
+    st = rng.integers(0, 2, (2, n, n_chr)).astype(np.int32)
+    args = [T(x, device=cuda) for x in (
+        rng.integers(0, N, n).astype(np.int32),
+        rng.integers(0, N, n).astype(np.int32), xo[0], st[0], xo[1], st[1])]
+    _check_packed_entries(hap, args, T(mu, device=cuda),
+                          dict(n_chr=n_chr, chr_len=chr_len))
 
 
 @pytest.mark.cuda

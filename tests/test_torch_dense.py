@@ -332,7 +332,7 @@ def test_packed_step_from_jax_state():
                             mut_cap=6, ncv=16, selection=True, couples=True)
     js = jpk.init_state(jax.random.key(3), jcfg)
     jnp_state = {k: np.asarray(v) for k, v in js.items()}
-    st = convert.packed_state_from_numpy(jnp_state)
+    st = convert.packed_state_from_numpy(jnp_state, device="cpu")
     back = convert.packed_state_to_numpy(st)
     for k in ("hap", "cv", "cv_idx", "eff"):
         np.testing.assert_array_equal(back[k], jnp_state[k])
@@ -597,7 +597,7 @@ def test_dense_backend_files(dense_runs):
 
 def test_dense_state_roundtrip(dense_runs):
     want = dense_runs["run"].states[2]
-    st = convert.dense_state_from_numpy(want)
+    st = convert.dense_state_from_numpy(want, device="cpu")
     assert st.hap.dtype == torch.int32
     back = convert.dense_state_to_numpy(st)
     np.testing.assert_array_equal(back["hap"], want["hap"])

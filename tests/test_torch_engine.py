@@ -274,7 +274,7 @@ def test_state_handover(jax_run, mini_scenario, tmp_path):
     tsim.init_generation0()
     p = tsim.pops[0]
     rt = jax_run.runtime[2]
-    p.state = state_from_numpy(jax_run.states[2])
+    p.state = state_from_numpy(jax_run.states[2], device="cpu")
     for k in ("prev_phen", "prev_F", "var_a_gen0", "var_d_gen0",
               "sv_mean_gen0", "sv_var_gen0"):
         setattr(p, k, rt[k])
@@ -329,7 +329,7 @@ def test_exact_n_matches_jax(mini_scenario, tmp_path, monkeypatch):
 
 
 def test_state_roundtrip(jax_run):
-    st = state_from_numpy(jax_run.states[1])
+    st = state_from_numpy(jax_run.states[1], device="cpu")
     back = state_to_numpy(st)
     for k in PLANES:
         np.testing.assert_array_equal(back[k], jax_run.states[1][k])

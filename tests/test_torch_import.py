@@ -1,8 +1,8 @@
 """The PyTorch port never imports JAX, nor any module of the JAX package
 `geneevolve_tpu`: importing the package, its CLI, its engines, its host
-modules and its kernel wrappers (and `chip_smoke.py`) in a fresh
-interpreter leaves `jax` and `geneevolve_tpu` out of `sys.modules`, and no
-source file of the port names `geneevolve_tpu` in an import."""
+modules and its kernel wrappers (and `chip_smoke.py`, `kernel_ab.py`) in a
+fresh interpreter leaves `jax` and `geneevolve_tpu` out of `sys.modules`,
+and no source file of the port names `geneevolve_tpu` in an import."""
 
 import ast
 import subprocess
@@ -36,6 +36,7 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.dense.packed",
     "geneevolve_tpu_torch.dense.backend",
     "chip_smoke",
+    "kernel_ab",
 ])
 def test_import_leaves_jax_out(module):
     code = (
@@ -60,7 +61,7 @@ def _imported_names(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "geneevolve_tpu_torch").rglob("*.py"),
-              REPO / "chip_smoke.py"]
+              REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
 ))
 def test_sources_never_import_jax_package(path):
     bad = [n for n in _imported_names(REPO / path) if _forbidden(n)]
@@ -77,3 +78,16 @@ def test_chip_smoke_refuses_without_cuda():
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_ab_refuses_without_cuda():
+    """`kernel_ab.py` fails where CUDA is absent, printing no timing."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, str(REPO / "kernel_ab.py"), "--one",
+                          str(REPO)], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ms"' not in res.stdout
