@@ -39,7 +39,24 @@ Phases, each of which raises on failure (exit code non-zero):
    device memory and the stacked kernels' launches a generation (3 bins,
    4 gathers, 1 count, 1 merge); then those kernels against their plain
    versions on the last generation's own inputs (the merge in both modes),
-   bit-exact;
+   bit-exact; then the paint kernel at full width on the slice's final
+   ledgers and mutations (30,708 x 2 chromatid rows, S 49) over a
+   synthetic 20,000-haplotype x 14,588-locus panel a chromosome (Table
+   3.1's 320,926 SNPs over 22 chromosomes, some positions before the
+   chromosome start, some at carried mutations): one chromosome against
+   its plain version (run in row chunks on the card), bit-exact and timed,
+   and all 22 in one launch, each chromosome bit-exact to the plain one;
+3b. gather path: the same slice under GE_NO_RESIDENT_CV=1 (A/D painted
+   from the ledger, 1 paint, 2 gathers, 3 bins, 1 count and 1 merge
+   launches a generation), its `.info` and `.summary` byte-identical to the
+   resident run's, s/gen, stage split and peak memory beside it; then the
+   paint kernel at that path's shape (22 chromosomes x 100 CVs) on its
+   last generation's own inputs, bit-exact;
+3c. segment output parity: a small segment scenario with `--out_hap
+   --out_vcf --out_plink --out_interval --debug --file_output_generations`,
+   then `--out_plink01`, then a `--file_ref_vcf` panel on both backends,
+   each on `cuda` and on `cpu`, the CUDA run fed the CPU run's mating
+   plans and draws: every genotype file byte-identical;
 4. dense parity: `--backend dense` with hap/VCF/PLINK output on `cuda`
    and on `cpu`, the CUDA run fed the CPU run's mating plans and draws:
    planes and CV matrices equal every generation, genotype files
@@ -55,7 +72,16 @@ Phases, each of which raises on failure (exit code non-zero):
    planes at the end;
 7. byte engine: `dense.step.make_step` against `dense.packed.make_step`
    at n 4,096 x 1 Mi loci, 2 generations from identically seeded
-   generators, equal after unpacking.
+   generators, equal after unpacking;
+8. segment output at full width: the CLI on the segment backend over the
+   dense slice's scenario files (30,000 pop, 2,000 founders, 22 x 2,048
+   SNPs), 3 generations, `--out_vcf --out_interval` at generation 3
+   (`--file_output_generations`): file and line counts, VCF samples, the
+   `.int` chains, the tripwire in `merge_ibd=False` mode, the output
+   stage split into paint (fenced), device-to-host copy and text writing;
+   the files are deleted after the checks;
+9. profile: one generation of the resident slice under `--profile`; the
+   trace's top device ops and the device's busy share of the generation.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. Each
@@ -99,6 +125,8 @@ KERNELS = {  # name -> (source, TPU function it replaces)
                       "geneevolve_tpu/ops/meiosis_packed_pallas.py:146"),
     "meiose_planes": ("geneevolve_tpu_torch/csrc/meiose_planes.cu",
                       "geneevolve_tpu/ops/meiosis_pallas.py:77"),
+    "paint": ("geneevolve_tpu_torch/csrc/paint.cu",
+              "geneevolve_tpu/core/output.py:33"),
 }
 # the packed kernel's other entries: the TPU layout experiments it replaces
 PACKED_ENTRIES = {"no_mutations": "tools/kexp.py:178",
@@ -108,24 +136,41 @@ FLAGSHIP = dict(n=16_384, m=1 << 20, n_chr=8, morgans_per_chr=1.0, xo_cap=8,
                 mut_rate=1.0, mut_cap=8, ncv=256, selection=True)
 BYTE_N = 4096  # byte-engine rows: 2 x 4 GiB of uint8 planes at 1 Mi loci
 # each path: the kernels it must launch; its counts are read after it runs
+SEGMENT = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
 PATHS = {
-    "segment_slice": ("cdf_bins", "merge_count", "gather_rows",
-                      "meiose_merge"),
+    "segment_slice": SEGMENT,
+    "segment_gather": SEGMENT + ("paint",),
+    "segment_output": SEGMENT + ("paint",),
+    "segment_profiled": SEGMENT,
     "dense_slice": ("meiose_packed", "gather_rows"),
     "packed_engine": ("meiose_packed", "gather_rows"),
     "byte_engine": ("meiose_planes", "meiose_packed"),
 }
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
-             "meiose_packed": "dense_slice", "meiose_planes": "byte_engine"}
+             "meiose_packed": "dense_slice", "meiose_planes": "byte_engine",
+             "paint": "segment_gather"}
 # launches a generation of the segment slice's stacked kernels: one bins
 # launch per kind of draw (father's and mother's crossovers, mutations), one
 # gather per parent and table (CV rows, mutation rows), one count (the
 # probe) and one merge (the real pass) over every chromosome and parent
 SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
                    "meiose_merge": 1}
+# the gather path: no CV-row gathers; one paint a phenotype (one here) and
+# generation, and one more for generation 0's A/D
+GATHER_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
+                  "meiose_merge": 1, "paint": 1}
+GEN0_LAUNCHES = {"paint": 1}
+# the synthetic founder panel of the full-width paint check: 20,000
+# haplotypes (the slice's 10,000 founders) x Table 3.1's 320,926 SNPs over
+# 22 chromosomes (BASELINE.md:13), 14,588 a chromosome
+PAINT_LOCI = -(-320_926 // 22)
+# the full-width output run: the dense slice's scenario files, 3 generations
+OUTPUT_GENS = 3
 # generations each counted path runs (packed engine: 1 warm-up + 5 timed)
 PATH_GENS = {"segment_slice": SCENARIO["gens"],
+             "segment_gather": SCENARIO["gens"], "segment_output": OUTPUT_GENS,
+             "segment_profiled": 1,
              "dense_slice": DENSE_SCENARIO["gens"], "packed_engine": 6,
              "byte_engine": 2}
 # H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
@@ -142,10 +187,12 @@ def _wrappers():
     from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
     from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes
     from geneevolve_tpu_torch.ops.merge_count import merge_count
+    from geneevolve_tpu_torch.ops.paint import paint
 
     return dict(cdf_bins=cdf_bins, merge_count=merge_count,
                 gather_rows=gather_rows, meiose_merge=meiose_merge,
-                meiose_packed=meiose_packed, meiose_planes=meiose_planes)
+                meiose_packed=meiose_packed, meiose_planes=meiose_planes,
+                paint=paint)
 
 
 def counted(path: str, wrappers: dict, fn, launches: dict):
@@ -709,9 +756,28 @@ def _read_table(path: Path):
                                       dtype=np.float64)
 
 
+def _with(argv: list, flag: str, value: str) -> list:
+    """`argv` with `flag`'s value replaced."""
+    argv = list(argv)
+    argv[argv.index(flag) + 1] = value
+    return argv
+
+
+def _popinfo(root: Path, scenario: dict, gens: int) -> Path:
+    """A generation-info file of `gens` rows of the scenario's schedule."""
+    path = root / f"popinfo{gens}.txt"
+    path.write_text(
+        "pop_size mat_cor offspring_dist selection_func selection_func_par1 "
+        "selection_func_par2\n"
+        + f"{scenario['pop_size']} 0 p thr 1 1\n" * gens)
+    return path
+
+
 def slice_phase(dev, work: Path, name: str, scenario: dict,
-                extra=()) -> dict:
-    """A Table 3.1-shaped scenario through the CLI, with its checks."""
+                extra=(), base=None) -> dict:
+    """A Table 3.1-shaped scenario through the CLI, with its checks. `base`:
+    the scenario argv of an earlier phase to run again (else the scenario
+    is written under `work / name`); outputs go to `work / name / out.*`."""
     import numpy as np
     import torch
 
@@ -719,15 +785,21 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
     from geneevolve_tpu_torch.core import engine
 
     root = work / name
-    argv = _scenario(root, **scenario, seed=1)
-    argv += ["--seed", "12345", "--prefix", str(root / "out"),
-             "--stage_sync", *extra]
-    seen, gen_s = [], []
+    root.mkdir(parents=True, exist_ok=True)
+    base = base or _scenario(root, **scenario, seed=1)
+    argv = base + ["--seed", "12345", "--prefix", str(root / "out"),
+                   "--stage_sync", *extra]
+    seen, gen_s, gen0 = [], [], {}
     run, step = engine.Simulation.run, engine.Simulation.step
+    init = engine.Simulation.init_generation0
 
     def run_rec(self):
         seen.append(self)
         return run(self)
+
+    def init_rec(self):
+        init(self)
+        gen0.update({k: w.launches for k, w in _wrappers().items()})
 
     def step_rec(self, gen):
         t0 = time.perf_counter()
@@ -736,6 +808,7 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
         gen_s.append(time.perf_counter() - t0)
 
     engine.Simulation.run, engine.Simulation.step = run_rec, step_rec
+    engine.Simulation.init_generation0 = init_rec
     try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -744,11 +817,12 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
         wall = time.perf_counter() - t0
     finally:
         engine.Simulation.run, engine.Simulation.step = run, step
+        engine.Simulation.init_generation0 = init
     if rc != 0:
         raise AssertionError(f"{name}: cli.main returned {rc}")
     sim = seen[0]
     # outputs: sizes and law
-    G, pop = scenario["gens"], scenario["pop_size"]
+    G, pop = sim.tot_gen, scenario["pop_size"]
     for gen in range(G + 1):
         _, info = _read_table(root / f"out.info.pop1.gen{gen}.txt")
         if gen == 0 and info.shape[0] != scenario["n0"]:
@@ -767,7 +841,7 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
     out = dict(
         wall_s=wall, s_per_gen=gen_s, stage_split_s=split,
         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
-        sim=sim,
+        sim=sim, argv=base, root=root, gen0_launches=gen0,
     )
     print(f" {name}: s/gen " + " ".join(f"{x:.3f}" for x in gen_s))
     print(f" {name}: stage split (s, all gens) {json.dumps(split)}")
@@ -843,7 +917,11 @@ def segment_slice(dev, work: Path) -> dict:
         engine.merge_count, engine.meiose_merge = count, merge
         engine.Simulation._plan = plan
     out["captured"] = captured
-    log = out.pop("sim").capacity_log
+    sim = out.pop("sim")
+    st, log = sim.pops[0].state, sim.capacity_log
+    # the final ledgers and mutations, for the full-width paint check
+    out["final"] = (st.seg_st, st.seg_hap, st.mut, st.n,
+                    [sim.pops[0].rmaps[c].chr_end for c in sim.chrs])
     if len(log) != SCENARIO["gens"] or any(
             c["seg_need"] != c["seg_used"] for c in log):
         raise AssertionError(f"capacity tripwire: {log}")
@@ -948,6 +1026,390 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
     by_name["meiose_merge"].setdefault("entries", []).append(
         dict(entry="segment_slice/real_pass", shape=shape,
              other_mode_exact=True, **r))
+
+
+def _paint_work(seg_st, seg_hap, mut, founder, pos) -> dict:
+    # the painted bytes written once; the panel, ledgers, mutation rows and
+    # positions read once; a locus's slot and mutation-pointer checks, four
+    # compares an output byte
+    out = seg_st.shape[0] * seg_st.shape[1] * 2 * pos.shape[1]
+    return _bound(out + _nbytes(seg_st, seg_hap, mut, founder, pos), 4 * out)
+
+
+def paint_full_width(dev, final) -> dict:
+    """The paint kernel at full width on the segment slice's final ledgers
+    and mutations, over a synthetic panel of 20,000 haplotypes x
+    `PAINT_LOCI` loci a chromosome: positions spread over each chromosome,
+    8 before its start (0), 256 at mutations its rows carry. One
+    chromosome against the plain version, bit-exact and timed; all 22 in
+    one launch, each chromosome bit-exact to its plain version (the plain
+    time is the sum of the 22 calls). Returns the kernel's entry."""
+    import torch
+
+    from geneevolve_tpu_torch.core.segments import BIG
+    from geneevolve_tpu_torch.ops import paint as tp
+
+    seg_st, seg_hap, mut, n, chr_ends = final
+    st, hp, mu = (x[:, :n].contiguous() for x in (seg_st, seg_hap, mut))
+    del final, seg_st, seg_hap, mut
+    C, Q, H = st.shape[0], PAINT_LOCI, 2 * SCENARIO["n0"]
+    g = torch.Generator(device=dev).manual_seed(2024)
+    founder = torch.randint(0, 2, (C, H, Q), generator=g, device=dev,
+                            dtype=torch.uint8)
+    pos = []
+    for c in range(C):
+        p = torch.randint(0, chr_ends[c], (Q,), generator=g, device=dev,
+                          dtype=torch.int32)
+        carried = mu[c][mu[c] < BIG].unique()
+        k = min(256, carried.numel())
+        pick = torch.randperm(carried.numel(), generator=g, device=dev)[:k]
+        p[:k] = carried[pick]
+        p[k:k + 8] = -torch.arange(1, 9, device=dev, dtype=torch.int32)
+        pos.append(p.sort().values)
+    pos = torch.stack(pos)
+    one = (st[:1], hp[:1], mu[:1], founder[:1], pos[:1])
+    shape = (f"{n} rows x 2 chromatids x {Q} loci, S {st.shape[-1]}, M "
+             f"{mu.shape[-1]}, {hp.dtype} haps, panel {H} x {Q}")
+    r = dict(name="paint", route="cuda", source=KERNELS["paint"][0],
+             replaces=KERNELS["paint"][1], shape=shape, **_compare(
+                 "paint", lambda: tp.paint(*one),
+                 lambda: tp.paint_plain(*one), _paint_work(*one),
+                 queued=True))
+    args = (st, hp, mu, founder, pos)
+    out = tp.paint(*args)
+    plain_ms = 0.0
+    for c in range(C):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = tp.paint_plain(*(x[c:c + 1] for x in args))
+        b.record()
+        b.synchronize()
+        plain_ms += a.elapsed_time(b)
+        if _max_abs_err(out[c:c + 1], want) != 0:
+            raise AssertionError(f"paint: chromosome {c + 1} of the 22-"
+                                 "chromosome launch differs from plain")
+    del out, want
+    t = _time_turns({"ms": lambda: tp.paint(*args)}, {"ms": 5})
+    work = _paint_work(*args)
+    r["entries"] = [dict(
+        entry="all_22_chromosomes", shape=f"{C} chromosomes of {shape}",
+        max_abs_err=0, ms=t["ms"], plain_ms=plain_ms, library_ms=None,
+        roofline_share=work["bound_ms"] / t["ms"], **work)]
+    print(f" kernel paint/all_22_chromosomes      {t['ms']:.4f} ms   plain "
+          f"{plain_ms:.1f} ms (22 calls)   bound {work['bound_ms']:.4f} ms "
+          f"({work['bound_ms'] / t['ms']:.1%}); 22 chromosomes bit-exact")
+    print(f"   ({shape})")
+    return r
+
+
+def segment_gather(dev, work: Path, base: list, resident_root: Path) -> dict:
+    """The segment slice again under GE_NO_RESIDENT_CV=1: the gather path,
+    A/D painted from the ledger. Its `.info` and `.summary` must equal the
+    resident run's byte for byte (the same draws, and the painted alleles
+    are the resident ones). The last generation's paint inputs are kept
+    under `captured`."""
+    import filecmp
+    import os
+
+    os.environ["GE_NO_RESIDENT_CV"] = "1"
+    try:
+        out = slice_phase(dev, work, "gather31", SCENARIO, base=base)
+    finally:
+        del os.environ["GE_NO_RESIDENT_CV"]
+    sim = out.pop("sim")
+    st = sim.pops[0].state
+    if sim.resident_cv or st.cv is not None:
+        raise AssertionError("gather path: the resident matrix was kept")
+    if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
+        raise AssertionError(f"capacity tripwire: {sim.capacity_log}")
+    names = [f"out.info.pop1.gen{g}.txt" for g in range(sim.tot_gen + 1)]
+    for x in names + ["out.pop1.summary"]:
+        if not filecmp.cmp(resident_root / x, out["root"] / x,
+                           shallow=False):
+            raise AssertionError(f"gather path: {x} differs from the "
+                                 "resident run's")
+    print(f" gather31: {len(names)} .info files and the .summary "
+          "byte-identical to the resident run's")
+    out["captured"] = (st.seg_st, st.seg_hap, st.mut, sim._cv_panels[0],
+                       sim.cv_bp_all[:, :sim.ncv_pad].contiguous())
+    return out
+
+
+def gather_paint_kernel(kernels: list, captured) -> None:
+    """The paint kernel at the gather path's shape, on its last
+    generation's own inputs (22 chromosomes x 100 CV columns), bit-exact;
+    added to the kernel's `entries`."""
+    from geneevolve_tpu_torch.ops import paint as tp
+
+    st, hp, mu, founder, pos = captured
+    shape = (f"{st.shape[0]} chromosomes x {st.shape[1]} rows x 2 x "
+             f"{pos.shape[1]} CVs, S {st.shape[-1]}, panel "
+             f"{founder.shape[1]} x {founder.shape[2]}")
+    r = _compare("paint/gather_path", lambda: tp.paint(*captured),
+                 lambda: tp.paint_plain(*captured), _paint_work(*captured),
+                 queued=True)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["paint"].setdefault("entries", []).append(
+        dict(entry="gather_path", shape=shape, **r))
+    print(f"   ({shape})")
+
+
+def _vcf_panel(root: Path) -> Path:
+    """VCF copies of a scenario's `.hap` founder panels (sample names from
+    its `.indv`, QUAL 30, FILTER PASS) and their address file."""
+    import numpy as np
+
+    from geneevolve_tpu_torch.io import hap as hap_io
+
+    lines = (root / "hap_address.txt").read_text().split("\n")[1:]
+    addr = root / "vcf_address.txt"
+    with open(addr, "w") as fa:
+        fa.write("chr vcf\n")
+        for line in filter(None, lines):
+            c, hap_path, legend_path, indv_path = line.split()
+            hap = hap_io.read_hap(hap_path)  # (2n, m)
+            leg = hap_io.read_legend(legend_path)
+            samples = hap_io.read_indv(indv_path)
+            gt = np.char.add(np.char.add(hap[0::2].T.astype("U1"), "|"),
+                             hap[1::2].T.astype("U1"))
+            with open(root / f"ref.chr{c}.vcf", "w") as f:
+                f.write("##fileformat=VCFv4.1\n##Phasing=phased\n")
+                f.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+                        "\tFORMAT\t" + "\t".join(samples) + "\n")
+                for j in range(len(leg.pos)):
+                    f.write(f"{c}\t{leg.pos[j]}\t{leg.ids[j]}\t{leg.al0[j]}"
+                            f"\t{leg.al1[j]}\t30\tPASS\t.\tGT\t"
+                            + "\t".join(gt[j]) + "\n")
+            fa.write(f"{c} {root}/ref.chr{c}.vcf\n")
+    return addr
+
+
+def _cpu_card_files(dev, root: Path, argv: list, sim_cls) -> list:
+    """`argv` run by `sim_cls` on the CPU, then on `dev` fed the CPU run's
+    mating plans and draws; every genotype file byte-identical. Returns the
+    file names compared."""
+    import filecmp
+
+    from geneevolve_tpu_torch.config import parse_args
+
+    sims = {}
+    for name, d in (("cpu", "cpu"), ("dev", dev)):
+        (root / name).mkdir(parents=True)
+        cfg = parse_args(argv + ["--prefix", str(root / name / "out")])
+        sims[name] = sim_cls(cfg, device=d, verbose=False)
+    ref, sim = sims["cpu"], sims["dev"]
+    mates, plans = {}, {}
+    ref_mate, ref_plan = ref._mate, ref._plan
+    ref._mate = lambda p, gen, ps, g: mates.setdefault(
+        gen, ref_mate(p, gen, ps, g))
+    ref._plan = lambda p, gen, n_pad: plans.setdefault(
+        gen, ref_plan(p, gen, n_pad))
+    sim._mate = lambda p, gen, ps, g: mates[gen]
+    sim._plan = lambda p, gen, n_pad: tuple(
+        None if x is None else x.to(dev) for x in plans[gen])
+    ref.run()
+    sim.run()
+    names = sorted(x.name for x in (root / "cpu").iterdir())
+    if names != sorted(x.name for x in (root / "dev").iterdir()):
+        raise AssertionError(f"{root.name}: different file sets")
+    geno = [x for x in names
+            if not (x.startswith("out.info.") or x.endswith(".summary"))]
+    for x in geno:
+        if not filecmp.cmp(root / "cpu" / x, root / "dev" / x,
+                           shallow=False):
+            raise AssertionError(f"{root.name}: {x} differs")
+    return geno
+
+
+def segment_output_parity(dev, work: Path) -> int:
+    """Segment-backend genotype output on `dev` against the CPU (plain
+    versions): all output flags, then `--out_plink01`, then a
+    `--file_ref_vcf` panel on the segment and the dense backend; every
+    genotype file byte-identical. Returns the files compared."""
+    from geneevolve_tpu_torch.core.engine import Simulation
+    from geneevolve_tpu_torch.dense.backend import DenseSimulation
+
+    root = work / "output_parity"
+    base = _scenario(root, n0=200, pop_size=300, gens=3, nchr=3, ncv=12,
+                     snps=256, seed=3) + ["--seed", "7"]
+    (root / "gens.txt").write_text("2\n3\n")
+    vcf = str(_vcf_panel(root))
+    i = base.index("--file_hap_name")
+    ref_vcf = base[:i] + base[i + 2:] + ["--file_ref_vcf", vcf]
+    runs = {
+        "all_flags": (base + ["--out_hap", "--out_vcf", "--out_plink",
+                              "--out_interval", "--debug",
+                              "--file_output_generations",
+                              str(root / "gens.txt")], Simulation, 2 * 3 * 6
+                      + 3),
+        "plink01": (base + ["--out_plink01"], Simulation, 3 * 2),
+        "ref_vcf_segment": (ref_vcf + ["--out_vcf", "--out_hap"], Simulation,
+                            3 * 3),
+        "ref_vcf_dense": (ref_vcf + ["--backend", "dense", "--out_vcf",
+                                     "--out_plink"], DenseSimulation, 3 * 3),
+    }
+    total = 0
+    for name, (argv, cls, want) in runs.items():
+        geno = _cpu_card_files(dev, root / name, argv, cls)
+        if len(geno) != want:
+            raise AssertionError(f"output parity {name}: files {geno}")
+        total += len(geno)
+        print(f" output parity {name}: {len(geno)} genotype files "
+              "byte-identical, cuda == cpu")
+    return total
+
+
+def segment_output_full(dev, work: Path, dense_argv: list) -> dict:
+    """The segment CLI over the dense slice's scenario files (30,000 pop,
+    2,000 founders, 22 x 2,048 SNPs), 3 generations, `--out_vcf
+    --out_interval` at generation 3 only: file and line counts, the VCF
+    sample columns, every `.int` row count against the final ledger and
+    the chains (`en` of a row is `st` of the next of its chromatid) of
+    chromosomes 1 and 22, the tripwire in `merge_ibd=False` mode, and the
+    output stage's split, with the time the VCF writer spends formatting
+    genotypes (`vcf._gt_tails`) and this disk's write rate beside it. The
+    files are deleted after the checks."""
+    import os
+
+    import numpy as np
+
+    from geneevolve_tpu_torch import native
+    from geneevolve_tpu_torch.core.segments import BIG
+    from geneevolve_tpu_torch.io import vcf as vcf_io
+
+    root = work / "output31"
+    root.mkdir()
+    probe = root / "disk_probe.bin"
+    t0 = time.perf_counter()
+    with open(probe, "wb") as f:
+        for _ in range(16):
+            f.write(bytes(64 << 20))
+        f.flush()
+        os.fsync(f.fileno())
+    disk_mb_s = 1024 / (time.perf_counter() - t0)
+    probe.unlink()
+    tails, fmt_s = vcf_io._gt_tails, [0.0]
+
+    def tails_rec(a, b):
+        t = time.perf_counter()
+        out = tails(a, b)
+        fmt_s[0] += time.perf_counter() - t
+        return out
+
+    vcf_io._gt_tails = tails_rec
+    (root / "gens.txt").write_text(f"{OUTPUT_GENS}\n")
+    base = _with(dense_argv, "--file_gen_info",
+                 str(_popinfo(root, DENSE_SCENARIO, OUTPUT_GENS)))
+    try:
+        out = slice_phase(dev, work, "output31", DENSE_SCENARIO, base=base,
+                          extra=["--out_vcf", "--out_interval",
+                                 "--file_output_generations",
+                                 str(root / "gens.txt"), *DENSE_VARIANCES])
+    finally:
+        vcf_io._gt_tails = tails
+    sim = out.pop("sim")
+    st, n = sim.pops[0].state, sim.pops[0].state.n
+    if sim.merge_ibd or any(c["seg_used"] > c["seg_need"]
+                            for c in sim.capacity_log):
+        raise AssertionError(f"output31: tripwire {sim.capacity_log}")
+    files = sorted(x.name for x in root.iterdir()
+                   if x.suffix in (".vcf", ".int"))
+    want = sorted(f"out.pop1.gen{OUTPUT_GENS}.chr{c}.{s}" for c in sim.chrs
+                  for s in ("vcf", "int"))
+    if files != want:
+        raise AssertionError(f"output31: files {files}")
+    size = sum((root / x).stat().st_size for x in files)
+    lines = {}
+    for ic, c in enumerate(sim.chrs):
+        with open(root / f"out.pop1.gen{OUTPUT_GENS}.chr{c}.vcf", "rb") as f:
+            k = 0
+            for line in f:
+                if line.startswith(b"#CHROM"):
+                    cols = line.split(b"\t")
+                    if len(cols) != 9 + n or cols[9] != b"g3_1" or \
+                            cols[-1].strip() != f"g3_{n}".encode():
+                        raise AssertionError("output31: VCF samples")
+                elif not line.startswith(b"#"):
+                    k += 1
+        if k != DENSE_SCENARIO["snps"]:
+            raise AssertionError(f"output31: chr {c} VCF has {k} records")
+        path = root / f"out.pop1.gen{OUTPUT_GENS}.chr{c}.int"
+        with open(path, "rb") as f:
+            k = sum(1 for _ in f) - 1
+        slots = int((st.seg_st[ic, :n] < BIG).sum())
+        if k != slots:
+            raise AssertionError(f"output31: chr {c} .int has {k} rows, "
+                                 f"the ledger {slots} slots")
+        lines[c] = k
+        if c in (sim.chrs[0], sim.chrs[-1]):
+            t = np.array(path.read_text().split()[8:]).reshape(-1, 8)
+            key = t[:, 0].astype(np.int64) * 2 + t[:, 2].astype(np.int64)
+            st_, en = t[:, 3].astype(np.int64), t[:, 4].astype(np.int64)
+            same = key[1:] == key[:-1]
+            last = np.append(~same, True)
+            if not (en[:-1][same] == st_[1:][same]).all() or not (
+                    en[last] == sim.pops[0].rmaps[c].chr_end).all():
+                raise AssertionError(f"output31: chr {c} .int chains broken")
+    for x in files:
+        (root / x).unlink()
+    split = {k: v for k, v in out["stage_split_s"].items()
+             if k.startswith("genotype_output")}
+    print(f" output31: {len(files)} files, {size / 2**30:.2f} GiB "
+          f"(deleted), .int rows {sum(lines.values())}; genotype output "
+          f"split (s) {json.dumps(split)}")
+    print(f" output31: VCF genotype formatting {fmt_s[0]:.2f} s of the "
+          f"write (C codec {'loaded' if native.load() else 'absent'}); "
+          f"this disk writes {disk_mb_s:.0f} MB/s (1 GiB, fsync)")
+    out.update(files=len(files), bytes=size, int_rows=sum(lines.values()),
+               vcf_format_s=fmt_s[0], disk_mb_s=disk_mb_s,
+               native_codec=native.load() is not None)
+    return out
+
+
+def profile_phase(dev, work: Path, base: list) -> dict:
+    """One generation of the resident segment slice under `--profile`: the
+    trace's device events (kernels, copies, sets) by total time, and the
+    device's busy share of the generation (the union of their intervals
+    over the generation's host-clock time)."""
+    import glob
+
+    root = work / "profile31"
+    root.mkdir()
+    trace = root / "trace"
+    out = slice_phase(dev, work, "profile31", SCENARIO,
+                      base=_with(base, "--file_gen_info",
+                                 str(_popinfo(root, SCENARIO, 1))),
+                      extra=["--profile", str(trace)])
+    out.pop("sim")
+    files = glob.glob(str(trace / "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profile: trace files {files}")
+    events = json.loads(Path(files[0]).read_text())["traceEvents"]
+    dev_ev = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev_ev)
+    busy, end = 0.0, -1e300
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by = {}
+    for e in dev_ev:
+        k = by.setdefault(e["name"][:70], [0.0, 0])
+        k[0] += e["dur"] / 1e3
+        k[1] += 1
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
+    gen_ms = out["s_per_gen"][0] * 1e3
+    out.update(device_events=len(dev_ev), device_busy_ms=busy / 1e3,
+               generation_ms=gen_ms, busy_share=busy / 1e3 / gen_ms,
+               top_device_ops=[(k, round(v[0], 4), v[1]) for k, v in top])
+    print(f" profile31: {len(dev_ev)} device events, busy "
+          f"{busy / 1e3:.2f} ms of a {gen_ms:.2f} ms generation "
+          f"({out['busy_share']:.1%})")
+    for k, (ms, cnt) in top:
+        print(f"   {ms:9.3f} ms  x{cnt:<5d} {k}")
+    return out
 
 
 def dense_slice(dev, work: Path) -> dict:
@@ -1202,25 +1664,57 @@ def main() -> int:
     wrappers = _wrappers()
     kernels = kernel_phase(dev) + dense_kernel_phase(dev)
     launches, res = {}, {}
+    gens = SCENARIO["gens"]
+
+    def check_per_gen(path, per_gen):
+        for name, k in per_gen.items():
+            want = k * PATH_GENS[path] + (
+                GEN0_LAUNCHES.get(name, 0) if path == "segment_gather" else 0)
+            if launches[path][name] != want:
+                raise AssertionError(
+                    f"{path}: {launches[path][name]} {name} launches in "
+                    f"{PATH_GENS[path]} generations, {want} expected")
+
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         parity_phase(dev, work)
         res["slice"] = counted("segment_slice", wrappers,
                                lambda: segment_slice(dev, work), launches)
-        gens = SCENARIO["gens"]
-        for name, per_gen in SEGMENT_PER_GEN.items():
-            if launches["segment_slice"][name] != per_gen * gens:
-                raise AssertionError(
-                    f"segment slice: {launches['segment_slice'][name]} "
-                    f"{name} launches in {gens} generations, {per_gen} a "
-                    "generation expected")
+        check_per_gen("segment_slice", SEGMENT_PER_GEN)
+        slice_argv, slice_root = (res["slice"].pop(k) for k in ("argv",
+                                                                 "root"))
         # after the counted run: these launches are comparisons
         segment_slice_kernels(kernels, res["slice"].pop("captured"))
+        kernels.append(paint_full_width(dev, res["slice"].pop("final")))
+        torch.cuda.empty_cache()
+        res["gather"] = counted(
+            "segment_gather", wrappers,
+            lambda: segment_gather(dev, work, slice_argv, slice_root),
+            launches)
+        check_per_gen("segment_gather", GATHER_PER_GEN)
+        del res["gather"]["argv"], res["gather"]["root"]
+        gather_paint_kernel(kernels, res["gather"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)
         res["dense_slice"] = counted("dense_slice", wrappers,
                                      lambda: dense_slice(dev, work), launches)
-    # after the counted run: these launches are comparisons, not the path's
-    dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+        dense_argv = res["dense_slice"].pop("argv")
+        del res["dense_slice"]["root"]
+        # after the counted run: these launches are comparisons
+        dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["output"] = counted(
+            "segment_output", wrappers,
+            lambda: segment_output_full(dev, work, dense_argv), launches)
+        if launches["segment_output"]["paint"] != SCENARIO["nchr"]:
+            raise AssertionError("segment output: one paint launch a "
+                                 "chromosome expected")
+        del res["output"]["argv"], res["output"]["root"]
+        res["profile"] = counted(
+            "segment_profiled", wrappers,
+            lambda: profile_phase(dev, work, slice_argv), launches)
+        del res["profile"]["argv"], res["profile"]["root"]
     torch.cuda.empty_cache()
     res["packed_engine"] = counted("packed_engine", wrappers,
                                    lambda: packed_engine_phase(dev), launches)
@@ -1232,7 +1726,8 @@ def main() -> int:
     for k in kernels:
         home = HOME_PATH[k["name"]]
         k["launches"] = launches[home][k["name"]]
-        k["launches_per_gen"] = k["launches"] / PATH_GENS[home]
+        k["launches_per_gen"] = (k["launches"] - GEN0_LAUNCHES.get(
+            k["name"], 0)) / PATH_GENS[home]
         k["launches_by_path"] = {p: launches[p][k["name"]]
                                  for p, ks in PATHS.items() if k["name"] in ks}
     print(json.dumps(res))

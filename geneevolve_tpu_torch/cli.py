@@ -3,10 +3,11 @@
     python -m geneevolve_tpu_torch --file_gen_info ... --file_hap_name ... [flags]
 
 Runs one population with the segment engine (the default; resident CV
-matrix) or, under `--backend dense`, with the bit-packed dense engine.
-Flags whose features are not ported yet raise `NotImplementedError` naming
-the ROADMAP item that ports them. Without a CUDA device the run fails: it
-never falls back to the CPU.
+matrix, or the ledger gather path when it does not fit) or, under
+`--backend dense`, with the bit-packed dense engine. Flags whose features
+are not ported yet raise `NotImplementedError` naming the ROADMAP item
+that ports them. Without a CUDA device the run fails: it never falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -20,17 +21,20 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
 
  Accepts the GeneEvolve flag set (see `python -m geneevolve_tpu --help`).
  This port runs one population on a CUDA device:
-   --file_gen_info --file_hap_name --file_recom_map --file_mutation_map
-   --file_cv_info --file_cvs --va --vd --vc --ve --vf --omega --lambda --beta
-   --RM --MM --vt_type --avoid_inbreeding --gamma --seed --prefix
-   --no_output --stage_sync (device fence per stage: device-true timing)
+   --file_gen_info --file_hap_name --file_ref_vcf --file_recom_map
+   --file_mutation_map --file_cv_info --file_cvs --va --vd --vc --ve --vf
+   --omega --lambda --beta --RM --MM --vt_type --avoid_inbreeding --gamma
+   --seed --prefix --no_output --debug
+   --stage_sync (device fence per stage: device-true timing)
+   --profile <dir> (torch.profiler trace of the main loop)
    --backend segment (default) | dense (bit-packed genome planes)
- With --backend dense, genotype files too:
+ Genotype files, on both backends:
    --out_hap --out_vcf --out_plink --out_plink01 --file_output_generations
+   --out_interval (segment backend: the IBD ledger as .int files)
+ The segment backend's A/D reads a resident CV matrix, or paints the CVs
+ from the ledger when it does not fit the card (or GE_NO_RESIDENT_CV=1).
  Not ported yet (raise): --mesh, --device_mating,
-   --next_population / --file_migration, --resume, --checkpoint_every,
-   segment-backend genotype outputs (--out_* and --out_interval),
-   --file_ref_vcf, --debug, --profile.
+   --next_population / --file_migration, --resume, --checkpoint_every.
 """
 
 

@@ -23,12 +23,18 @@ def additive_dominance_chr(
     d: torch.Tensor,  # (ncv,) f32 dominance effects
     dominance_on: bool,  # False when vd == 0
     n_real: int,  # rows >= n_real are padding, excluded from frequencies
+    tsum: torch.Tensor = None,  # optional (ncv,) allele counts of the WHOLE
+    # population: when its rows come in chunks, the frequency is the
+    # population's, not the chunk's
+    n_freq: int = None,  # the population size behind `tsum`
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One chromosome's (A, D) contribution for every row, f32."""
     t_int = c0.to(torch.int32) + c1.to(torch.int32)  # (n, ncv) in {0,1,2}
     t = t_int.to(torch.float32)
-    tsum = t_int[:n_real].sum(0)  # exact integer allele counts
-    nr = torch.tensor(float(n_real), dtype=torch.float32, device=c0.device)
+    if tsum is None:
+        tsum = t_int[:n_real].sum(0)  # exact integer allele counts
+        n_freq = n_real
+    nr = torch.tensor(float(n_freq), dtype=torch.float32, device=c0.device)
     p = tsum.to(torch.float32) / (2.0 * nr)  # current-gen allele frequency
     q = 1.0 - p
     a = 0.5 * (a + a)

@@ -9,10 +9,10 @@ Positions are int32 with `BIG = 2**30` (the JAX package's x64-off path).
 Layout follows the JAX public functions: (n, 2, S) ledgers, (n, K)
 crossover rows. The functions here are the plain versions: they run on any
 device, serve CPU tensors and the tests, and are the oracles of the CUDA
-kernels in `ops/` (merge, count). Where the JAX package ranked candidates
+kernels in `ops/` (merge, count, paint). Where the JAX package ranked candidates
 with O(L^2) compare-reduces to suit XLA, the torch versions sort stably —
 the same (value, candidate index) order, so the same result. Counterparts:
-`_active_at_T` -> `_active_at`, `_seg_lookup_T` -> `_seg_lookup`,
+`_active_at_T` -> `_active_at`, `_seg_lookup_T` -> `hap_at`,
 `rank_compact_T` -> `rank_compact`, and `merge3_T` -> `rank_compact` over
 the concatenated candidates [X; A; B] inside `meiose`.
 """
@@ -151,7 +151,7 @@ class StackedMaps:
 
 def init_gen0_ledger_stacked(
     n: int, chr_starts, hap_offset: int, capacity: int,
-    hap_dtype=torch.int32, rows: int = 0, device="cpu",
+    hap_dtype=torch.int32, rows: int = 0, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nchr, rows, 2, S) founder ledgers: founder i's chromatids point
     wholly at founder haps 2i / 2i+1 (+ offset), as in
@@ -174,7 +174,7 @@ def init_gen0_ledger_stacked(
 
 
 def empty_mutations_stacked(nchr: int, n: int, capacity: int,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
     return torch.full((nchr, n, 2, capacity), BIG, dtype=POS, device=device)
 
 
@@ -280,14 +280,6 @@ def _active_at(xo: torch.Tensor, start_hap: torch.Tensor,
     return (start_hap[:, None].long() + cnt) % 2
 
 
-def _seg_lookup(pos: torch.Tensor, hap: torch.Tensor,
-                q: torch.Tensor) -> torch.Tensor:
-    """(nc, Q) hap covering each query: hap[#{pos <= q} - 1] (0 if none)."""
-    idx = (pos[:, None, :] <= q[:, :, None]).sum(-1) - 1
-    got = hap.gather(1, idx.clamp(min=0))
-    return torch.where(idx >= 0, got, torch.zeros_like(got))
-
-
 def rank_compact(cand, valid, cap, *vals):
     """Stable compaction of (nc, L) rows: the valid entries ordered by
     (value, candidate index) into `cap` slots; slots past the row's valid
@@ -339,7 +331,7 @@ def meiose(
     )
     vA = (A < BIG) & (actA == 0) & not_first
     vB = (B < BIG) & (actB == 1) & not_first
-    hX = torch.where(actX == 0, _seg_lookup(A, hA, X), _seg_lookup(B, hB, X))
+    hX = torch.where(actX == 0, hap_at(A, hA, X), hap_at(B, hB, X))
     st, hap, n_valid = rank_compact(
         torch.cat([X, A, B], 1), torch.cat([vX, vA, vB], 1), capacity,
         torch.cat([hX, hA, hB], 1),
@@ -389,3 +381,26 @@ def inherit_mutations(par_mut, xo, start_hap, new_mut, capacity):
         s = torch.cat([s, s.new_full((s.shape[0], capacity - s.shape[1]),
                                      BIG)], 1)
     return s[:, :capacity].contiguous(), n_valid
+
+
+def hap_at(seg_st: torch.Tensor, seg_hap: torch.Tensor,
+           q: torch.Tensor) -> torch.Tensor:
+    """Founder hap covering position(s) q: `hap[#{st <= q} - 1]`, and 0
+    where no start is <= q (the JAX one-hot select matches no slot there;
+    it does not clamp to slot 0). seg_* are (..., S); q is (..., Q) with
+    the same leading dims, or 1-D. Returns (..., Q) in seg_hap's dtype."""
+    lead = seg_st.shape[:-1]
+    if q.dim() == 1:
+        q = q.expand(lead + q.shape)
+    idx = (seg_st[..., None, :] <= q[..., :, None]).sum(-1) - 1
+    got = seg_hap.gather(-1, idx.clamp(min=0))
+    return torch.where(idx >= 0, got, torch.zeros_like(got))
+
+
+def mutation_flip_mask(mut: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(..., Q) bool: is a carried mutation exactly at q? Membership, not
+    parity, and only where q < BIG (`Simulation.cpp:2770-2775`,
+    `:1218-1222`). mut is (..., M); q (..., Q) or 1-D."""
+    q = q.expand(mut.shape[:-1] + q.shape[-1:])
+    hit = (mut[..., None, :] == q[..., :, None]).any(-1)
+    return hit & (q < BIG)

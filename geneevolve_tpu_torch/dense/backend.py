@@ -17,9 +17,10 @@ columns with the map's per-bp intensity at each column's position
 Chromosomes are padded to a multiple of 32 loci on every device, the JAX
 package's CPU unit, so a CUDA run, a CPU run and a JAX CPU run share one
 layout. Every device draw of a generation comes from `_plan`, so tests can
-inject the JAX run's draws. Not ported yet (`check_slice` refuses them):
+inject the JAX run's draws. Founder panels are `.hap` files or
+`--file_ref_vcf` VCFs. Not ported yet (`check_slice` refuses them):
 several populations / migration (ROADMAP item 1.10), checkpoints (1.11),
-`--mesh` (1.14), `--file_ref_vcf` panels (1.8).
+`--mesh` (1.14).
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ import numpy as np
 import torch
 
 from geneevolve_tpu_torch.core import mating, phenotype
+from geneevolve_tpu_torch.core.output import (
+    _legend_al0,
+    _legend_al1,
+    _legend_ids,
+)
 from geneevolve_tpu_torch.core.engine import (
     PopRuntime,
     Simulation,
@@ -49,7 +55,6 @@ from geneevolve_tpu_torch.dense.packed import (
 from geneevolve_tpu_torch.dense.step import _sample_gamete_plan
 from geneevolve_tpu_torch.io import hap as hap_io
 from geneevolve_tpu_torch.io import plink as plink_io
-from geneevolve_tpu_torch.io import tables
 from geneevolve_tpu_torch.io import vcf as vcf_io
 from geneevolve_tpu_torch.utils import telemetry
 
@@ -77,7 +82,7 @@ class DensePopState:
 class DensePanel:
     """The packed founder panel and its per-column map tables."""
 
-    legends: List[hap_io.Legend]
+    legends: List  # per chromosome: hap_io.Legend or vcf_io.VcfData
     m_real: List[int]  # panel loci per chromosome (before padding)
     chr_len: int  # padded loci per chromosome
     xo_cdf: torch.Tensor  # (m,) f32 per-column crossover CDF (Morgans)
@@ -118,11 +123,6 @@ class DenseSimulation(Simulation):
     # ------------------------------------------------------------ panel load
     def _load(self) -> None:
         super()._load()
-        cfg = self.cfg
-        self.out_gens = (
-            tables.read_output_generations(cfg.file_output_generations)
-            if cfg.file_output_generations else []
-        )
         self.dp = self._load_panel(self.pops[0])
         # effects per phenotype over its CV columns (all chromosomes)
         self.dense_eff = [
@@ -136,12 +136,18 @@ class DenseSimulation(Simulation):
         mutation CDFs, and find each CV's column."""
         panels, legends = [], []
         for ic in range(len(self.chrs)):
-            _, hap_path, legend_path, _ = p.hap_addresses[ic]
-            legends.append(hap_io.read_legend(legend_path))
-            panels.append(hap_io.read_hap(hap_path))  # (2n0, m_chr)
+            if p.vcf_addresses:
+                path = p.vcf_addresses[ic][1]
+                v = vcf_io.read_vcf(path)
+                legends.append(v)
+                panels.append(v.hap)  # (2n0, m_chr)
+            else:
+                _, path, legend_path, _ = p.hap_addresses[ic]
+                legends.append(hap_io.read_legend(legend_path))
+                panels.append(hap_io.read_hap(path))  # (2n0, m_chr)
             if panels[-1].shape[0] != 2 * p.n_founders:
                 raise SimulationError(
-                    f"founder panel [{hap_path}] holds "
+                    f"founder panel [{path}] holds "
                     f"{panels[-1].shape[0] // 2} founders, the CV files "
                     f"{p.n_founders}"
                 )
@@ -302,7 +308,7 @@ class DenseSimulation(Simulation):
                              **self._child_host_fields(p, gen, plan))
 
     # ------------------------------------------------------------------- A/D
-    def _compute_ad(self, p: PopRuntime):
+    def _compute_ad(self, p: PopRuntime, gen: int = -1):
         st = p.state
         A = np.zeros((self.n_pheno, st.n))
         D = np.zeros((self.n_pheno, st.n))
@@ -318,19 +324,6 @@ class DenseSimulation(Simulation):
         return A, D
 
     # --------------------------------------------------------------- outputs
-    def step(self, gen: int) -> None:
-        super().step(gen)
-        if gen in self.out_gens:
-            with self.timer("genotype_output"):
-                self.save_genotypes(gen)
-
-    def run(self) -> None:
-        super().run()
-        cfg = self.cfg
-        if not self.out_gens and (cfg.out_hap or cfg.out_plink
-                                  or cfg.out_plink01 or cfg.out_vcf):
-            self.save_genotypes(self.tot_gen)  # last generation by default
-
     def save_genotypes(self, gen: int) -> None:
         """`.hap`/`.indv`, `.vcf` and `.ped`/`.map` per chromosome, as the
         JAX dense backend writes them."""
@@ -358,9 +351,9 @@ class DenseSimulation(Simulation):
                     samples=[f"g{gen}_{i + 1}" for i in st.ids],
                     chrom=np.full(m, str(chrom), dtype=object),
                     pos=pos,
-                    ids=leg.ids,
-                    ref=leg.al0,
-                    alt=leg.al1,
+                    ids=_legend_ids(leg),
+                    ref=_legend_al0(leg),
+                    alt=_legend_al1(leg),
                     qual=np.full(m, ".", dtype=object),
                     filt=np.full(m, ".", dtype=object),
                     info=np.full(m, ".", dtype=object),
@@ -368,6 +361,8 @@ class DenseSimulation(Simulation):
                     hap=np.empty((0, 0), dtype=np.uint8),
                     meta_lines=vcf_io.default_meta_lines(),
                 )
+                if isinstance(leg, vcf_io.VcfData):
+                    v.chrom, v.qual, v.filt = leg.chrom, leg.qual, leg.filt
                 with vcf_io.VcfStreamWriter(base + ".vcf", v) as w:
                     w.write_block(0, a, b)
             if cfg.out_plink or cfg.out_plink01:
@@ -379,6 +374,7 @@ class DenseSimulation(Simulation):
                     sex=st.sex,
                 )
                 plink_io.write_ped_map(
-                    base, np.stack([a, b], axis=2), ids, chrom, leg.ids, pos,
-                    leg.al0, leg.al1, letters=cfg.out_plink,
+                    base, np.stack([a, b], axis=2), ids, chrom,
+                    _legend_ids(leg), pos, _legend_al0(leg), _legend_al1(leg),
+                    letters=cfg.out_plink,
                 )

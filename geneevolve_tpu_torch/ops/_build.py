@@ -50,6 +50,10 @@ SIGNATURES = {
     "ge_meiose_planes": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P,
     ],
+    "ge_paint": [
+        _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I,
+        _P,
+    ],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,11 @@
-"""Observability: memory reports and per-stage timing (counterpart of
-geneevolve_tpu/utils/telemetry.py).
+"""Observability: memory reports, per-stage timing and profiler traces
+(counterpart of geneevolve_tpu/utils/telemetry.py).
 
 `process_mem_usage` keeps the reference's VM/RSS report
 (`Simulation.cpp:3440-3475`); device memory comes from `torch.cuda`.
 `device_fence` synchronizes the device so a `StageTimer` reading taken
-after it is device-true (`--stage_sync`).
+after it is device-true (`--stage_sync`). `profiler_trace` records a
+`torch.profiler` trace (`--profile`).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import contextlib
 import os
 import time
 from collections import OrderedDict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -70,3 +71,23 @@ class StageTimer:
         log("      stage timing (total s / calls):")
         for k, v in self.totals.items():
             log(f"        {k:<22s} {v:10.3f}  /{self.counts[k]}")
+
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: Optional[str], device: torch.device):
+    """`torch.profiler` trace of the host ops and, on the card, its kernels
+    and copies, written into `trace_dir` as a Chrome trace
+    (`*.pt.trace.json`, viewable in Perfetto or TensorBoard); no-op when
+    trace_dir is falsy."""
+    if not trace_dir:
+        yield None
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)) as prof:
+        yield prof

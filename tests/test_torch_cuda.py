@@ -16,8 +16,10 @@ from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
+from geneevolve_tpu_torch.ops import paint as tpaint
 from torch_cases import (BIG, CASES, STACKED_CASES, cdf, dense_plan,
-                         foreign_slots, mutation_loci, probes, stacked)
+                         foreign_slots, mutation_loci, paint_ledger,
+                         paint_mutations, paint_positions, probes, stacked)
 
 T = torch.as_tensor
 
@@ -328,3 +330,52 @@ def test_cuda_meiose_kernels_foreign_slot(cuda, n_chr, chr_len, K):
         torch.cuda.synchronize()
         assert torch.equal(got, tpacked.meiose_packed_plain(hap, *args, None,
                                                             **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, n, S, live, M, Q, hap_dtype, order", [
+    (3, 61, 9, 5, 5, 77, np.int16, "sorted"),  # ragged rows, 1-byte units
+    (2, 40, 49, 16, 27, 1030, np.int32, "sorted"),  # 2 spans + ragged, 2 B
+    (1, 33, 130, 200, 64, 4096, np.int16, "sorted"),  # full ledgers, 16 B
+    (22, 20, 49, 16, 27, 100, np.int16, "sorted"),  # the gather path's C, Q
+    (2, 17, 12, 12, 3, 1544, np.int32, "shuffled"),  # unsorted positions
+    (1, 9, 800, 300, 10, 600, np.int32, "sorted"),  # > 48 KB shared memory
+])
+def test_cuda_paint_kernel(cuda, C, n, S, live, M, Q, hap_dtype, order):
+    """The paint kernel against its plain version: ragged rows (not a
+    multiple of a block's 8) and loci (spans of 512, units of 1-16 bytes),
+    queries before the first start and at BIG, full ledgers, duplicate
+    starts and mutations, int16 and int32 haps, positions in any order."""
+    rng = np.random.default_rng(C * n + S + Q)
+    H = 64
+    led = [paint_ledger(rng, n, S, live, hap_dtype, H=H) for _ in range(C)]
+    pos = np.stack([paint_positions(rng, Q) for _ in range(C)])
+    if order == "shuffled":
+        pos = np.stack([rng.permutation(p) for p in pos])
+    mut = np.stack([paint_mutations(rng, n, M, pos[c]) for c in range(C)])
+    founder = rng.integers(0, 2, size=(C, H, Q)).astype(np.uint8)
+    founder[:, 5, :7] = 2  # a value 1 - f wraps
+    args = [T(x, device=cuda) for x in (
+        np.stack([x[0] for x in led]), np.stack([x[1] for x in led]), mut,
+        founder, pos)]
+    before = tpaint.paint.launches
+    got = tpaint.paint(*args)
+    torch.cuda.synchronize()
+    assert tpaint.paint.launches == before + 1
+    assert torch.equal(got, tpaint.paint_plain(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_paint_refuses_bad_inputs(cuda):
+    """Non-contiguous or mistyped operands raise; nothing falls back."""
+    st = torch.zeros((1, 4, 2, 3), dtype=torch.int32, device=cuda)
+    hap = torch.zeros_like(st, dtype=torch.int16)
+    mut = torch.full((1, 4, 2, 2), BIG, dtype=torch.int32, device=cuda)
+    founder = torch.zeros((1, 4, 10), dtype=torch.uint8, device=cuda)
+    pos = torch.arange(10, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(TypeError):
+        tpaint.paint(st, hap.long(), mut, founder, pos)
+    with pytest.raises(ValueError):
+        tpaint.paint(st, hap, mut, founder, pos[:, ::2].contiguous())
+    with pytest.raises(ValueError):
+        tpaint.paint(st, hap, mut, founder.transpose(1, 2), pos)

@@ -646,7 +646,7 @@ def test_dense_cli_file_set(mini_scenario, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra, item", [
     (["--resume", "x.ckpt.npz"], "1.11"),
     (["--mesh", "auto"], "1.14"),
-    (["--debug"], "1.8"),
+    (["--device_mating"], "1.9"),
 ])
 def test_dense_refuses_outside_slice(mini_scenario, tmp_path, extra, item):
     cfg = parse_args(_argv(mini_scenario, tmp_path / "out")

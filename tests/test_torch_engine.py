@@ -364,18 +364,10 @@ def test_cli_refuses_without_cuda(mini_scenario, tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "extra, item",
     [
-        (["--file_output_generations", "gens.txt"], "1.8"),
         (["--mesh", "auto"], "1.14"),
         (["--device_mating"], "1.9"),
         (["--resume", "x.ckpt.npz"], "1.11"),
         (["--checkpoint_every", "1"], "1.11"),
-        (["--profile", "trace_dir"], "1.15"),
-        (["--out_hap"], "1.8"),
-        (["--out_plink"], "1.8"),
-        (["--out_plink01"], "1.8"),
-        (["--out_vcf"], "1.8"),
-        (["--out_interval"], "1.8"),
-        (["--debug"], "1.8"),
     ],
 )
 def test_refuses_flags_outside_slice(mini_scenario, tmp_path, extra, item):

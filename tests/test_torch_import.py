@@ -25,6 +25,7 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.config",
     "geneevolve_tpu_torch.core.engine",
     "geneevolve_tpu_torch.core.convert",
+    "geneevolve_tpu_torch.core.output",
     "geneevolve_tpu_torch.core.mating",
     "geneevolve_tpu_torch.io",
     "geneevolve_tpu_torch.native",
@@ -32,6 +33,8 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.ops.meiose_merge",
     "geneevolve_tpu_torch.ops.meiose_packed",
     "geneevolve_tpu_torch.ops.meiose_planes",
+    "geneevolve_tpu_torch.ops.paint",
+    "geneevolve_tpu_torch.utils.telemetry",
     "geneevolve_tpu_torch.dense.step",
     "geneevolve_tpu_torch.dense.packed",
     "geneevolve_tpu_torch.dense.backend",

@@ -70,7 +70,7 @@ def test_inherit_mutations_exact(n, M, Mn, K, cap):
 def test_init_gen0_ledger_exact(hap_dtype):
     starts = np.array([0, 1000, 50_000])
     st, hap = tseg.init_gen0_ledger_stacked(
-        7, starts, 20, 9, hap_dtype=hap_dtype, rows=11
+        7, starts, 20, 9, hap_dtype=hap_dtype, rows=11, device="cpu"
     )
     jst, jhap = jseg.init_gen0_ledger_stacked(
         7, starts, 20, 9, hap_dtype={torch.int16: jnp.int16,
@@ -81,7 +81,7 @@ def test_init_gen0_ledger_exact(hap_dtype):
     np.testing.assert_array_equal(hap.numpy(), np.asarray(jhap))
     assert hap.dtype == hap_dtype
     np.testing.assert_array_equal(
-        tseg.empty_mutations_stacked(3, 11, 4).numpy(),
+        tseg.empty_mutations_stacked(3, 11, 4, device="cpu").numpy(),
         np.asarray(jseg.empty_mutations_stacked(3, 11, 4)),
     )
 

@@ -109,6 +109,53 @@ def mutation_loci(rng, n, m, Km):
     return mu
 
 
+def paint_ledger(rng, n, S, live, hap_dtype, span=30_000, first=500, H=64):
+    """(n, 2, S) ascending ledgers for painting, BIG padded, first start at
+    `first` (so queries below it find no slot), with duplicate starts;
+    `live` >= S fills every slot. Haps in [0, H)."""
+    st = np.full((n, 2, S), BIG, dtype=np.int32)
+    lens = rng.integers(1, min(live, S) + 1, size=(n, 2))
+    if live >= S:
+        lens[:] = S
+    for i in range(n):
+        for c in range(2):
+            k = lens[i, c]
+            pts = np.sort(rng.integers(first, span, size=k))
+            if k >= 3:
+                pts[2] = pts[1]  # a duplicate start
+            pts[0] = first
+            st[i, c, :k] = pts
+    hap = rng.integers(0, H, size=(n, 2, S)).astype(hap_dtype)
+    hap[st >= BIG] = 0
+    return st, hap
+
+
+def paint_mutations(rng, n, M, pos):
+    """(n, 2, M) ascending rows, BIG padded: empty rows, rows at painted
+    positions (some twice), rows at positions no query hits."""
+    mut = np.full((n, 2, M), BIG, dtype=np.int32)
+    for i in range(n):
+        for c in range(2):
+            k = rng.integers(0, M + 1) if i % 4 else 0  # every 4th row empty
+            pts = np.concatenate([rng.choice(pos[pos < BIG], size=k),
+                                  rng.integers(0, 30_000, size=k)])[:k]
+            if k >= 2:
+                pts[1] = pts[0]  # duplicate: membership, not parity
+            mut[i, c, :k] = np.sort(pts)
+    return mut
+
+
+def paint_positions(rng, Q, big_queries=True):
+    """Q ascending positions: some before every first start, some at
+    starts' values, and BIG / past-BIG queries at the end."""
+    q = np.sort(rng.integers(0, 32_000, size=Q)).astype(np.int32)
+    q[:3] = [0, 100, 499]  # before the first start (500)
+    q[3] = 500
+    if big_queries:
+        q[-2:] = [BIG, BIG + 7]
+    return q
+
+
 CASES = [(500, 49, 23, 14), (257, 8, 3, 5), (1024, 16, 9, 16), (300, 12, 5, 8)]
 # (nchr, n, S, K, live) for the stacked merge and count: the slice's S and
 # K, then K past one warp's lanes (two crossovers a lane) and S past two
