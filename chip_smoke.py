@@ -40,12 +40,15 @@ Phases, each of which raises on failure (exit code non-zero):
    4 gathers, 1 count, 1 merge); then those kernels against their plain
    versions on the last generation's own inputs (the merge in both modes),
    bit-exact; then the paint kernel at full width on the slice's final
-   ledgers and mutations (30,708 x 2 chromatid rows, S 49) over a
+   ledgers and mutations (29,978 x 2 chromatid rows, S 49) over a
    synthetic 20,000-haplotype x 14,588-locus panel a chromosome (Table
    3.1's 320,926 SNPs over 22 chromosomes, some positions before the
    chromosome start, some at carried mutations): one chromosome against
    its plain version (run in row chunks on the card), bit-exact and timed,
-   and all 22 in one launch, each chromosome bit-exact to the plain one;
+   and all 22 in one launch, each chromosome bit-exact to the plain one
+   (each paint entry also prints its launch plan, how many spans each of
+   the kernel's paths painted, and a need bound that counts only the
+   ledger and mutation slots before each row's first BIG);
 3b. gather path: the same slice under GE_NO_RESIDENT_CV=1 (A/D painted
    from the ledger, 1 paint, 2 gathers, 3 bins, 1 count and 1 merge
    launches a generation), its `.info` and `.summary` byte-identical to the
@@ -67,6 +70,12 @@ Phases, each of which raises on failure (exit code non-zero):
    equal to the planes' CVs at the end; then the packed meiosis and the CV
    row gather against their plain versions on the last generation's own
    inputs (22 chromosomes of 64 words, 4,400-byte CV rows), bit-exact;
+5b. dense mutations: the dense slice again for 3 generations with a
+   mutation map of rate 1 in every bin (~0.9 de novo mutations a gamete
+   on the dense law, where the slice's own map gives 4.3e-4): the mean
+   realized count a gamete in [0.5, 2], the resident CVs equal to the
+   planes' CVs, and the packed meiosis bit-exact on its last generation's
+   inputs, its flips changing the children;
 6. packed engine: `dense.packed.make_step` at the flagship shape, 1 warm-up
    and 5 timed generations, the resident CV matrix checked against the
    planes at the end;
@@ -143,6 +152,7 @@ PATHS = {
     "segment_output": SEGMENT + ("paint",),
     "segment_profiled": SEGMENT,
     "dense_slice": ("meiose_packed", "gather_rows"),
+    "dense_mutations": ("meiose_packed", "gather_rows"),
     "packed_engine": ("meiose_packed", "gather_rows"),
     "byte_engine": ("meiose_planes", "meiose_packed"),
 }
@@ -167,11 +177,14 @@ GEN0_LAUNCHES = {"paint": 1}
 PAINT_LOCI = -(-320_926 // 22)
 # the full-width output run: the dense slice's scenario files, 3 generations
 OUTPUT_GENS = 3
+# the dense run with ~1 de novo mutation a gamete
+DENSE_MUT_GENS = 3
 # generations each counted path runs (packed engine: 1 warm-up + 5 timed)
 PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "segment_gather": SCENARIO["gens"], "segment_output": OUTPUT_GENS,
              "segment_profiled": 1,
-             "dense_slice": DENSE_SCENARIO["gens"], "packed_engine": 6,
+             "dense_slice": DENSE_SCENARIO["gens"],
+             "dense_mutations": DENSE_MUT_GENS, "packed_engine": 6,
              "byte_engine": 2}
 # H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
 # the tensor cores, taken as the scalar-lane rate for the kernels' integer
@@ -649,9 +662,11 @@ def dense_kernel_phase(dev) -> list:
     return results
 
 
-def _mutation_map(path: Path, rmap: Path) -> Path:
+def _mutation_map(path: Path, rmap: Path, rate=None) -> Path:
     """`chr bp rate` on the recombination map's bins: per-bin rate 1/K so a
-    gamete carries ~1 de novo mutation per chromosome."""
+    gamete carries ~1 de novo mutation per chromosome on the segment law,
+    or `rate` in every bin (1 is the map's limit: the reader zeroes rates
+    above it)."""
     rows = [line.split() for line in rmap.read_text().splitlines()[1:]]
     per_chr = {}
     for c, bp, _cm in rows:
@@ -659,8 +674,8 @@ def _mutation_map(path: Path, rmap: Path) -> Path:
     with open(path, "w") as f:
         f.write("chr bp rate\n")
         for c, bps in per_chr.items():
-            rate = 1.0 / len(bps)
-            f.writelines(f"{c} {bp} {rate:.8g}\n" for bp in bps)
+            r = 1.0 / len(bps) if rate is None else rate
+            f.writelines(f"{c} {bp} {r:.8g}\n" for bp in bps)
     return path
 
 
@@ -1036,6 +1051,50 @@ def _paint_work(seg_st, seg_hap, mut, founder, pos) -> dict:
     return _bound(out + _nbytes(seg_st, seg_hap, mut, founder, pos), 4 * out)
 
 
+def _paint_need(seg_st, seg_hap, mut, founder, pos) -> dict:
+    """`_paint_work` counting, of the ledgers and mutation rows, only the
+    slots before each row's first BIG (the slots that hold a segment or a
+    mutation): what painting must read of them. `need_bound_ms` and
+    `need_bytes`."""
+    from geneevolve_tpu_torch.core.segments import BIG
+
+    out = seg_st.shape[0] * seg_st.shape[1] * 2 * pos.shape[1]
+    live = int((seg_st < BIG).sum())
+    nbytes = (out + live * (4 + seg_hap.element_size())
+              + 4 * int((mut < BIG).sum()) + _nbytes(founder, pos))
+    b = _bound(nbytes, 4 * out)
+    return dict(need_bound_ms=b["bound_ms"], need_bytes=b["bytes"])
+
+
+def _paint_path(pos) -> dict:
+    """The launch plan `paint` took last, and how many of its spans each
+    of the kernel's paths painted (`ops/paint.span_paths`)."""
+    import dataclasses
+
+    from geneevolve_tpu_torch.ops import paint as tp
+
+    plan = tp.paint.plan
+    paths = tp.span_paths(pos, plan.span)
+    spans = {k: int((paths == i).sum()) for i, k in enumerate(tp.PATHS)}
+    print(f"   paint plan {dataclasses.asdict(plan)}; spans {spans}")
+    return dict(plan=dataclasses.asdict(plan), spans=spans)
+
+
+def _paint_entry(name: str, args) -> dict:
+    """`_compare` of paint on `args`, with its need bound and share, the
+    launch plan and the spans' paths."""
+    from geneevolve_tpu_torch.ops import paint as tp
+
+    r = _compare(name, lambda: tp.paint(*args), lambda: tp.paint_plain(*args),
+                 _paint_work(*args), queued=True)
+    r.update(_paint_need(*args), **_paint_path(args[-1]))
+    r["need_share"] = r["need_bound_ms"] / r["ms"]
+    q = r.get("queued_ms", {}).get("kernel")
+    print(f"   need bound {r['need_bound_ms']:.4f} ms ({r['need_share']:.1%}"
+          + (f"; queued {r['need_bound_ms'] / q:.1%}" if q else "") + ")")
+    return r
+
+
 def paint_full_width(dev, final) -> dict:
     """The paint kernel at full width on the segment slice's final ledgers
     and mutations, over a synthetic panel of 20,000 haplotypes x
@@ -1071,12 +1130,11 @@ def paint_full_width(dev, final) -> dict:
     shape = (f"{n} rows x 2 chromatids x {Q} loci, S {st.shape[-1]}, M "
              f"{mu.shape[-1]}, {hp.dtype} haps, panel {H} x {Q}")
     r = dict(name="paint", route="cuda", source=KERNELS["paint"][0],
-             replaces=KERNELS["paint"][1], shape=shape, **_compare(
-                 "paint", lambda: tp.paint(*one),
-                 lambda: tp.paint_plain(*one), _paint_work(*one),
-                 queued=True))
+             replaces=KERNELS["paint"][1], shape=shape,
+             **_paint_entry("paint", one))
     args = (st, hp, mu, founder, pos)
     out = tp.paint(*args)
+    path = _paint_path(pos)
     plain_ms = 0.0
     for c in range(C):
         a = torch.cuda.Event(enable_timing=True)
@@ -1091,14 +1149,16 @@ def paint_full_width(dev, final) -> dict:
                                  "chromosome launch differs from plain")
     del out, want
     t = _time_turns({"ms": lambda: tp.paint(*args)}, {"ms": 5})
-    work = _paint_work(*args)
+    work = dict(_paint_work(*args), **_paint_need(*args))
     r["entries"] = [dict(
         entry="all_22_chromosomes", shape=f"{C} chromosomes of {shape}",
         max_abs_err=0, ms=t["ms"], plain_ms=plain_ms, library_ms=None,
-        roofline_share=work["bound_ms"] / t["ms"], **work)]
+        roofline_share=work["bound_ms"] / t["ms"],
+        need_share=work["need_bound_ms"] / t["ms"], **work, **path)]
     print(f" kernel paint/all_22_chromosomes      {t['ms']:.4f} ms   plain "
           f"{plain_ms:.1f} ms (22 calls)   bound {work['bound_ms']:.4f} ms "
-          f"({work['bound_ms'] / t['ms']:.1%}); 22 chromosomes bit-exact")
+          f"({work['bound_ms'] / t['ms']:.1%}), need bound "
+          f"{work['need_bound_ms']:.4f} ms; 22 chromosomes bit-exact")
     print(f"   ({shape})")
     return r
 
@@ -1140,15 +1200,11 @@ def gather_paint_kernel(kernels: list, captured) -> None:
     """The paint kernel at the gather path's shape, on its last
     generation's own inputs (22 chromosomes x 100 CV columns), bit-exact;
     added to the kernel's `entries`."""
-    from geneevolve_tpu_torch.ops import paint as tp
-
     st, hp, mu, founder, pos = captured
     shape = (f"{st.shape[0]} chromosomes x {st.shape[1]} rows x 2 x "
              f"{pos.shape[1]} CVs, S {st.shape[-1]}, panel "
              f"{founder.shape[1]} x {founder.shape[2]}")
-    r = _compare("paint/gather_path", lambda: tp.paint(*captured),
-                 lambda: tp.paint_plain(*captured), _paint_work(*captured),
-                 queued=True)
+    r = _paint_entry("paint/gather_path", captured)
     by_name = {k["name"]: k for k in kernels}
     by_name["paint"].setdefault("entries", []).append(
         dict(entry="gather_path", shape=shape, **r))
@@ -1412,17 +1468,19 @@ def profile_phase(dev, work: Path, base: list) -> dict:
     return out
 
 
-def dense_slice(dev, work: Path) -> dict:
-    """`--backend dense` at Table 3.1's shape with a real panel; the
-    resident CV matrices equal the planes' CVs at the end. The last
-    generation's packed-meiosis and CV-gather inputs are kept under
-    `captured` for `dense_slice_kernels`."""
+def _dense_run(dev, work: Path, name: str, gens: int, base=None) -> dict:
+    """`--backend dense` at Table 3.1's shape with a real panel through
+    `slice_phase`, `gens` generations; the resident CV matrices equal the
+    planes' CVs at the end. The last generation's packed-meiosis and
+    CV-gather inputs are kept under `captured`, and each generation's de
+    novo mutations (a count left on the card, and the gametes drawn) under
+    `captured["mutations"]`."""
     import torch
 
     from geneevolve_tpu_torch.dense import backend, packed
     from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
 
-    captured = {}
+    captured = {"mutations": []}
     make_reproduce, cv_child = backend.make_reproduce, backend.cv_child
 
     def make_reproduce_rec(cfg):
@@ -1431,6 +1489,9 @@ def dense_slice(dev, work: Path) -> dict:
         def rec(*args):
             captured["meiose_packed"] = (
                 args, dict(n_chr=cfg.n_chr, chr_len=cfg.chr_len))
+            mu = args[7]
+            captured["mutations"].append(
+                (None if mu is None else (mu < cfg.m).sum(), 2 * cfg.n))
             return reproduce(*args)
 
         return rec
@@ -1439,26 +1500,101 @@ def dense_slice(dev, work: Path) -> dict:
         captured["gather_rows"] = (cv_par, parent)
         return cv_child(cv_par, parent, *rest)
 
+    scenario = dict(DENSE_SCENARIO, gens=gens)
+    extra = ["--backend", "dense", *DENSE_VARIANCES]
+    if base is not None:
+        base = _with(base, "--file_gen_info",
+                     str(_popinfo(work / name, scenario, gens)))
     backend.make_reproduce, backend.cv_child = make_reproduce_rec, cv_child_rec
     try:
-        out = slice_phase(dev, work, "dense31", DENSE_SCENARIO,
-                          ["--backend", "dense", *DENSE_VARIANCES])
+        out = slice_phase(dev, work, name, scenario, extra, base=base)
     finally:
         backend.make_reproduce, backend.cv_child = make_reproduce, cv_child
     sim = out.pop("sim")
-    if meiose_packed.launches != DENSE_SCENARIO["gens"]:
-        raise AssertionError(f"dense slice: {meiose_packed.launches} packed "
+    if meiose_packed.launches != gens:
+        raise AssertionError(f"{name}: {meiose_packed.launches} packed "
                              "meiosis launches, one per generation expected")
     st = sim.pops[0].state
     for j, cols in enumerate(sim.dp.cv_cols):
         if not torch.equal(st.cv[j], packed.cv_from_planes(st.hap, cols)):
-            raise AssertionError(f"dense slice: phenotype {j + 1}'s resident "
+            raise AssertionError(f"{name}: phenotype {j + 1}'s resident "
                                  "CVs differ from the planes' CVs")
-    print(f" dense31: resident CVs == planes' CVs ({len(sim.dp.cv_cols)} "
+    print(f" {name}: resident CVs == planes' CVs ({len(sim.dp.cv_cols)} "
           f"phenotype(s), {st.hap.shape[0]} rows)")
     out["panel"] = dict(loci=sim.dp.cfg.m, mut_rate=sim.dp.cfg.mut_rate)
     out["captured"] = captured
     return out
+
+
+def dense_slice(dev, work: Path) -> dict:
+    """The dense slice: `_dense_run` over the scenario's own maps, 5
+    generations; its captured inputs feed `dense_slice_kernels`."""
+    return _dense_run(dev, work, "dense31", DENSE_SCENARIO["gens"])
+
+
+def dense_mutations(dev, work: Path, dense_argv: list) -> dict:
+    """The dense backend with de novo mutations that fill kernel 4's slots:
+    the dense slice's panel and maps, but a mutation map of rate 1 in every
+    50 kb bin, which the dense law (each panel column's bin rate over the
+    bin's width) turns into ~0.9 mutations a gamete (the slice's own map:
+    4.3e-4). `DENSE_MUT_GENS` generations through the CLI with
+    `_dense_run`'s checks (the resident CVs equal the planes' CVs at the
+    end); the mean realized count a gamete must lie in [0.5, 2]. Its last
+    generation's inputs are kept for `dense_mutation_kernels`."""
+    name = "densemut31"
+    root = work / name
+    root.mkdir(parents=True, exist_ok=True)
+    rmap = Path(dense_argv[dense_argv.index("--file_recom_map") + 1])
+    mmap = _mutation_map(root / "mut_flat.txt", rmap, rate=1.0)
+    base = _with(dense_argv, "--file_mutation_map", str(mmap))
+    out = _dense_run(dev, work, name, DENSE_MUT_GENS, base=base)
+    counts = out["captured"].pop("mutations")
+    total = sum(int(c) for c, _ in counts)
+    gametes = sum(g for _, g in counts)
+    mean = total / gametes
+    out.update(mutations=total, gametes=gametes, mean_per_gamete=mean,
+               mean_per_gen=[int(c) / g for c, g in counts])
+    print(f" {name}: {total} de novo mutations over {gametes} gametes in "
+          f"{len(counts)} generations: mean {mean:.4f} a gamete (law "
+          f"{out['panel']['mut_rate']:.4f}); per generation "
+          + " ".join(f"{x:.4f}" for x in out["mean_per_gen"]))
+    if not 0.5 <= mean <= 2.0:
+        raise AssertionError(f"{name}: mean {mean} de novo mutations a "
+                             "gamete, not in [0.5, 2]")
+    return out
+
+
+def dense_mutation_kernels(kernels: list, captured: dict) -> None:
+    """Kernel 4 on the dense mutation run's last generation's own inputs
+    (every slot Km of a gamete live ~0.9 times): bit-exact to its plain
+    version, and its flips change the children (the same launch without
+    the mutations differs); added to the kernel's `entries`."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import meiose_packed as mp
+
+    args, kw = captured["meiose_packed"]
+    hap, mu = args[0], args[7]
+    r = _compare_packed(
+        "meiose_packed/dense_mutations",
+        lambda: mp.meiose_packed(*args, **kw),
+        lambda: mp.meiose_packed_plain(*args, **kw),
+        _packed_work(_packed_need(hap.shape[0], args[1:7], **kw), args[1:7],
+                     mu, **kw), mp.meiose_packed)
+    flipped = int((mp.meiose_packed(*args, **kw)
+                   != mp.meiose_packed(*args[:7], None, **kw)).sum())
+    torch.cuda.synchronize()
+    if flipped == 0:
+        raise AssertionError("dense mutations: the flips changed no word")
+    shape = (f"{args[1].shape[0]} children of {hap.shape[0]} rows x "
+             f"{hap.shape[2]} words, Km {mu.shape[2]}, "
+             f"{int((mu < hap.shape[2] * 32).sum())} mutations")
+    by_name = {k["name"]: k for k in kernels}
+    by_name["meiose_packed"].setdefault("entries", []).append(
+        dict(entry="dense_mutations", shape=shape, words_flipped=flipped,
+             **r))
+    print(f"   ({shape}; {flipped} words differ from the unmutated "
+          "children)")
 
 
 def dense_slice_kernels(kernels: list, captured: dict) -> None:
@@ -1703,6 +1839,14 @@ def main() -> int:
         del res["dense_slice"]["root"]
         # after the counted run: these launches are comparisons
         dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["dense_mutations"] = counted(
+            "dense_mutations", wrappers,
+            lambda: dense_mutations(dev, work, dense_argv), launches)
+        del res["dense_mutations"]["argv"], res["dense_mutations"]["root"]
+        # after the counted run: these launches are comparisons
+        dense_mutation_kernels(kernels,
+                               res["dense_mutations"].pop("captured"))
         torch.cuda.empty_cache()
         res["output"] = counted(
             "segment_output", wrappers,

@@ -27,9 +27,8 @@ from geneevolve_tpu_torch.core import segments
 from geneevolve_tpu_torch.io import hap as hap_io
 from geneevolve_tpu_torch.io import plink as plink_io
 from geneevolve_tpu_torch.io import vcf as vcf_io
+from geneevolve_tpu_torch.ops.paint import SPAN as _SPAN  # loci a block
 from geneevolve_tpu_torch.ops.paint import paint
-
-_SPAN = 2048  # the kernel's loci a block: loci chunks are multiples of it
 
 
 def _chunks(n: int, m: int, H: int, device: torch.device):

@@ -13,191 +13,457 @@
 // materializes a (rows, 2, Q, S) compare, ~44 GB a chromosome at 30,708
 // rows x 14,588 loci x S 49.
 //
-// Bound: bytes. Each output byte is written once, and the founder panel
-// (H x Q bytes a chromosome) must be read at least once; the ledgers,
-// mutation rows and positions are small beside them. The design keeps the
-// panel's reads near once and both streams coalesced:
-// - a warp paints one chromatid row over a span of GE_SPAN loci, staging
-//   that row's S starts and haps and M mutations in shared memory once;
-//   the block's 8 warps share the span's positions, staged once;
-// - blocks are ordered row group fastest, then span, then chromosome, so
-//   the blocks in flight read one span's slab of the panel (H x GE_SPAN
-//   bytes, ~41 MB at 20,000 haplotypes), most of which L2 (50 MB) holds;
-// - a lane paints units of W loci, W the widest of 16, 8, 4, 2, 1 bytes
-//   that divides Q and both base addresses: one W-byte founder load when
-//   the W loci lie in one segment (almost always), one W-byte store; the
-//   warp's lanes take consecutive units, so each load and store of the
-//   warp covers consecutive bytes;
-// - the slot covering a locus and the mutation pointer are walked forward:
-//   a lane keeps its current slot and re-searches (binary search over the
-//   sorted starts) only when the locus leaves it, so a row costs about one
-//   search per segment boundary, not per locus.
-// At the full-width shape this runs at ~16% of its bound (PERF.md). In
-// runs in turns, spans of 2,048 loci beat 512 and 1,024 (fewer, longer
-// blocks, less staging); deciding a unit by two compares, and issuing 4
-// units' loads before their stores, gained little at 14,588 loci, lost at
-// odd widths and at the gather path's 100 CVs, and were not kept.
+// Bound: bytes, at both of the port's shapes, but not the same bytes.
+// - Genotype output (Q ~15,000 loci a chromosome, positions from the
+//   legend, ascending): the painted bytes, written once, and the founder
+//   panel (H x Q), read at least once. A row's ledger (~400 bytes) is small
+//   beside its ~15 KB of output.
+// - The gather A/D path (Q = 100 CV columns a chromosome): a row's ledger
+//   (S 49 starts and haps, M 27 mutations, ~400 bytes) outweighs its 100
+//   painted bytes, and most of its slots are BIG padding.
+// Both stay well above their bound (PERF.md, paint). At full width the
+// copy holds most of the time (a variant without the ledger staging was
+// timed in turns): the panel under each run is read again for each row
+// that uses it, mostly from HBM. At the gather shape each row is a short
+// chain of dependent steps and a few hundred warp instructions. So the
+// design spends as few instructions and dependent loads as it can.
+// - Runs, not per-locus decisions, where a span's positions ascend (the
+//   block checks, no host sync) and the span is longer than
+//   GE_PAINT_LOCUS_SPAN: the loci of ledger slot s are the index range
+//   [#{q < st[s]}, #{q < st[s + 1]}), and the loci of a mutation at v are
+//   [#{q < v}, #{q <= v}). A warp stages a row's run boundaries (a binary
+//   search over the staged positions per slot, a lane a slot) and its
+//   mutation ranges in shared memory; painting is then a copy of
+//   founder[hap, lo:hi] into out[row, lo:hi] for each run, with flips on
+//   the few bytes inside a mutation's range. A 16-byte chunk that spans
+//   several runs merges each run's 16 bytes under a byte mask.
+// - 16-byte stores at every width. The output row starts wherever row * Q
+//   puts it (4-byte aligned at both real shapes): a lane paints chunks
+//   aligned to 16 bytes of the output, and reads the founder bytes under
+//   them as two aligned 16-byte loads shifted into place (funnel shifts;
+//   the shift is constant along a run). The bytes before the first chunk
+//   and after the last (at most 30) take one pass, a lane a byte.
+// - Short spans (the gather path's 100 CVs) and spans whose positions do
+//   not ascend: a lane paints 4 consecutive loci, walking a slot pointer
+//   and a mutation pointer (their bounds and founder row in registers)
+//   over the staged starts and mutations, searching again only where a
+//   locus leaves them, and stores the 4 bytes as one word where the row's
+//   alignment allows.
+// - Positions staged once per block and span of 4,096 loci; a block covers
+//   many rows (a warp loops over its rows, `ops/paint.launch_plan` sizes
+//   the group) and has no block barrier after the positions are staged.
+//   Blocks are ordered row group fastest, then span, then chromosome.
+//   Spans of 4,096 loci beat 2,048, 1,024 and 8,192 in turns on the card,
+//   though their panel slab (H x span bytes) outgrows L2: a row's staging
+//   per span costs more than the slab's L2 misses.
+// - The next row's first 32 starts, haps and mutations are loaded into
+//   registers while the current row paints. A row's ledger is read only up
+//   to its first start (and mutation) past the span's largest position: at
+//   BIG padding, no further than the first BIG slot, in 32-slot chunks.
+// Exactness (each has a card test): the slot is #{st <= q} - 1 with
+// duplicate starts (their runs are empty); hap 0, not slot 0, before the
+// first start (run 0); BIG queries count BIG slots (the last run reaches
+// the span's end); a flip needs q < BIG and exact membership, once for
+// repeated mutations; haps are clamped into the panel, so a whole run
+// reads the clamped row; 1 - f wraps in uint8.
 // Preconditions: each ledger row ascending (BIG padded), each mutation row
-// ascending (BIG padded); positions in any order (an unsorted position
-// only costs a search). Hap indices are clamped into the panel, as the
-// JAX gather clamps them.
+// ascending (BIG padded); positions in any order.
 #include <limits.h>
 
 #include "common.cuh"
 
-#define GE_WARPS 8                 // chromatid rows a block
-#define GE_SPAN 2048               // loci a block paints of each row
-#define GE_THREADS (32 * GE_WARPS)
+#define GE_PAINT_MAX_THREADS 256
+#define GE_PAINT_LOCUS_SPAN 256  // spans this short: a lane 4 loci
 
-// #{a[j] <= v} and #{a[j] < v} of the sorted a[0..n), from common.cuh:
-// ge_upper_bound, ge_lower_bound.
+// bytes d .. d + 15 of the 32 bytes w0, w1 (0 < d < 16)
+__device__ __forceinline__ uint4 ge_shift16(uint4 w0, uint4 w1, int d) {
+  uint32_t t0, t1, t2, t3, t4;
+  switch (d >> 2) {
+    case 0: t0 = w0.x; t1 = w0.y; t2 = w0.z; t3 = w0.w; t4 = w1.x; break;
+    case 1: t0 = w0.y; t1 = w0.z; t2 = w0.w; t3 = w1.x; t4 = w1.y; break;
+    case 2: t0 = w0.z; t1 = w0.w; t2 = w1.x; t3 = w1.y; t4 = w1.z; break;
+    default: t0 = w0.w; t1 = w1.x; t2 = w1.y; t3 = w1.z; t4 = w1.w; break;
+  }
+  const unsigned sh = (unsigned)(d & 3) * 8;
+  return make_uint4(__funnelshift_r(t0, t1, sh), __funnelshift_r(t1, t2, sh),
+                    __funnelshift_r(t2, t3, sh), __funnelshift_r(t3, t4, sh));
+}
 
-template <typename V, typename HapT>
-__global__ void __launch_bounds__(GE_THREADS)
+// The 16 founder bytes at p, any alignment, from the aligned 16-byte
+// blocks that hold them. The block holding p + 15 lies in the same page
+// as that byte, so the second load never leaves the panel's mapping.
+__device__ __forceinline__ uint4 ge_load16(const uint8_t* p) {
+  const uintptr_t a = (uintptr_t)p;
+  const uint4* q = (const uint4*)(a & ~(uintptr_t)15);
+  const int d = (int)(a & 15);
+  const uint4 w0 = __ldg(q);
+  return d == 0 ? w0 : ge_shift16(w0, __ldg(q + 1), d);
+}
+
+union GeChunk {
+  uint4 v;
+  uint8_t b[16];
+};
+
+// bytes [a, e) of a 16-byte chunk that fall in its 32-bit word w
+__device__ __forceinline__ uint32_t ge_bytemask(int a, int e, int w) {
+  const int lo = min(max(a - 4 * w, 0), 4), hi = min(max(e - 4 * w, 0), 4);
+  const uint32_t below_lo = lo == 4 ? 0xffffffffu : (1u << (8 * lo)) - 1u;
+  const uint32_t below_hi = hi == 4 ? 0xffffffffu : (1u << (8 * hi)) - 1u;
+  return below_hi & ~below_lo;
+}
+
+// A row staged in a warp's shared memory, one slot of 2 S + 2 M + 8
+// words. Runs: B[0..R] the runs' first loci (B[0] = 0, B[R] = n, R = kst +
+// 1), HP[0..R) their clamped haps (HP[0] = 0: before the first start), and
+// [ML[i], MH[i]) the loci of mutation i, ML[nm] = MH[nm] = INT_MAX. Lanes
+// of 4 loci: B[1..kst] the starts and ML[1..nm] the mutations, between
+// INT_MIN and INT_MAX sentinels, HP[k] the hap of k starts <= q.
+struct GeRow {
+  int32_t *B, *HP, *ML, *MH;
+  int kst, nm;
+};
+
+__device__ __forceinline__ GeRow ge_slot(int32_t* base, int S, int M) {
+  GeRow w;
+  w.B = base;
+  w.HP = base + S + 2;
+  w.ML = w.HP + S + 2;
+  w.MH = w.ML + M + 2;
+  w.kst = w.nm = 0;
+  return w;
+}
+
+// lane's slot of a row's first 32 starts, haps and mutations
+template <typename HapT>
+__device__ __forceinline__ void ge_prefetch(
+    int32_t& st, int32_t& hp, int32_t& mu, const int32_t* seg_st,
+    const HapT* seg_hap, const int32_t* mut, int64_t row, int S, int M,
+    int lane) {
+  if (lane < S) st = __ldg(seg_st + row * S + lane);
+  if (lane < S) hp = (int32_t)__ldg(seg_hap + row * S + lane);
+  if (lane < M) mu = __ldg(mut + row * M + lane);
+}
+
+// Stages row `row` into w: its starts up to the first one past qmax (kst
+// of them) and its mutations likewise (nm), the first 32 of each from the
+// prefetched registers.
+template <typename HapT>
+__device__ __forceinline__ void ge_stage(
+    GeRow& w, const int32_t* seg_st, const HapT* seg_hap, const int32_t* mut,
+    int64_t row, int32_t st0, int32_t hp0, int32_t mu0, int S, int M,
+    int64_t H, int32_t qmax, int32_t big, bool runs, const int32_t* spos,
+    int n, int lane) {
+  const int32_t* st = seg_st + row * S;
+  const HapT* hp = seg_hap + row * S;
+  const int32_t* mu = mut + row * M;
+  int kst = 0;
+  for (int base = 0; base < S; base += 32) {
+    const int s = base + lane;
+    const int32_t v = base == 0 ? st0 : (s < S ? __ldg(st + s) : 0);
+    const bool in = s < S && v <= qmax;
+    const int cnt = __popc(__ballot_sync(GE_FULL, in));
+    if (in) {
+      const int32_t h = base == 0 ? hp0 : (int32_t)__ldg(hp + s);
+      w.B[s + 1] = runs ? ge_lower_bound(spos, n, v) : v;
+      w.HP[s + 1] = h < 0 ? 0 : (h >= H ? (int32_t)(H - 1) : h);
+    }
+    kst += cnt;
+    if (cnt < 32) break;
+  }
+  int nm = 0;
+  int32_t carry = 0;
+  for (int base = 0; base < M; base += 32) {
+    const int i = base + lane;
+    const int32_t v = base == 0 ? mu0 : (i < M ? __ldg(mu + i) : 0);
+    const bool in = i < M && v <= qmax;
+    const int cnt = __popc(__ballot_sync(GE_FULL, in));
+    int32_t prev = __shfl_up_sync(GE_FULL, v, 1);
+    if (lane == 0) prev = carry;
+    if (in) {
+      if (runs) {
+        // the loci at v follow lo: few, often none. A repeated mutation
+        // flips once: its repeats, and mutations at BIG, get empty ranges
+        // at hi, so both ends stay in order for the searches that read them
+        const int lo = ge_lower_bound(spos, n, v);
+        int hi = lo;
+        while (hi < n && spos[hi] == v) ++hi;
+        w.ML[i] = v < big && !(i > 0 && prev == v) ? lo : hi;
+        w.MH[i] = hi;
+      } else {
+        w.ML[i + 1] = v;
+      }
+    }
+    carry = __shfl_sync(GE_FULL, v, 31);
+    nm += cnt;
+    if (cnt < 32) break;
+  }
+  if (lane == 0) {
+    w.HP[0] = 0;
+    if (runs) {
+      w.B[0] = 0;
+      w.B[kst + 1] = n;
+      w.ML[nm] = w.MH[nm] = INT_MAX;
+    } else {
+      w.B[0] = INT_MIN;
+      w.B[kst + 1] = INT_MAX;
+      w.ML[0] = INT_MIN;
+      w.ML[nm + 1] = INT_MAX;
+    }
+  }
+  w.kst = kst;
+  w.nm = nm;
+}
+
+// A row painted as runs: the 16-byte-aligned chunks of the output row a
+// lane a chunk, then the bytes before the first chunk and after the last
+// (at most 30) a lane a byte.
+__device__ __forceinline__ void ge_paint_runs(const GeRow& w, uint8_t* orow,
+                                              const uint8_t* fc, int64_t Q,
+                                              int n, int lane) {
+  const int32_t *B = w.B, *HP = w.HP, *ML = w.ML, *MH = w.MH;
+  const int R = w.kst + 1;
+  const int a0 = (int)((uintptr_t)orow & 15);
+  const int head = min((16 - a0) & 15, n);
+  const int nfull = (n - head) >> 4;
+  int r = 0, mi = 0;
+  for (int t = lane; t < nfull; t += 32) {
+    const int lo = head + (t << 4), hi = lo + 16;
+    if (lo >= B[r + 1]) r = ge_upper_bound(B + 1, R - 1, lo);
+    uint4 v;
+    if (hi <= B[r + 1]) {
+      v = ge_load16(fc + (int64_t)HP[r] * Q + lo);
+    } else {
+      // runs shorter than the chunk: each run's 16 bytes, masked
+      v = make_uint4(0, 0, 0, 0);
+      for (int a = lo; a < hi; ++r) {
+        const int e = B[r + 1] < hi ? B[r + 1] : hi;
+        if (e <= a) continue;  // an empty run (duplicate starts)
+        const uint4 x = ge_load16(fc + (int64_t)HP[r] * Q + lo);
+        v.x |= x.x & ge_bytemask(a - lo, e - lo, 0);
+        v.y |= x.y & ge_bytemask(a - lo, e - lo, 1);
+        v.z |= x.z & ge_bytemask(a - lo, e - lo, 2);
+        v.w |= x.w & ge_bytemask(a - lo, e - lo, 3);
+        a = e;
+      }
+      --r;  // the run of byte hi - 1
+    }
+    // flips: the mutation ranges that meet [lo, hi)
+    while (MH[mi] <= lo) ++mi;
+    uint32_t fm = 0;
+    for (int k = mi; ML[k] < hi; ++k) {
+      const int fa = (ML[k] > lo ? ML[k] : lo) - lo;
+      const int fe = (MH[k] < hi ? MH[k] : hi) - lo;
+      if (fe > fa) fm |= ((1u << (fe - fa)) - 1u) << fa;
+    }
+    if (fm) {
+      GeChunk u;
+      u.v = v;
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if ((fm >> b) & 1u) u.b[b] = (uint8_t)(1 - u.b[b]);
+      v = u.v;
+    }
+    *(uint4*)(orow + lo) = v;
+  }
+  const int tail = head + (nfull << 4);
+  const int j = lane < 16 ? lane : tail + lane - 16;
+  if (lane < 16 ? j < head : j < n) {
+    const int rj = ge_upper_bound(B + 1, R - 1, j);
+    const uint8_t f = fc[(int64_t)HP[rj] * Q + j];
+    const int k = ge_upper_bound(MH, w.nm, j);  // the first range past j
+    orow[j] = ML[k] <= j ? (uint8_t)(1 - f) : f;
+  }
+}
+
+// A lane's walk over its loci in a row painted 4 loci a lane: the slot
+// (klo <= q < khi, its founder row frow) and the mutation pointer (mlo <
+// q <= mhi) of its last locus, searched again where a locus leaves them.
+struct GeWalk {
+  int32_t klo, khi, mlo, mhi;
+  const uint8_t* frow;
+};
+
+__device__ __forceinline__ GeWalk ge_walk(const uint8_t* fc) {
+  GeWalk p;
+  p.klo = p.khi = p.mlo = p.mhi = INT_MIN;
+  p.frow = fc;
+  return p;
+}
+
+// The 4 painted bytes of loci 4u .. 4u + 3 (those below n), as a word.
+__device__ __forceinline__ uint32_t ge_unit(GeWalk& p, const GeRow& w,
+                                            const int32_t* spos, int n, int u,
+                                            const uint8_t* fc, int64_t Q,
+                                            int32_t big) {
+  uint32_t x = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = 4 * u + b;
+    if (j < n) {
+      const int32_t q = spos[j];
+      if (!(p.klo <= q && q < p.khi)) {
+        const int k = ge_upper_bound(w.B + 1, w.kst, q);
+        p.klo = w.B[k];
+        p.khi = w.B[k + 1];
+        p.frow = fc + (int64_t)w.HP[k] * Q;
+      }
+      if (!(p.mlo < q && q <= p.mhi)) {
+        const int m = 1 + ge_lower_bound(w.ML + 1, w.nm, q);
+        p.mlo = w.ML[m - 1];
+        p.mhi = w.ML[m];
+      }
+      const uint8_t f = p.frow[j];
+      x |= (uint32_t)(q < big && p.mhi == q ? (uint8_t)(1 - f) : f) << (8 * b);
+    }
+  }
+  return x;
+}
+
+__device__ __forceinline__ void ge_store_unit(uint8_t* orow, int u, int n,
+                                              uint32_t x) {
+  if (((uintptr_t)(orow + 4 * u) & 3) == 0 && 4 * u + 4 <= n) {
+    *(uint32_t*)(orow + 4 * u) = x;
+  } else {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * u + b < n) orow[4 * u + b] = (uint8_t)(x >> (8 * b));
+  }
+}
+
+// grid: (row groups, spans, chromosomes); a block of `warps` warps paints
+// rows [g0, g0 + rows_per_block) of chromosome blockIdx.z over the span's
+// loci [j0, j0 + n); warp w takes rows g0 + w, g0 + w + warps, ...
+template <typename HapT>
+__global__ void __launch_bounds__(GE_PAINT_MAX_THREADS)
     paint_kernel(const int32_t* __restrict__ seg_st,
                  const HapT* __restrict__ seg_hap,
                  const int32_t* __restrict__ mut,
                  const uint8_t* __restrict__ founder,
                  const int32_t* __restrict__ pos, uint8_t* __restrict__ out,
                  int64_t rows2, int S, int M, int64_t H, int64_t Q,
+                 int span_len, int rows_per_block, int warp_words,
                  int32_t big) {
-  constexpr int W = (int)sizeof(V);
   extern __shared__ int32_t smem[];
-  __shared__ int32_t spos[GE_SPAN];
+  __shared__ int32_t s_qmax;
+  __shared__ int s_unsorted;
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t c = blockIdx.z;
-  const int64_t j0 = (int64_t)blockIdx.y * GE_SPAN;
-  const int span = (int)(Q - j0 < GE_SPAN ? Q - j0 : GE_SPAN);
-  const int64_t g = (int64_t)blockIdx.x * GE_WARPS + warp;  // row in chr
-  const bool live = g < rows2;
-  const int64_t row = c * rows2 + g;  // chromatid row of every plane
+  const int64_t j0 = (int64_t)blockIdx.y * span_len;
+  const int n = (int)(Q - j0 < span_len ? Q - j0 : span_len);
 
-  // per warp: sst[0..S+1] = (INT_MIN, starts, INT_MAX), shap[0..S),
-  // smu[0..M+1] = (INT_MIN, mutations, INT_MAX)
-  int32_t* sst = smem + warp * (2 * S + M + 4);
-  int32_t* shap = sst + S + 2;
-  int32_t* smu = shap + S;
-  for (int i = threadIdx.x; i < span; i += GE_THREADS)
-    spos[i] = pos[c * Q + j0 + i];
-  if (live) {
-    const int32_t* st = seg_st + row * S;
-    const HapT* hp = seg_hap + row * S;
-    const int32_t* mu = mut + row * M;
-    for (int s = lane; s < S; s += 32) {
-      sst[s + 1] = st[s];
-      shap[s] = (int32_t)hp[s];
+  // the span's positions, the largest of them, and whether they ascend
+  int32_t* spos = smem;
+  if (threadIdx.x == 0) {
+    s_qmax = INT_MIN;
+    s_unsorted = 0;
+  }
+  __syncthreads();
+  {
+    const int32_t* pc = pos + c * Q + j0;
+    int32_t hi = INT_MIN;
+    bool down = false;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int32_t q = pc[i];
+      spos[i] = q;
+      hi = max(hi, q);
+      down = down || (i + 1 < n && q > pc[i + 1]);
     }
-    for (int s = lane; s < M; s += 32) smu[s + 1] = mu[s];
+    hi = __reduce_max_sync(GE_FULL, hi);
+    down = __any_sync(GE_FULL, down);
     if (lane == 0) {
-      sst[0] = INT_MIN;
-      sst[S + 1] = INT_MAX;
-      smu[0] = INT_MIN;
-      smu[M + 1] = INT_MAX;
+      atomicMax(&s_qmax, hi);
+      if (down) s_unsorted = 1;
     }
   }
   __syncthreads();
-  if (!live) return;
+  const int32_t qmax = s_qmax;
+  // runs where the positions ascend and the span is long enough to pay
+  // for the run boundaries' searches; else a lane 4 loci
+  const bool runs = !s_unsorted && n > GE_PAINT_LOCUS_SPAN;
 
-  const uint8_t* fc = founder + c * H * Q;
-  uint8_t* orow = out + row * Q;
-  int k = 0;  // #{st <= q}: sst[k] <= q < sst[k + 1]
-  int m = 0;  // #{mu < q}:  smu[m] < q <= smu[m + 1]
-  for (int u = lane; u * W < span; u += 32) {
-    const int64_t j = j0 + (int64_t)u * W;
-    union {
-      V v;
-      uint8_t b[W];
-    } f;
-    int32_t hap[W];
-    bool flip[W];
-    bool same = true;
-#pragma unroll
-    for (int b = 0; b < W; ++b) {
-      const int32_t q = spos[u * W + b];
-      if (!(sst[k] <= q && q < sst[k + 1])) k = ge_upper_bound(sst + 1, S, q);
-      if (!(smu[m] < q && q <= smu[m + 1])) m = ge_lower_bound(smu + 1, M, q);
-      int32_t h = k > 0 ? shap[k - 1] : 0;
-      h = h < 0 ? 0 : (h >= H ? (int32_t)(H - 1) : h);
-      hap[b] = h;
-      flip[b] = q < big && smu[m + 1] == q;
-      same = same && h == hap[0];
-    }
-    if (same) {
-      f.v = *(const V*)(fc + (int64_t)hap[0] * Q + j);
+  // each warp: one staged row, `warp_words` words after the positions
+  int32_t* wsm = smem + ((span_len + 3) & ~3) + warp * warp_words;
+  GeRow A = ge_slot(wsm, S, M);
+
+  const int64_t g0 = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t g1 =
+      g0 + rows_per_block < rows2 ? g0 + rows_per_block : rows2;
+  const uint8_t* fc = founder + c * H * Q + j0;
+  const int64_t r0 = c * rows2;  // the chromosome's first chromatid row
+
+  int64_t g = g0 + warp;
+  if (g >= g1) return;
+  // a row an iteration; the next row's first slots in flight
+  int32_t nst = 0, nhp = 0, nmu = 0;
+  ge_prefetch(nst, nhp, nmu, seg_st, seg_hap, mut, r0 + g, S, M, lane);
+  for (; g < g1; g += warps) {
+    const int32_t st0 = nst, hp0 = nhp, mu0 = nmu;
+    if (g + warps < g1)
+      ge_prefetch(nst, nhp, nmu, seg_st, seg_hap, mut, r0 + g + warps, S, M,
+                  lane);
+    ge_stage(A, seg_st, seg_hap, mut, r0 + g, st0, hp0, mu0, S, M, H, qmax,
+             big, runs, spos, n, lane);
+    __syncwarp();
+    uint8_t* orow = out + (r0 + g) * Q + j0;
+    if (runs) {
+      ge_paint_runs(A, orow, fc, Q, n, lane);
     } else {
-#pragma unroll
-      for (int b = 0; b < W; ++b) f.b[b] = fc[(int64_t)hap[b] * Q + j + b];
+      GeWalk p = ge_walk(fc);
+      for (int u = lane; 4 * u < n; u += 32)
+        ge_store_unit(orow, u, n, ge_unit(p, A, spos, n, u, fc, Q, big));
     }
-#pragma unroll
-    for (int b = 0; b < W; ++b)
-      if (flip[b]) f.b[b] = (uint8_t)(1 - f.b[b]);
-    *(V*)(orow + j) = f.v;
+    __syncwarp();
   }
-}
-
-template <typename V, typename HapT>
-static int launch(const void* seg_st, const void* seg_hap, const void* mut,
-                  const void* founder, const void* pos, void* out, int64_t C,
-                  int64_t rows2, int S, int M, int64_t H, int64_t Q,
-                  int32_t big, cudaStream_t stream) {
-  const size_t smem = (size_t)GE_WARPS * (2 * S + M + 4) * sizeof(int32_t);
-  auto kern = &paint_kernel<V, HapT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((rows2 + GE_WARPS - 1) / GE_WARPS),
-                  (unsigned)((Q + GE_SPAN - 1) / GE_SPAN), (unsigned)C);
-  kern<<<grid, GE_THREADS, smem, stream>>>(
-      (const int32_t*)seg_st, (const HapT*)seg_hap, (const int32_t*)mut,
-      (const uint8_t*)founder, (const int32_t*)pos, (uint8_t*)out, rows2, S,
-      M, H, Q, big);
-  return (int)cudaGetLastError();
-}
-
-template <typename HapT>
-static int dispatch(int width, const void* seg_st, const void* seg_hap,
-                    const void* mut, const void* founder, const void* pos,
-                    void* out, int64_t C, int64_t rows2, int S, int M,
-                    int64_t H, int64_t Q, int32_t big, cudaStream_t stream) {
-  const auto f = width == 16  ? &launch<uint4, HapT>
-                 : width == 8 ? &launch<uint2, HapT>
-                 : width == 4 ? &launch<uint32_t, HapT>
-                 : width == 2 ? &launch<uint16_t, HapT>
-                              : &launch<uint8_t, HapT>;
-  return f(seg_st, seg_hap, mut, founder, pos, out, C, rows2, S, M, H, Q, big,
-           stream);
 }
 
 // seg_st, seg_hap: (C, rows, 2, S); mut: (C, rows, 2, M); founder: (C, H,
 // Q) uint8; pos: (C, Q) int32; out: (C, rows, 2, Q) uint8; all contiguous.
-// hap_bytes: 2 (int16 haps) or 4 (int32).
+// hap_bytes: 2 (int16 haps) or 4 (int32). The launch shape comes from
+// ops/paint.launch_plan: `span` loci a block, `warps` warps a block,
+// `rows_per_block` rows a block, `blocks` row groups, `warp_words` words
+// of shared memory a warp and `smem` bytes in all; the limits are checked
+// again here.
 GE_API int ge_paint(const void* seg_st, const void* seg_hap, int hap_bytes,
                     const void* mut, const void* founder, const void* pos,
                     void* out, int64_t C, int64_t rows, int64_t S, int64_t M,
-                    int64_t H, int64_t Q, int big, void* stream) {
+                    int64_t H, int64_t Q, int big, int span, int warps,
+                    int rows_per_block, int64_t blocks, int warp_words,
+                    int smem, void* stream) {
   if (C == 0 || rows == 0 || Q == 0) return (int)cudaGetLastError();
-  // grid limits (y: spans, z: chromosomes), int32 slot counts, a panel
-  const int64_t per_warp = 2 * S + M + 4;
-  if (C > 65535 || (Q + GE_SPAN - 1) / GE_SPAN > 65535 || H < 1 ||
-      S >= (1LL << 20) || M >= (1LL << 20) ||
-      GE_WARPS * per_warp * 4 > 227 * 1024 - GE_SPAN * 4 ||
+  const int64_t spans = (Q + span - 1) / span;
+  // one span when Q is shorter: the staged positions take Q entries
+  const int sl = span < Q ? span : (int)Q;
+  const int64_t need = 4 * (((sl + 3) & ~3) + (int64_t)warps * warp_words);
+  if (C > 65535 || spans > 65535 || H < 1 || S >= (1LL << 20) ||
+      M >= (1LL << 20) || span < 1 || warps < 1 ||
+      32 * warps > GE_PAINT_MAX_THREADS || rows_per_block < warps ||
+      warp_words % 4 != 0 || warp_words < 2 * S + 2 * M + 8 ||
+      smem < need || smem > 227 * 1024 - 64 ||
+      blocks * rows_per_block < 2 * rows || blocks > INT_MAX ||
       (hap_bytes != 2 && hap_bytes != 4))
     return (int)cudaErrorInvalidValue;
-  const uintptr_t a =
-      (uintptr_t)founder | (uintptr_t)out | (uintptr_t)Q;
-  const int width = a % 16 == 0 ? 16
-                    : a % 8 == 0 ? 8
-                    : a % 4 == 0 ? 4
-                    : a % 2 == 0 ? 2
-                                 : 1;
+  const dim3 grid((unsigned)blocks, (unsigned)spans, (unsigned)C);
   const cudaStream_t s = (cudaStream_t)stream;
-  return hap_bytes == 2
-             ? dispatch<int16_t>(width, seg_st, seg_hap, mut, founder, pos,
-                                 out, C, 2 * rows, (int)S, (int)M, H, Q,
-                                 (int32_t)big, s)
-             : dispatch<int32_t>(width, seg_st, seg_hap, mut, founder, pos,
-                                 out, C, 2 * rows, (int)S, (int)M, H, Q,
-                                 (int32_t)big, s);
+#define GE_PAINT_LAUNCH(T)                                                  \
+  do {                                                                      \
+    auto kern = &paint_kernel<T>;                                           \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    kern<<<grid, 32 * warps, smem, s>>>(                                    \
+        (const int32_t*)seg_st, (const T*)seg_hap, (const int32_t*)mut,     \
+        (const uint8_t*)founder, (const int32_t*)pos, (uint8_t*)out,        \
+        2 * rows, (int)S, (int)M, H, Q, sl, rows_per_block, warp_words,     \
+        (int32_t)big);                                                      \
+  } while (0)
+  if (hap_bytes == 2)
+    GE_PAINT_LAUNCH(int16_t);
+  else
+    GE_PAINT_LAUNCH(int32_t);
+#undef GE_PAINT_LAUNCH
+  return (int)cudaGetLastError();
 }

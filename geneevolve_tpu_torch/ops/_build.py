@@ -52,7 +52,7 @@ SIGNATURES = {
     ],
     "ge_paint": [
         _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I,
-        _P,
+        _I, _I, _I, _I64, _I, _I, _P,
     ],
 }
 

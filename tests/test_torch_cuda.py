@@ -17,9 +17,9 @@ from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
 from geneevolve_tpu_torch.ops import paint as tpaint
-from torch_cases import (BIG, CASES, STACKED_CASES, cdf, dense_plan,
-                         foreign_slots, mutation_loci, paint_ledger,
-                         paint_mutations, paint_positions, probes, stacked)
+from torch_cases import (BIG, CASES, PAINT_CASES, STACKED_CASES, cdf,
+                         dense_plan, foreign_slots, mutation_loci, paint_case,
+                         probes, stacked)
 
 T = torch.as_tensor
 
@@ -333,35 +333,25 @@ def test_cuda_meiose_kernels_foreign_slot(cuda, n_chr, chr_len, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C, n, S, live, M, Q, hap_dtype, order", [
-    (3, 61, 9, 5, 5, 77, np.int16, "sorted"),  # ragged rows, 1-byte units
-    (2, 40, 49, 16, 27, 1030, np.int32, "sorted"),  # 2 spans + ragged, 2 B
-    (1, 33, 130, 200, 64, 4096, np.int16, "sorted"),  # full ledgers, 16 B
-    (22, 20, 49, 16, 27, 100, np.int16, "sorted"),  # the gather path's C, Q
-    (2, 17, 12, 12, 3, 1544, np.int32, "shuffled"),  # unsorted positions
-    (1, 9, 800, 300, 10, 600, np.int32, "sorted"),  # > 48 KB shared memory
-])
+@pytest.mark.parametrize("C, n, S, live, M, Q, hap_dtype, order",
+                         PAINT_CASES)
 def test_cuda_paint_kernel(cuda, C, n, S, live, M, Q, hap_dtype, order):
     """The paint kernel against its plain version: ragged rows (not a
-    multiple of a block's 8) and loci (spans of 512, units of 1-16 bytes),
-    queries before the first start and at BIG, full ledgers, duplicate
-    starts and mutations, int16 and int32 haps, positions in any order."""
-    rng = np.random.default_rng(C * n + S + Q)
-    H = 64
-    led = [paint_ledger(rng, n, S, live, hap_dtype, H=H) for _ in range(C)]
-    pos = np.stack([paint_positions(rng, Q) for _ in range(C)])
-    if order == "shuffled":
-        pos = np.stack([rng.permutation(p) for p in pos])
-    mut = np.stack([paint_mutations(rng, n, M, pos[c]) for c in range(C)])
-    founder = rng.integers(0, 2, size=(C, H, Q)).astype(np.uint8)
-    founder[:, 5, :7] = 2  # a value 1 - f wraps
-    args = [T(x, device=cuda) for x in (
-        np.stack([x[0] for x in led]), np.stack([x[1] for x in led]), mut,
-        founder, pos)]
+    multiple of a block's rows) and loci (4,096-locus spans, 16-byte
+    chunks at every row alignment), runs shorter than a chunk and longer
+    than a span, queries before the first start and at BIG, full ledgers,
+    duplicate starts and mutations, repeated positions with mutations on
+    them, haps outside the panel (clamped), int16 and int32 haps,
+    positions in any order and a shuffled span beside a sorted one; both
+    of the kernel's paths (`tests/test_torch_paint_plan.py` checks that
+    these cases reach them)."""
+    args = [T(x, device=cuda) for x in paint_case(C, n, S, live, M, Q,
+                                                   hap_dtype, order)]
     before = tpaint.paint.launches
     got = tpaint.paint(*args)
     torch.cuda.synchronize()
     assert tpaint.paint.launches == before + 1
+    assert tpaint.paint.plan == tpaint.launch_plan(C, n, S, M, Q)
     assert torch.equal(got, tpaint.paint_plain(*args))
 
 

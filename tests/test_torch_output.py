@@ -298,11 +298,12 @@ def test_paint_chunks_cover_rows_and_loci(mini_scenario, tmp_path,
     assert np.array_equal(np.concatenate([b for _, b in chunks], 2), want)
     # `_chunks` on a card with little free memory: loci in spans, then rows
     monkeypatch.undo()
+    span = toutput._SPAN  # the kernel's loci a block
     monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda device=None: (2 * 50_000 * 2048, 80 << 30))
+                        lambda device=None: (2 * 50_000 * span, 80 << 30))
     rc, mc = toutput._chunks(30_000, 14_588, 20_000, torch.device("cuda"))
-    assert (rc, mc) == (15_000, 2048)  # half the free memory: 102.4 MB
-    assert 2 * rc * mc + 20_000 * mc <= 50_000 * 2048
+    assert (rc, mc) == (15_000, span)  # half the free memory: 50,000 spans
+    assert 2 * rc * mc + 20_000 * mc <= 50_000 * span
 
 
 def test_check_fits_takes_gather_path_when_short(mini_scenario, tmp_path,

@@ -3,6 +3,8 @@ run on machines without it)."""
 
 import numpy as np
 
+from geneevolve_tpu_torch.ops.paint import SPAN
+
 BIG = 2**30
 
 
@@ -162,3 +164,46 @@ CASES = [(500, 49, 23, 14), (257, 8, 3, 5), (1024, 16, 9, 16), (300, 12, 5, 8)]
 # and four 32-slot words with most slots live
 STACKED_CASES = [(3, 120, 49, 23, 14), (3, 60, 65, 33, 60),
                  (3, 40, 130, 64, 120), (3, 40, 130, 33, 128)]
+
+
+# the paint kernel's card cases (tests/test_torch_cuda.py): (C, rows, S,
+# live slots, M, Q, hap dtype, order of the positions)
+PAINT_CASES = [
+    (3, 61, 9, 5, 5, 77, np.int16, "sorted"),  # ragged rows, Q odd
+    (2, 40, 49, 16, 27, 1030, np.int32, "sorted"),  # Q % 16 = 6
+    (1, 33, 130, 200, 64, 4096, np.int16, "sorted"),  # full ledgers, 16 B
+    (22, 20, 49, 16, 27, 100, np.int16, "sorted"),  # the gather path's C, Q
+    (2, 17, 12, 12, 3, 1544, np.int32, "shuffled"),  # unsorted positions
+    (1, 9, 800, 300, 10, 600, np.int32, "sorted"),  # > 48 KB shared memory
+    (1, 9, 600, 600, 10, 4100, np.int16, "sorted"),  # runs shorter than 16
+    (2, 9, 3, 2, 2, 9000, np.int32, "sorted"),  # runs longer than a span
+    (2, 21, 49, 16, 27, 1500, np.int32, "duplicates"),  # repeated positions
+    (2, 13, 49, 30, 27, 4108, np.int16, "sorted"),  # Q % 16 = 12, 2 spans
+    (22, 40, 49, 16, 27, 100, np.int16, "sorted"),  # the gather shape again
+    (2, 19, 20, 12, 9, 8492, np.int32, "half"),  # shuffled span, sorted span
+    (2, 3, 49, 16, 27, 300, np.int16, "sorted"),  # 6 rows: fewer than warps
+    (1, 9000, 49, 16, 27, 100, np.int16, "sorted"),  # 2 rows a warp
+    (2, 40, 49, 16, 27, 100, np.int16, "shuffled"),  # short rows, unsorted
+]
+
+
+def paint_case(C, n, S, live, M, Q, hap_dtype, order):
+    """The inputs of a paint case, as numpy arrays: (starts, haps,
+    mutations, panel, positions)."""
+    rng = np.random.default_rng(C * n + S + Q)
+    H = 64
+    led = [paint_ledger(rng, n, S, live, hap_dtype, H=H) for _ in range(C)]
+    pos = np.stack([paint_positions(rng, Q) for _ in range(C)])
+    if order == "shuffled":
+        pos = np.stack([rng.permutation(p) for p in pos])
+    elif order == "half":  # the first span shuffled, the others sorted
+        pos[:, :SPAN] = np.stack([rng.permutation(p) for p in pos[:, :SPAN]])
+    elif order == "duplicates":  # each position three times
+        pos = np.sort(np.repeat(pos[:, : -(-Q // 3)], 3, axis=1)[:, :Q], 1)
+    mut = np.stack([paint_mutations(rng, n, M, pos[c]) for c in range(C)])
+    founder = rng.integers(0, 2, size=(C, H, Q)).astype(np.uint8)
+    founder[:, 5, :7] = 2  # a value 1 - f wraps
+    st, hap = (np.stack([x[i] for x in led]) for i in (0, 1))
+    hap[:, ::5, 0, 1] = H + 3  # haps outside the panel read its last row
+    hap[:, 1::7, 1, 0] = -2  # and its first
+    return st, hap, mut, founder, pos
