@@ -55,7 +55,24 @@ Phases, each of which raises on failure (exit code non-zero):
    resident run's, s/gen, stage split and peak memory beside it; then the
    paint kernel at that path's shape (22 chromosomes x 100 CVs) on its
    last generation's own inputs, bit-exact;
-3c. segment output parity: a small segment scenario with `--out_hap
+3c. two populations (`multipop31`): the slice's shape twice (each
+   10,000 founders, pop_size 30,000, 22 x 100 CVs, the slice's mutation
+   map; population 2 from `tools/mkscenario.py` with the same seed, then
+   fresh CV alleles and effects), 3 generations, migration `0.9 0.1 0.1
+   0.9` and `--gamma 0.5`, `--checkpoint_every 2`: 40,000 founder haps, so
+   int32 haps, on the gather path with each chromatid's root population
+   painted over a root panel (M = 0); launches a generation and
+   population (3 bins, 2 gathers, 1 count, 1 merge, 2 paints), each
+   population's final ledger holding the other's founder haps, P means
+   apart (gamma), the tripwire, the checkpoint's size and save seconds;
+   then the count, the merge (int32 haps) and both paints against their
+   plain versions on its last generation's own inputs, bit-exact; then a
+   fresh `Simulation` resumed from its generation-2 checkpoint, its
+   generation-3 `.info`/`.summary` byte-identical to the straight run's
+   (load seconds); before it, a two-population cuda-vs-cpu parity at the
+   parity phase's size (planes identical every generation, after
+   migration too);
+3d. segment output parity: a small segment scenario with `--out_hap
    --out_vcf --out_plink --out_interval --debug --file_output_generations`,
    then `--out_plink01`, then a `--file_ref_vcf` panel on both backends,
    each on `cuda` and on `cpu`, the CUDA run fed the CPU run's mating
@@ -76,6 +93,11 @@ Phases, each of which raises on failure (exit code non-zero):
    realized count a gamete in [0.5, 2], the resident CVs equal to the
    planes' CVs, and the packed meiosis bit-exact on its last generation's
    inputs, its flips changing the children;
+5c. dense two populations (`dense_multipop31`): the dense slice's shape
+   twice at identical loci (population 2 with fresh panel alleles and
+   effects, its CVs on its own panel's sites), 3 generations, migration
+   and gamma: each population's resident CVs equal its planes', one
+   packed meiosis a generation and population;
 6. packed engine: `dense.packed.make_step` at the flagship shape, 1 warm-up
    and 5 timed generations, the resident CV matrix checked against the
    planes at the end;
@@ -149,6 +171,9 @@ SEGMENT = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
 PATHS = {
     "segment_slice": SEGMENT,
     "segment_gather": SEGMENT + ("paint",),
+    "segment_multipop": SEGMENT + ("paint",),
+    "segment_multipop_resume": SEGMENT + ("paint",),
+    "dense_multipop": ("meiose_packed", "gather_rows"),
     "segment_output": SEGMENT + ("paint",),
     "segment_profiled": SEGMENT,
     "dense_slice": ("meiose_packed", "gather_rows"),
@@ -170,7 +195,17 @@ SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
 # generation, and one more for generation 0's A/D
 GATHER_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
                   "meiose_merge": 1, "paint": 1}
-GEN0_LAUNCHES = {"paint": 1}
+# two populations (gather path), a generation and population: the gather
+# path's launches with two paints a phenotype (alleles, then roots over the
+# root panel with an empty mutation plane); one packed meiosis (dense)
+MULTIPOP = 2
+MULTIPOP_GENS = 3
+MULTIPOP_PER_GEN = {k: MULTIPOP * v for k, v in dict(
+    GATHER_PER_GEN, paint=2).items()}
+DENSE_MULTIPOP_PER_GEN = {"meiose_packed": MULTIPOP}
+# launches of generation 0's A/D, by path
+GEN0_LAUNCHES = {"segment_gather": {"paint": 1},
+                 "segment_multipop": {"paint": 2 * MULTIPOP}}
 # the synthetic founder panel of the full-width paint check: 20,000
 # haplotypes (the slice's 10,000 founders) x Table 3.1's 320,926 SNPs over
 # 22 chromosomes (BASELINE.md:13), 14,588 a chromosome
@@ -182,6 +217,9 @@ DENSE_MUT_GENS = 3
 # generations each counted path runs (packed engine: 1 warm-up + 5 timed)
 PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "segment_gather": SCENARIO["gens"], "segment_output": OUTPUT_GENS,
+             "segment_multipop": MULTIPOP_GENS,
+             "segment_multipop_resume": 1,  # generation 3, from generation 2
+             "dense_multipop": MULTIPOP_GENS,
              "segment_profiled": 1,
              "dense_slice": DENSE_SCENARIO["gens"],
              "dense_mutations": DENSE_MUT_GENS, "packed_engine": 6,
@@ -1211,6 +1249,366 @@ def gather_paint_kernel(kernels: list, captured) -> None:
     print(f"   ({shape})")
 
 
+# ------------------------------------------------------ several populations
+def _write_hap(path: Path, mat) -> None:
+    """A `.hap` text file of the (rows, haplotypes) 0/1 matrix, in
+    `tools/mkscenario.py`'s format."""
+    import numpy as np
+
+    n = mat.shape[1]
+    body = np.full((mat.shape[0], 2 * n + 1), ord(" "), dtype=np.uint8)
+    body[:, 0:2 * n:2] = mat + ord("0")  # each allele followed by a space
+    body[:, -1] = ord("\n")
+    path.write_bytes(body.tobytes())
+
+
+def _second_population(root: Path, scenario: dict, seed: int) -> list:
+    """Population 2 of a two-population run: `tools/mkscenario.py` with the
+    first population's seed (so the same CV positions, maps and legends),
+    then fresh founder alleles (the CV haps; on a real panel the panel's,
+    with the CVs moved onto its own sites, which are the first
+    population's) and fresh effects in its own `cv.info`: equal tables
+    would make a wrong root population invisible."""
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "tools"))
+    from mkscenario import make_scenario
+
+    sc = dict(scenario)
+    on_panel = sc.pop("cvs_on_panel", False)
+    flags = make_scenario(str(root), **sc, seed=1)
+    rng = np.random.default_rng(seed)
+    nchr, H = sc["nchr"], 2 * sc["n0"]
+    head, *rows = (root / "cv.info").read_text().splitlines()
+    (root / "cv.info").write_text("\n".join([head] + [
+        " ".join(r.split()[:2] + [f"{rng.normal():.6f}", "0"])
+        for r in rows]) + "\n")
+    for c in range(1, nchr + 1):
+        if on_panel:
+            _write_hap(root / f"ref.chr{c}.hap", rng.integers(
+                0, 2, size=(sc["snps"], H), dtype=np.uint8))
+        else:
+            _write_hap(root / f"cv.chr{c}.hap", rng.integers(
+                0, 2, size=(sc["ncv"], H), dtype=np.uint8))
+    if on_panel:
+        _cvs_on_panel(root, 1)
+    flags["file_mutation_map"] = str(
+        _mutation_map(root / "mut.txt", Path(flags["file_recom_map"])))
+    argv = []
+    for k, v in flags.items():
+        argv += [f"--{k}", v]
+    return argv
+
+
+def _two_populations(root: Path, pop1: list, scenario: dict, gens: int,
+                     pop_flags=()) -> list:
+    """The argv of a two-population run: `pop1`'s flags, then a second
+    population (`_second_population`), both `gens` generations, migration
+    `0.9 0.1 0.1 0.9` every generation and `--gamma 0.5`."""
+    root.mkdir(parents=True, exist_ok=True)
+    pop2 = _second_population(root / "pop2", scenario, seed=2)
+    info = str(_popinfo(root, scenario, gens))
+    (root / "migration.txt").write_text("0.9 0.1 0.1 0.9\n" * gens)
+    return (_with(pop1, "--file_gen_info", info) + list(pop_flags)
+            + ["--next_population"]
+            + _with(pop2, "--file_gen_info", info) + list(pop_flags)
+            + ["--file_migration", str(root / "migration.txt"),
+               "--gamma", "0.5"])
+
+
+def _check_multipop(name: str, sim, root: Path, scenario: dict) -> dict:
+    """Both populations' outputs: sizes, finite values, the other
+    population's founder haps (or, dense, rows) in each, and population
+    means of P apart (gamma)."""
+    import numpy as np
+
+    means, sds = [], []
+    for p in (1, 2):
+        for gen in range(sim.tot_gen + 1):
+            _, info = _read_table(root / f"out.info.pop{p}.gen{gen}.txt")
+            want = scenario["n0"] if gen == 0 else scenario["pop_size"]
+            if abs(info.shape[0] - want) > 6 * want ** 0.5 + 0.1 * want \
+                    or not np.isfinite(info).all():
+                raise AssertionError(f"{name}: pop {p} gen {gen}: "
+                                     f"{info.shape[0]} rows")
+        means.append(info[:, 14].mean())  # P of phenotype 1
+        sds.append(info[:, 14].std())
+    if abs(means[0] - means[1]) < 0.5 * max(sds):
+        raise AssertionError(f"{name}: population means of P {means} "
+                             f"(sd {sds}): gamma did not separate them")
+    print(f" {name}: population means of P {means[0]:.3f} / "
+          f"{means[1]:.3f} (sd {sds[0]:.3f} / {sds[1]:.3f})")
+    return dict(mean_P=means, sd_P=sds)
+
+
+def segment_multipop(dev, work: Path, slice_argv: list) -> dict:
+    """Two populations at the slice's full width (each 10,000 founders,
+    pop_size 30,000, 22 chromosomes x 100 CVs, the slice's mutation map), 3
+    generations, migration and gamma, `--checkpoint_every 2`: the gather
+    path with int32 haps (H 40,000). Checks each population's outputs, the
+    other population's founder haps in each final ledger, gamma, and the
+    capacity tripwire; times the checkpoint saves. Keeps the last
+    generation's count, merge and paint inputs (references, no copy) under
+    `captured`."""
+    import torch
+
+    from geneevolve_tpu_torch.core import checkpoint, engine
+
+    scenario = dict(SCENARIO, gens=MULTIPOP_GENS)
+    base = _two_populations(work / "multipop31", slice_argv, scenario,
+                            MULTIPOP_GENS)
+    captured, saves = {"paint": []}, []
+    count, merge, paint = engine.merge_count, engine.meiose_merge, engine.paint
+    save = checkpoint.save
+
+    def count_rec(*a):
+        captured["merge_count"] = a
+        return count(*a)
+
+    def merge_rec(*a):
+        captured["meiose_merge"] = a
+        return merge(*a)
+
+    def paint_rec(*a):
+        captured["paint"] = (captured["paint"] + [a])[-2:]
+        return paint(*a)
+
+    def save_rec(sim, gen, path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(sim, gen, path)
+        saves.append(dict(gen=gen, s=time.perf_counter() - t0,
+                          mb=Path(path).stat().st_size / 2**20))
+
+    engine.merge_count, engine.meiose_merge = count_rec, merge_rec
+    engine.paint, checkpoint.save = paint_rec, save_rec
+    try:
+        out = slice_phase(dev, work, "multipop31", scenario,
+                          ["--checkpoint_every", "2"], base=base)
+    finally:
+        engine.merge_count, engine.meiose_merge = count, merge
+        engine.paint, checkpoint.save = paint, save
+    sim = out.pop("sim")
+    H = 2 * sum(p.n_founders for p in sim.pops)
+    if sim.n_pop != 2 or sim.resident_cv or sim.hap_dtype != (
+            torch.int32 if H > 32_000 else torch.int16):
+        raise AssertionError("multipop31: two populations on the gather "
+                             f"path, {sim.hap_dtype} haps for H {H}")
+    log = sim.capacity_log
+    if len(log) != MULTIPOP * MULTIPOP_GENS or any(
+            c["seg_need"] != c["seg_used"] for c in log):
+        raise AssertionError(f"multipop31: capacity tripwire: {log}")
+    split = int(sim.pop_starts[1])
+    for p in sim.pops:
+        st = p.state
+        haps = st.seg_hap[:, : st.n][st.seg_st[:, : st.n] < 2**30]
+        other = (haps >= split) if p.index == 0 else (haps < split)
+        share = float(other.float().mean())
+        if share <= 0:
+            raise AssertionError(f"multipop31: pop {p.index + 1} holds no "
+                                 "founder hap of the other population")
+        print(f" multipop31: pop {p.index + 1}: {share:.2%} of its ledger "
+              "segments from the other population's founders")
+        out.setdefault("other_share", []).append(share)
+    out.update(_check_multipop("multipop31", sim, out["root"], scenario))
+    if [s["gen"] for s in saves] != [0, 2]:
+        raise AssertionError(f"multipop31: checkpoints after {saves}")
+    out["checkpoint_saves"] = saves
+    print(" multipop31: checkpoint " + ", ".join(
+        f"gen {s['gen']}: {s['mb']:.1f} MiB in {s['s']:.2f} s"
+        for s in saves))
+    print(f" multipop31: migration stage "
+          f"{sim.timer.totals.get('migration', 0.0):.4f} s over "
+          f"{MULTIPOP_GENS} generations")
+    out["captured"] = captured
+    out["ckpt"] = str(out["root"] / "out.ckpt.npz")
+    return out
+
+
+def segment_multipop_resume(dev, straight: dict) -> dict:
+    """A fresh `Simulation` resumed from `segment_multipop`'s generation-2
+    checkpoint runs generation 3: its `.info` and `.summary` files must
+    equal the straight run's byte for byte."""
+    import filecmp
+
+    import torch
+
+    from geneevolve_tpu_torch.config import parse_args
+    from geneevolve_tpu_torch.core import checkpoint
+    from geneevolve_tpu_torch.core.engine import Simulation
+
+    root = straight["root"] / "resume"
+    root.mkdir()
+    argv = straight["argv"] + ["--seed", "12345", "--prefix",
+                               str(root / "out"), "--resume",
+                               straight["ckpt"]]
+    loads, load = [], checkpoint.load
+
+    def load_rec(sim, path):
+        t0 = time.perf_counter()
+        done = load(sim, path)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return done
+
+    checkpoint.load = load_rec
+    try:
+        t0 = time.perf_counter()
+        sim = Simulation(parse_args(argv), device=dev, verbose=False)
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        checkpoint.load = load
+    names = [f"out.{x}" for p in (1, 2)
+             for x in (f"pop{p}.summary", f"info.pop{p}.gen{MULTIPOP_GENS}"
+                       ".txt")]
+    for x in names:
+        if not filecmp.cmp(straight["root"] / x, root / x, shallow=False):
+            raise AssertionError(f"multipop31 resume: {x} differs from the "
+                                 "straight run's")
+    mb = Path(straight["ckpt"]).stat().st_size / 2**20
+    print(f" multipop31 resume: {len(names)} files byte-identical to the "
+          f"straight run's; checkpoint {mb:.1f} MiB loaded in "
+          f"{loads[0]:.2f} s; resumed run {wall:.1f} s")
+    return dict(load_s=loads[0], checkpoint_mb=mb, wall_s=wall)
+
+
+def multipop_kernels(kernels: list, captured: dict) -> None:
+    """On `segment_multipop`'s last generation's own inputs: the count and
+    the merge with int32 haps, and both paints of the A/D (alleles; roots
+    over the root panel with M = 0), each bit-exact to its plain version;
+    added to the kernels' `entries`."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import meiose_merge as mm
+    from geneevolve_tpu_torch.ops import merge_count as mc
+
+    by_name = {k["name"]: k for k in kernels}
+    count = captured["merge_count"]
+    seg_st, parents, xo_f = count[0], count[1], count[2]
+    shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
+             f"parents of {tuple(seg_st.shape)} ledgers, K {xo_f.shape[2]}")
+    r = _compare("merge_count/multipop/int32", lambda: mc.merge_count(*count),
+                 lambda: mc.merge_count_plain(*count), _count_work(*count))
+    by_name["merge_count"].setdefault("entries", []).append(
+        dict(entry="segment_multipop/int32_haps", shape=shape, **r))
+    merge = captured["meiose_merge"]
+    seg_hap, cap, merge_ibd = merge[1], merge[6], merge[7]
+    if seg_hap.dtype != torch.int32 and 2 * MULTIPOP * SCENARIO["n0"] > 32000:
+        raise AssertionError(f"multipop: {seg_hap.dtype} haps")
+    shape += f", {seg_hap.dtype} haps, cap {cap}"
+    r = _compare("meiose_merge/multipop/int32",
+                 lambda: mm.meiose_merge(*merge),
+                 lambda: mm.meiose_merge_plain(*merge),
+                 _merge_work(*merge[:7]))
+    by_name["meiose_merge"].setdefault("entries", []).append(
+        dict(entry="segment_multipop/int32_haps", shape=shape,
+             merge_ibd=merge_ibd, **r))
+    for args, what in zip(captured["paint"], ("alleles", "roots_m0")):
+        st, _hp, mu, founder, pos = args
+        shape = (f"{st.shape[0]} chromosomes x {st.shape[1]} rows x 2 x "
+                 f"{pos.shape[1]} CVs, S {st.shape[-1]}, M {mu.shape[-1]}, "
+                 f"panel {founder.shape[1]} x {founder.shape[2]}, int32 haps")
+        r = _paint_entry(f"paint/multipop/{what}", args)
+        by_name["paint"].setdefault("entries", []).append(
+            dict(entry=f"segment_multipop/{what}", shape=shape, **r))
+        print(f"   ({shape})")
+    if captured["paint"][1][2].shape[-1] != 0 or \
+            int(captured["paint"][1][3].max()) != MULTIPOP - 1:
+        raise AssertionError("multipop: the root paint is not over an "
+                             "M = 0 plane and a root panel")
+
+
+def multipop_parity_phase(dev, work: Path) -> int:
+    """Two populations at the parity phase's small size on `dev` and on the
+    CPU, the device run fed the CPU run's mating and reproduce plans per
+    (generation, population): identical planes every generation, after
+    migration too. Returns generations checked."""
+    import torch
+
+    from geneevolve_tpu_torch.config import parse_args
+    from geneevolve_tpu_torch.core.engine import Simulation
+
+    root = work / "multipop_parity"
+    small = dict(n0=200, pop_size=300, gens=3, nchr=3, ncv=12)
+    pop1 = _scenario(root / "pop1", **small, seed=1)
+    argv = _two_populations(root, pop1, small, small["gens"])
+    sims = {}
+    for name, d in (("cpu", "cpu"), ("dev", dev)):
+        cfg = parse_args(argv + ["--seed", "7", "--prefix",
+                                 str(root / name)])
+        sims[name] = Simulation(cfg, device=d, verbose=False)
+    ref, sim = sims["cpu"], sims["dev"]
+    mates, plans = {}, {}
+    ref_mate, ref_plan = ref._mate, ref._plan
+    ref._mate = lambda p, gen, ps, g: mates.setdefault(
+        (gen, p.index), ref_mate(p, gen, ps, g))
+    ref._plan = lambda p, gen, n_pad: plans.setdefault(
+        (gen, p.index), ref_plan(p, gen, n_pad))
+    sim._mate = lambda p, gen, ps, g: mates[(gen, p.index)]
+    sim._plan = lambda p, gen, n_pad: tuple(
+        x.to(dev) for x in plans[(gen, p.index)])
+    for s in (ref, sim):
+        s.init_generation0()
+    for gen in range(ref.tot_gen + 1):
+        if gen:
+            ref.step(gen)
+            sim.step(gen)
+        for a, b in zip(ref.pops, sim.pops):
+            for k in ("seg_st", "seg_hap", "mut"):
+                if not torch.equal(getattr(a.state, k),
+                                   getattr(b.state, k).cpu()):
+                    raise AssertionError(f"multipop parity: {k} of pop "
+                                         f"{a.index + 1} differs at gen {gen}")
+            if a.state.ids.tolist() != b.state.ids.tolist():
+                raise AssertionError("multipop parity: migrants differ")
+    split = int(ref.pop_starts[1])
+    if not bool((ref.pops[0].state.seg_hap >= split).any()):
+        raise AssertionError("multipop parity: no migrant ancestry")
+    for s in (ref, sim):
+        s.write_summary()
+        s._io_pool.shutdown(wait=True)
+    print(f" multipop parity: cuda == cpu for gens 0..{ref.tot_gen}, both "
+          "populations (ledgers, mutations, migrants)")
+    return ref.tot_gen + 1
+
+
+def dense_multipop(dev, work: Path, dense_argv: list) -> dict:
+    """The dense slice's shape with two populations (each 2,000 founders x
+    2,048 SNPs a chromosome at identical loci; population 2 with fresh
+    alleles and effects, its CVs on its own panel's sites), 3 generations,
+    migration and gamma: each population's resident CVs equal its planes',
+    and one packed meiosis a generation and population."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+    from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
+
+    scenario = dict(DENSE_SCENARIO, gens=MULTIPOP_GENS)
+    base = _two_populations(work / "dense_multipop31", dense_argv, scenario,
+                            MULTIPOP_GENS, DENSE_VARIANCES)
+    out = slice_phase(dev, work, "dense_multipop31", scenario,
+                      ["--backend", "dense"], base=base)
+    sim = out.pop("sim")
+    want = MULTIPOP * MULTIPOP_GENS
+    if meiose_packed.launches != want:
+        raise AssertionError(f"dense_multipop31: {meiose_packed.launches} "
+                             f"packed meiosis launches, {want} expected")
+    for p in sim.pops:
+        for j, cols in enumerate(sim.dps[p.index].cv_cols):
+            if not torch.equal(p.state.cv[j],
+                               packed.cv_from_planes(p.state.hap, cols)):
+                raise AssertionError(f"dense_multipop31: pop {p.index + 1}'s"
+                                     " resident CVs differ from its planes'")
+    print(" dense_multipop31: each population's resident CVs == its planes' "
+          "CVs")
+    out.update(_check_multipop("dense_multipop31", sim, out["root"],
+                               scenario))
+    del out["argv"], out["root"]
+    return out
+
+
 def _vcf_panel(root: Path) -> Path:
     """VCF copies of a scenario's `.hap` founder panels (sample names from
     its `.indv`, QUAL 30, FILTER PASS) and their address file."""
@@ -1515,13 +1913,14 @@ def _dense_run(dev, work: Path, name: str, gens: int, base=None) -> dict:
         raise AssertionError(f"{name}: {meiose_packed.launches} packed "
                              "meiosis launches, one per generation expected")
     st = sim.pops[0].state
-    for j, cols in enumerate(sim.dp.cv_cols):
+    dp = sim.dps[0]
+    for j, cols in enumerate(dp.cv_cols):
         if not torch.equal(st.cv[j], packed.cv_from_planes(st.hap, cols)):
             raise AssertionError(f"{name}: phenotype {j + 1}'s resident "
                                  "CVs differ from the planes' CVs")
-    print(f" {name}: resident CVs == planes' CVs ({len(sim.dp.cv_cols)} "
+    print(f" {name}: resident CVs == planes' CVs ({len(dp.cv_cols)} "
           f"phenotype(s), {st.hap.shape[0]} rows)")
-    out["panel"] = dict(loci=sim.dp.cfg.m, mut_rate=sim.dp.cfg.mut_rate)
+    out["panel"] = dict(loci=dp.cfg.m, mut_rate=dp.cfg.mut_rate)
     out["captured"] = captured
     return out
 
@@ -1804,8 +2203,8 @@ def main() -> int:
 
     def check_per_gen(path, per_gen):
         for name, k in per_gen.items():
-            want = k * PATH_GENS[path] + (
-                GEN0_LAUNCHES.get(name, 0) if path == "segment_gather" else 0)
+            want = k * PATH_GENS[path] + GEN0_LAUNCHES.get(path, {}).get(
+                name, 0)
             if launches[path][name] != want:
                 raise AssertionError(
                     f"{path}: {launches[path][name]} {name} launches in "
@@ -1831,6 +2230,21 @@ def main() -> int:
         del res["gather"]["argv"], res["gather"]["root"]
         gather_paint_kernel(kernels, res["gather"].pop("captured"))
         torch.cuda.empty_cache()
+        res["multipop_parity_gens"] = multipop_parity_phase(dev, work)
+        res["multipop"] = counted(
+            "segment_multipop", wrappers,
+            lambda: segment_multipop(dev, work, slice_argv), launches)
+        check_per_gen("segment_multipop", MULTIPOP_PER_GEN)
+        straight = {k: res["multipop"].pop(k) for k in ("argv", "root",
+                                                        "ckpt")}
+        # after the counted run: these launches are comparisons
+        multipop_kernels(kernels, res["multipop"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["multipop_resume"] = counted(
+            "segment_multipop_resume", wrappers,
+            lambda: segment_multipop_resume(dev, straight), launches)
+        check_per_gen("segment_multipop_resume", MULTIPOP_PER_GEN)
+        torch.cuda.empty_cache()
         res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)
         res["dense_slice"] = counted("dense_slice", wrappers,
@@ -1847,6 +2261,11 @@ def main() -> int:
         # after the counted run: these launches are comparisons
         dense_mutation_kernels(kernels,
                                res["dense_mutations"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["dense_multipop"] = counted(
+            "dense_multipop", wrappers,
+            lambda: dense_multipop(dev, work, dense_argv), launches)
+        check_per_gen("dense_multipop", DENSE_MULTIPOP_PER_GEN)
         torch.cuda.empty_cache()
         res["output"] = counted(
             "segment_output", wrappers,
@@ -1871,7 +2290,7 @@ def main() -> int:
         home = HOME_PATH[k["name"]]
         k["launches"] = launches[home][k["name"]]
         k["launches_per_gen"] = (k["launches"] - GEN0_LAUNCHES.get(
-            k["name"], 0)) / PATH_GENS[home]
+            home, {}).get(k["name"], 0)) / PATH_GENS[home]
         k["launches_by_path"] = {p: launches[p][k["name"]]
                                  for p, ks in PATHS.items() if k["name"] in ks}
     print(json.dumps(res))

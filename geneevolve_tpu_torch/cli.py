@@ -2,12 +2,13 @@
 
     python -m geneevolve_tpu_torch --file_gen_info ... --file_hap_name ... [flags]
 
-Runs one population with the segment engine (the default; resident CV
-matrix, or the ledger gather path when it does not fit) or, under
-`--backend dense`, with the bit-packed dense engine. Flags whose features
-are not ported yet raise `NotImplementedError` naming the ROADMAP item
-that ports them. Without a CUDA device the run fails: it never falls back
-to the CPU.
+Runs one or several populations (`--next_population`, with migration and
+`--gamma`) with the segment engine (the default; resident CV matrix, or
+the ledger gather path when it does not fit or when several populations
+run) or, under `--backend dense`, with the bit-packed dense engine, and
+saves or resumes checkpoints. Flags whose features are not ported yet
+raise `NotImplementedError` naming the ROADMAP item that ports them.
+Without a CUDA device the run fails: it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -20,11 +21,18 @@ from geneevolve_tpu_torch.config import ConfigError, parse_args, print_config
 _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
 
  Accepts the GeneEvolve flag set (see `python -m geneevolve_tpu --help`).
- This port runs one population on a CUDA device:
+ This port runs on a CUDA device:
    --file_gen_info --file_hap_name --file_ref_vcf --file_recom_map
    --file_mutation_map --file_cv_info --file_cvs --va --vd --vc --ve --vf
-   --omega --lambda --beta --RM --MM --vt_type --avoid_inbreeding --gamma
+   --omega --lambda --beta --RM --MM --vt_type --avoid_inbreeding
    --seed --prefix --no_output --debug
+ Several populations, on both backends:
+   --next_population (starts the next population's flags)
+   --file_migration (one row a generation: the n_pop x n_pop matrix)
+   --gamma (per phenotype: environmental offsets between populations)
+ Checkpoints, on both backends (the JAX package's format):
+   --checkpoint_every N (<prefix>.ckpt.npz after generation 0 and every N)
+   --resume <file> (continue a run bit-identically from a checkpoint)
    --stage_sync (device fence per stage: device-true timing)
    --profile <dir> (torch.profiler trace of the main loop)
    --backend segment (default) | dense (bit-packed genome planes)
@@ -32,9 +40,10 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
    --out_hap --out_vcf --out_plink --out_plink01 --file_output_generations
    --out_interval (segment backend: the IBD ledger as .int files)
  The segment backend's A/D reads a resident CV matrix, or paints the CVs
- from the ledger when it does not fit the card (or GE_NO_RESIDENT_CV=1).
- Not ported yet (raise): --mesh, --device_mating,
-   --next_population / --file_migration, --resume, --checkpoint_every.
+ (and, with several populations, each chromatid's root population) from
+ the ledger when it does not fit the card, when several populations run,
+ or under GE_NO_RESIDENT_CV=1.
+ Not ported yet (raise): --mesh, --device_mating.
 """
 
 

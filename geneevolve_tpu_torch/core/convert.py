@@ -30,16 +30,18 @@ PLANES = ("seg_st", "seg_hap", "mut", "cv")
 
 
 def state_from_numpy(d: dict, device="cuda") -> PopState:
-    """`d` holds `n`, the four planes as arrays ((nchr, rows, 2, ...),
-    rows >= n) and the host fields."""
-    planes = {k: torch.as_tensor(np.array(d[k]), device=device)
+    """`d` holds `n`, the planes as arrays ((nchr, rows, 2, ...), rows >=
+    n; `cv` None or absent on the gather path) and the host fields."""
+    planes = {k: None if d.get(k) is None
+              else torch.as_tensor(np.array(d[k]), device=device)
               for k in PLANES}
     host = {k: d[k] for k in HOST_FIELDS if k in d}
     return PopState(n=int(d["n"]), **planes, **host)
 
 
 def state_to_numpy(st: PopState) -> dict:
-    out = {k: getattr(st, k).cpu().numpy() for k in PLANES}
+    out = {k: None if getattr(st, k) is None else getattr(st, k).cpu().numpy()
+           for k in PLANES}
     out["n"] = st.n
     out.update({k: getattr(st, k) for k in HOST_FIELDS})
     return out

@@ -22,8 +22,13 @@ under `GE_NO_RESIDENT_CV=1`) the gather path paints each phenotype's CV
 columns from the ledger (`ops/paint`, the JAX `_ad_all`). Genotype output
 paints the ledger over the founder panel (`core/output.py`).
 
-This port runs one population. Everything else the JAX engine does raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+Several populations (`--next_population`) reproduce one after another
+and then exchange migrants (`_migrate`, a row move of the ledgers); the
+A/D effect of a chromatid is then its root population's, painted from the
+ledger beside its alleles, so such runs take the gather path. Runs save
+and resume checkpoints (`core/checkpoint.py`). `--mesh` and
+`--device_mating` raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -39,7 +44,13 @@ import numpy as np
 import torch
 
 from geneevolve_tpu_torch.config import ScenarioConfig
-from geneevolve_tpu_torch.core import mating, output, phenotype, segments
+from geneevolve_tpu_torch.core import (
+    checkpoint,
+    mating,
+    output,
+    phenotype,
+    segments,
+)
 from geneevolve_tpu_torch.core.rng import Stage, generator, np_seed
 from geneevolve_tpu_torch.core.segments import BIG, ChromMaps
 from geneevolve_tpu_torch.io import hap as hap_io
@@ -52,6 +63,10 @@ from geneevolve_tpu_torch.ops.paint import paint
 from geneevolve_tpu_torch.utils import telemetry
 
 
+# root populations are painted as bytes (`Simulation._root_panel`)
+MAX_POPULATIONS = 255
+
+
 class SimulationError(RuntimeError):
     pass
 
@@ -62,9 +77,6 @@ def check_slice(cfg: ScenarioConfig) -> None:
     later = [
         (bool(cfg.mesh), "--mesh", "1.14"),
         (cfg.device_mating, "--device_mating", "1.9"),
-        (cfg.n_pop > 1, "more than one population / migration", "1.10"),
-        (bool(cfg.resume) or cfg.checkpoint_every > 0,
-         "--resume / --checkpoint_every", "1.11"),
     ]
     for bad, what, item in later:
         if bad:
@@ -139,18 +151,29 @@ class PopRuntime:
     traj: Dict[str, np.ndarray] = field(default_factory=dict)
 
 
-def _ad_resident(cv, a_row, d_row, dominance_on: bool, n_real: int,
-                 tsum=None, n_freq=None):
+def _ad_resident(cv, a_tab, d_tab, dominance_on: bool, n_real: int,
+                 tsum=None, n_freq=None, roots=None):
     """A/D of one phenotype from its CV alleles (nchr, rows, 2, ncv), the
     resident ones or the gather path's painted ones: `ras_compute_AD` as
     elementwise math and row sums, accumulated over chromosomes in order in
-    f32, as the JAX `_ad_resident` / `_ad_all`. `tsum` (nchr, ncv) and
-    `n_freq`: the whole population's allele counts and size, when `cv`
+    f32, as the JAX `_ad_resident` / `_ad_all`. `a_tab`, `d_tab`: (nchr,
+    n_pop, ncv) effects; without `roots` the first population's row serves
+    every chromatid, with `roots` (nchr, rows, 2, ncv) uint8 each
+    chromatid's CV reads its root population's effect. `tsum` (nchr, ncv)
+    and `n_freq`: the whole population's allele counts and size, when `cv`
     holds a chunk of its rows."""
     A = D = None
     for ci in range(cv.shape[0]):
+        if roots is None:
+            a0 = a1 = a_tab[ci, 0]
+            d0 = d1 = d_tab[ci, 0]
+        else:
+            icv = torch.arange(cv.shape[-1], device=cv.device)[None, :]
+            r0, r1 = roots[ci, :, 0].long(), roots[ci, :, 1].long()
+            a0, a1 = a_tab[ci][r0, icv], a_tab[ci][r1, icv]
+            d0, d1 = d_tab[ci][r0, icv], d_tab[ci][r1, icv]
         A_c, D_c = phenotype.additive_dominance_chr(
-            cv[ci, :, 0], cv[ci, :, 1], a_row[ci], d_row[ci], dominance_on,
+            cv[ci, :, 0], cv[ci, :, 1], a0, a1, d0, d1, dominance_on,
             n_real, None if tsum is None else tsum[ci], n_freq,
         )
         A = A_c if A is None else A + A_c
@@ -190,6 +213,7 @@ class Simulation:
         # or GE_NO_RESIDENT_CV=1 (`_check_fits`): then the gather path
         self.resident_cv = True
         self._cv_panels = None  # [pheno] (nchr, H, ncv_pad): gather path
+        self._roots = None  # (nchr, H, ncv_pad) root panel: gather path
         # (seg_used, mut_used, seg_need, mut_need, s_cap, m_cap, gen, pop)
         # awaiting the deferred tripwire check; checked entries move to
         # capacity_log
@@ -209,9 +233,10 @@ class Simulation:
             print(msg, flush=True)
 
     # ------------------------------------------------------------------ load
-    def _load(self) -> None:
+    def _load_pop(self, ipop: int, pcfg, hap_offset: int) -> PopRuntime:
+        """One population's schedule, founder panel addresses, maps and
+        phenotypes (CV positions, effects and founder CV alleles)."""
         cfg = self.cfg
-        pcfg = cfg.populations[0]
         schedule = tables.read_generation_info(pcfg.file_gen_info)
         if pcfg.file_ref_vcf:
             vcf_addr = tables.read_vcf_address(pcfg.file_ref_vcf)
@@ -274,16 +299,51 @@ class Simulation:
         if n_founders is None:
             raise SimulationError("no phenotypes configured")
         p = PopRuntime(
-            index=0, schedule=schedule, chrs=chrs, maps=maps, phenos=phenos,
-            n_founders=n_founders, hap_offset=0,
+            index=ipop, schedule=schedule, chrs=chrs, maps=maps,
+            phenos=phenos, n_founders=n_founders, hap_offset=hap_offset,
             mm_percent=pcfg.mm_percent, rm=pcfg.rm, rmaps=rmaps,
             hap_addresses=hap_addr, vcf_addresses=vcf_addr,
             indv_ids=list(indv_ids),
         )
         p.smaps = segments.StackedMaps.build(maps, self.device)
-        self.pops.append(p)
-        self.tot_gen = int(schedule.n_generations)
-        self.chrs = chrs
+        return p
+
+    def _load(self) -> None:
+        """Every population (`--next_population`), as the JAX `_load`: its
+        founder haps follow the earlier populations' (`hap_offset`, 2 x
+        founders each), so one ledger hap index names a founder haplotype
+        of any population and its root population (`pop_starts`)."""
+        cfg = self.cfg
+        if cfg.n_pop > MAX_POPULATIONS:
+            raise SimulationError(
+                f"{cfg.n_pop} populations: the port paints root "
+                f"populations as bytes, so at most {MAX_POPULATIONS}"
+            )
+        hap_offset = 0
+        for ipop, pcfg in enumerate(cfg.populations):
+            p = self._load_pop(ipop, pcfg, hap_offset)
+            if self.pops and (p.schedule.n_generations
+                              != self.pops[0].schedule.n_generations):
+                raise SimulationError(
+                    "the number of generations differs between populations"
+                )
+            self.pops.append(p)
+            hap_offset += 2 * p.n_founders
+        self.n_pop = len(self.pops)
+        self.tot_gen = int(self.pops[0].schedule.n_generations)
+        self.chrs = chrs = self.pops[0].chrs
+        for p in self.pops[1:]:
+            if p.chrs != chrs:
+                raise SimulationError(
+                    "all populations must use the same chromosome set"
+                )
+        self.pop_starts = np.array([p.hap_offset for p in self.pops],
+                                   dtype=np.int64)
+        self.migration = (
+            tables.read_migration(cfg.file_migration, self.n_pop,
+                                  self.tot_gen)
+            if self.n_pop > 1 else None
+        )
         self.out_gens = (
             tables.read_output_generations(cfg.file_output_generations)
             if cfg.file_output_generations else []
@@ -291,33 +351,47 @@ class Simulation:
         nchr = len(chrs)
 
         # CV tables stacked over chromosomes, padded to a common CV count
-        # with zero-effect columns that probe the chromosome start
+        # with zero-effect columns that probe the chromosome start: the
+        # founder CV alleles concatenated over populations, the effects per
+        # population (a chromatid's effect is its root population's)
         ncv_max = max(
-            (len(ph.cv_bp[ic]) for ph in phenos for ic in range(nchr)),
+            (len(p.phenos[j].cv_bp[ic]) for p in self.pops
+             for j in range(self.n_pheno) for ic in range(nchr)),
             default=0,
         )
         self.ncv_pad = max(ncv_max, 1)
         self.ncv_real: List[List[int]] = []
         self.founder_cv: List[np.ndarray] = []  # [pheno] (nchr, H, ncv_pad)
-        self.eff_a: List[torch.Tensor] = []  # [pheno] (nchr, ncv_pad) f32
+        # [pheno] (nchr, n_pop, ncv_pad) f32
+        self.eff_a: List[torch.Tensor] = []
         self.eff_d: List[torch.Tensor] = []
         cv_bp = []
-        H = 2 * n_founders
-        for ph in phenos:
+        H = sum(2 * p.n_founders for p in self.pops)
+        for j in range(self.n_pheno):
             gc = np.zeros((nchr, H, self.ncv_pad), dtype=np.uint8)
-            ga = np.zeros((nchr, self.ncv_pad), dtype=np.float32)
+            ga = np.zeros((nchr, self.n_pop, self.ncv_pad), dtype=np.float32)
             gd = np.zeros_like(ga)
             gb = np.zeros((nchr, self.ncv_pad), dtype=np.int64)
             real = []
-            for ic in range(nchr):
-                k = len(ph.cv_bp[ic])
+            for ic, c in enumerate(chrs):
+                bp0 = self.pops[0].phenos[j].cv_bp[ic]
+                for p in self.pops[1:]:
+                    if not np.array_equal(p.phenos[j].cv_bp[ic], bp0):
+                        raise SimulationError(
+                            "CV positions must agree across populations "
+                            f"(phenotype {j + 1}, chr {c})"
+                        )
+                k = len(bp0)
                 real.append(k)
-                gb[ic, :] = maps[ic].chr_start
+                gb[ic, :] = self.pops[0].maps[ic].chr_start
                 if k:
-                    gb[ic, :k] = ph.cv_bp[ic]
-                    gc[ic, :, :k] = ph.founder_cv[ic]
-                    ga[ic, :k] = ph.a[ic]
-                    gd[ic, :k] = ph.d[ic]
+                    gb[ic, :k] = bp0
+                    gc[ic, :, :k] = np.concatenate(
+                        [p.phenos[j].founder_cv[ic] for p in self.pops])
+                    ga[ic, :, :k] = np.stack(
+                        [p.phenos[j].a[ic] for p in self.pops])
+                    gd[ic, :, :k] = np.stack(
+                        [p.phenos[j].d[ic] for p in self.pops])
             self.founder_cv.append(gc)
             self.eff_a.append(torch.as_tensor(ga, device=self.device))
             self.eff_d.append(torch.as_tensor(gd, device=self.device))
@@ -328,12 +402,13 @@ class Simulation:
             np.concatenate(cv_bp, axis=1).astype(np.int32), device=self.device
         )
 
-        # capacities, uniform across chromosomes (sized for the largest
-        # map): s_cap covers the ~Poisson(G*L) boundary count with a 6-sigma
-        # margin; the probe grows it exactly when a draw needs more
+        # capacities, uniform across chromosomes and populations (sized for
+        # the largest map): s_cap covers the ~Poisson(G*L) boundary count
+        # with a 6-sigma margin; the probe grows it exactly when a draw
+        # needs more
         G = self.tot_gen
-        L = max(m.xo_lambda for m in maps)
-        lam_m = max(m.mut_lambda for m in maps)
+        L = max(m.xo_lambda for p in self.pops for m in p.maps)
+        lam_m = max(m.mut_lambda for p in self.pops for m in p.maps)
         gl = max(G * L, 1.0)
         self.s_cap = int(8 + np.ceil(gl + 6 * np.sqrt(gl)))
         self.xo_cap = int(8 + np.ceil(L + 6 * np.sqrt(max(L, 1.0))))
@@ -346,7 +421,8 @@ class Simulation:
             self.m_cap = 2
             self.mn_cap = 2
             self.has_mut = False
-        # founder-hap indices fit int16 up to 32k haplotypes
+        # founder-hap indices fit int16 up to 32k haplotypes (all
+        # populations' founders together)
         self.hap_dtype = torch.int16 if H <= 32000 else torch.int32
 
         for q in self.pops:
@@ -384,48 +460,73 @@ class Simulation:
         `gather_chunk`, the chromosomes one stacked row gather of the real
         pass covers.
 
-        Peak device memory is reached in the real pass, when parents and
-        children coexist: 2 x (ledger + mutations + CV matrix), plus the
-        stacked plan and one chromosome's merge/CV transients (the (rows,
-        K+M, C) compare tensors of the CV phase dominate). When that does
-        not fit what is free, or under GE_NO_RESIDENT_CV=1 (the JAX
-        package's switch), the run takes the gather path: no resident
-        matrix, A/D painted from the ledger each generation (one phenotype's
-        painted columns and the founders' CV panels on the card). The
-        stacked gathers hold one parent's CV and mutation rows of
-        `gather_chunk` chromosomes: all of them when those fit in what is
-        free beyond that peak, else as many as fit, down to one. Re-run on
-        every `[capacity grow]`: a grown ledger can move a run to the
-        gather path."""
+        Several populations always take the gather path, as in the JAX
+        engine: a chromatid's A/D effects are its root population's, found
+        from the founder hap it copies, which the resident matrix does not
+        carry. Every population's ledger stays resident; peak device memory
+        is reached in the real pass, when one population's parents and
+        children coexist beside the others' state (or in the migration,
+        when every population's state is built anew beside the old): the
+        states, plus the stacked plan and one chromosome's merge/CV
+        transients (the (rows, K+M, C) compare tensors of the CV phase
+        dominate). When that does not fit what is free, or under
+        GE_NO_RESIDENT_CV=1 (the JAX package's switch), the run takes the
+        gather path: no resident matrix, A/D painted from the ledger each
+        generation (one phenotype's painted columns and the founders' CV
+        panels on the card, with several populations the root panel and the
+        painted roots too). The stacked gathers hold one parent's CV and
+        mutation rows of `gather_chunk` chromosomes: all of them when those
+        fit in what is free beyond that peak, else as many as fit, down to
+        one. Re-run on every `[capacity grow]`: a grown ledger can move a
+        run to the gather path."""
         nchr = len(self.chrs)
         self.gather_chunk = nchr
         if os.environ.get("GE_NO_RESIDENT_CV") == "1":
             self.resident_cv = False
+        if self.n_pop > 1 and self.resident_cv:
+            self.resident_cv = False
+            self._log(
+                f"    [mem] {self.n_pop} populations: a chromatid's A/D "
+                "effects are its root population's, which the resident CV "
+                "matrix does not carry; using the gather path"
+            )
         if self.device.type != "cuda":
             return
-        p = self.pops[0]
-        rows = max(int(s) for s in p.schedule.pop_size)
-        rows = max(rows + 4 * int(np.sqrt(rows)) + 16, p.n_founders)
         hap_b = 2 if self.hap_dtype == torch.int16 else 4
         c_all = self.n_pheno * self.ncv_pad
-        state = nchr * rows * 2 * (self.s_cap * (4 + hap_b) + self.m_cap * 4)
-        cv = nchr * rows * 2 * c_all
+        row_state = nchr * 2 * (self.s_cap * (4 + hap_b) + self.m_cap * 4)
+        pop_rows = []
+        for p in self.pops:
+            r = max(int(s) for s in p.schedule.pop_size)
+            pop_rows.append(max(r + 4 * int(np.sqrt(r)) + 16, p.n_founders))
+        rows = max(pop_rows)
+        state = [r * row_state for r in pop_rows]
+        cv = [nchr * r * 2 * c_all for r in pop_rows]
         plan = 2 * nchr * rows * (self.xo_cap + self.mn_cap + 2) * 4
         transient = 8 * rows * (self.xo_cap + 2 * self.m_cap + self.mn_cap) \
             * c_all
-        need = 2 * (state + cv) + plan + transient
-        H = 2 * p.n_founders
-        painted = nchr * (rows * 2 + H) * c_all  # columns and panels
-        need_gather = 2 * state + plan + painted \
-            + 8 * rows * (2 * self.m_cap + self.mn_cap) * 8
+        both = [a + b for a, b in zip(state, cv)]
+        need = sum(both) + max(both) + plan + transient
+        H = 2 * sum(p.n_founders for p in self.pops)
+        # painted columns and panels; with several populations the root
+        # panel, the painted roots and the four (rows, ncv) effect tables
+        painted = nchr * (rows * 2 + H) * c_all
+        if self.n_pop > 1:
+            painted += nchr * (rows * 2 + H) * self.ncv_pad \
+                + 16 * rows * self.ncv_pad
+        need_gather = max(
+            sum(state) + max(state) + plan + painted
+            + 8 * rows * (2 * self.m_cap + self.mn_cap) * 8,
+            2 * sum(state) if self.n_pop > 1 else 0,
+        )
         free, _total = torch.cuda.mem_get_info(self.device)
         if self.resident_cv and need > free:
             self.resident_cv = False
             self._log(
-                f"    [mem] resident CV matrix ({2 * cv / 2**30:.1f} GiB) "
-                f"+ ledger state ({2 * state / 2**30:.1f} GiB) exceeds the "
-                f"free device memory ({free / 2**30:.2f} GiB); using the "
-                "gather path"
+                f"    [mem] resident CV matrix ({2 * sum(cv) / 2**30:.1f} "
+                f"GiB) + ledger state ({2 * sum(state) / 2**30:.1f} GiB) "
+                f"exceeds the free device memory ({free / 2**30:.2f} GiB); "
+                "using the gather path"
             )
         used = need if self.resident_cv else need_gather
         # a chromosome's parent rows: CV rows (resident) and mutation rows
@@ -555,39 +656,66 @@ class Simulation:
     def _ad_gather(self, st: PopState, j: int, ad, want_cv: bool):
         """The gather path's A/D of phenotype j (the JAX `_ad_all`): its CV
         columns painted from the ledger, one `paint` launch over every
-        chromosome. Past GE_AD_CHUNK rows (unless the allele dump needs the
-        whole matrix), two passes over row chunks: the population's allele
-        counts first, then A/D a chunk against them. Returns (A, D, the
-        painted alleles or None)."""
+        chromosome; with several populations a second launch paints the
+        same ledger over the root panel (`_root_panel`) with no mutations,
+        which gives each chromatid's root population at each CV (the JAX
+        `searchsorted(pop_starts, hap) - 1`). Past GE_AD_CHUNK rows (unless
+        the allele dump needs the whole matrix), two passes over row
+        chunks: the population's allele counts first, then A/D a chunk
+        against them. Returns (A, D, the painted alleles or None)."""
         if self._cv_panels is None:  # the founders' CV columns, once
             self._cv_panels = [torch.as_tensor(g, device=self.device)
                                for g in self.founder_cv]
         cols = slice(j * self.ncv_pad, (j + 1) * self.ncv_pad)
         pos = self.cv_bp_all[:, cols].contiguous()
         founder = self._cv_panels[j]
+        roots = self._root_panel()
         chunk = int(os.environ.get("GE_AD_CHUNK", "131072"))
         rows = st.seg_st.shape[1]
+
+        def ledger(lo, hi):
+            return [x[:, lo:hi].contiguous()
+                    for x in (st.seg_st, st.seg_hap, st.mut)]
+
+        def painted(lo, hi):  # alleles, and roots with several populations
+            led = ledger(lo, hi)
+            c = paint(*led, founder, pos)
+            if roots is None:
+                return c, None
+            none = led[2].new_empty(led[2].shape[:3] + (0,))
+            return c, paint(led[0], led[1], none, roots, pos)
+
         if want_cv or rows <= chunk:
-            c = paint(st.seg_st, st.seg_hap, st.mut, founder, pos)
-            return (*_ad_resident(c, *ad, st.n), c)
-
-        def painted(lo, hi):
-            return paint(*(x[:, lo:hi].contiguous()
-                           for x in (st.seg_st, st.seg_hap, st.mut)),
-                         founder, pos)
-
+            c, r = painted(0, rows)
+            return (*_ad_resident(c, *ad, st.n, roots=r), c)
         spans = [(lo, min(lo + chunk, rows)) for lo in range(0, rows, chunk)]
         counts = 0
         for lo, hi in spans:
-            c = painted(lo, hi)[:, : max(0, min(st.n - lo, hi - lo))]
+            c = paint(*ledger(lo, hi), founder, pos)
+            c = c[:, : max(0, min(st.n - lo, hi - lo))]
             counts = counts + (c[:, :, 0].int() + c[:, :, 1].int()).sum(1)
-        parts = [
-            _ad_resident(painted(lo, hi), *ad,
-                         max(0, min(st.n - lo, hi - lo)), counts, st.n)
-            for lo, hi in spans
-        ]
+        parts = []
+        for lo, hi in spans:
+            c, r = painted(lo, hi)
+            parts.append(_ad_resident(c, *ad, max(0, min(st.n - lo, hi - lo)),
+                                      counts, st.n, roots=r))
         return (torch.cat([x[0] for x in parts]),
                 torch.cat([x[1] for x in parts]), None)
+
+    def _root_panel(self) -> Optional[torch.Tensor]:
+        """(nchr, H, ncv_pad) uint8: the population of founder hap h at
+        every CV column, the panel `paint` reads a chromatid's root
+        population from; None with one population."""
+        if self.n_pop == 1:
+            return None
+        if self._roots is None:
+            nf = np.diff(np.append(self.pop_starts,
+                                   self.founder_cv[0].shape[1]))
+            r = np.repeat(np.arange(self.n_pop, dtype=np.uint8), nf)
+            self._roots = torch.as_tensor(r, device=self.device)[
+                None, :, None].expand(len(self.chrs), -1,
+                                      self.ncv_pad).contiguous()
+        return self._roots
 
     def _dump_cvval(self, p: PopRuntime, gen: int, j: int, c) -> None:
         """Per-chromatid CV alleles of the final generation, a file per
@@ -731,6 +859,11 @@ class Simulation:
             self._apply_gamma()
             for p in self.pops:
                 self._mating_selection_values(p, gen)
+        if self.n_pop > 1:
+            with self.timer("migration"):
+                self._migrate(gen)
+                if self.cfg.stage_sync:
+                    telemetry.device_fence(self.device)
         with self.timer("info_files"):
             for p in self.pops:
                 p.prev_phen = p.state.comp["P"].copy()
@@ -999,6 +1132,110 @@ class Simulation:
             svf=np.ones(n_child),
         )
 
+    # -------------------------------------------------------------- migration
+    def _migrate(self, gen: int) -> None:
+        """Moves between populations (`Simulation.cpp:877-989`), as the JAX
+        `_migrate`: each population sends round(m_ij * n_i) of its rows to
+        population j, drawn on the host from np_seed(seed, gen, MIGRATION,
+        0) without replacement; each new population is its stayers followed
+        by its immigrants, population by population."""
+        mats = self.migration[gen - 1]
+        rng_m = np.random.default_rng(
+            np_seed(self.cfg.seed, gen, Stage.MIGRATION, 0)
+        )
+        sizes = [p.state.n for p in self.pops]
+        leaving = []  # per source: (sampled rows, their destinations)
+        for i in range(self.n_pop):
+            counts = [0 if i == j else int(round(mats[i, j] * sizes[i]))
+                      for j in range(self.n_pop)]
+            sample = rng_m.choice(sizes[i], size=sum(counts), replace=False)
+            others = [j for j in range(self.n_pop) if j != i]
+            dests = np.repeat(others, [counts[j] for j in others])
+            leaving.append((sample, dests))
+        new_states = []
+        for j in range(self.n_pop):
+            keep = np.setdiff1d(np.arange(sizes[j]), leaving[j][0])
+            parts = [(self.pops[j], keep)]
+            for i, pi in enumerate(self.pops):
+                idx = leaving[i][0][leaving[i][1] == j]
+                if i != j and len(idx):
+                    parts.append((pi, idx))
+            new_states.append(self._gather_state(parts))
+        for p, st in zip(self.pops, new_states):
+            p.state = st
+            self._log(f"      pop {p.index + 1} size after migration = "
+                      f"{st.n}")
+
+    def _gather_state(self, parts) -> PopState:
+        """The selected rows of several populations' states, concatenated:
+        ledgers and mutations padded to the current capacities (a
+        population that has not reproduced since another one grew them
+        holds narrower planes). Migrants keep their founder hap indices,
+        which name their root population."""
+        st_p, hap_p, mut_p = [], [], []
+        for src, idx in parts:
+            i = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+            st = src.state
+            st_p.append(_pad_last(st.seg_st[:, i], self.s_cap, BIG))
+            hap_p.append(_pad_last(st.seg_hap[:, i], self.s_cap, 0))
+            mut_p.append(_pad_last(st.mut[:, i], self.m_cap, BIG))
+        return PopState(
+            seg_st=torch.cat(st_p, 1), seg_hap=torch.cat(hap_p, 1),
+            mut=torch.cat(mut_p, 1), cv=None,
+            **self._gather_host_fields(parts),
+        )
+
+    def _gather_host_fields(self, parts) -> dict:
+        """The host fields of the selected rows, concatenated (shared by
+        both genome backends' migration)."""
+        def cat(get):
+            return np.concatenate(
+                [get(src.state)[..., idx] for src, idx in parts], axis=-1)
+
+        first = parts[0][0].state
+        return dict(
+            n=sum(len(idx) for _, idx in parts),
+            sex=cat(lambda s: s.sex),
+            ids=cat(lambda s: s.ids),
+            ped={k: cat(lambda s, k=k: s.ped[k]) for k in first.ped},
+            comp={k: cat(lambda s, k=k: s.comp[k]) for k in first.comp},
+            mv=cat(lambda s: s.mv),
+            sv=cat(lambda s: s.sv),
+            svf=cat(lambda s: s.svf),
+        )
+
+    # ------------------------------------------------------------ checkpoint
+    def _ckpt_genome_arrays(self, st: PopState) -> dict:
+        """The genome arrays a checkpoint keeps, under the JAX package's
+        keys and dtypes. Unlike the JAX package, the port keeps the planes'
+        padding rows: torch's generators draw a plan's rows in sequence, so
+        the coming draws depend on the row count, and a resumed run
+        continues bit-identically only from planes of the same rows."""
+        d = {k: getattr(st, k).cpu().numpy()
+             for k in ("seg_st", "seg_hap", "mut")}
+        if st.cv is not None:
+            d["cv"] = st.cv.cpu().numpy()
+        return d
+
+    def _ckpt_make_state(self, z, pre: str, host: dict) -> PopState:
+        """A population's state from checkpoint arrays and its host fields;
+        the resident CV matrix is rebuilt from the ledger when the
+        checkpoint has none (a gather-path run's)."""
+        seg_st, seg_hap, mut = (
+            torch.as_tensor(z[f"{pre}.{k}"], device=self.device)
+            for k in ("seg_st", "seg_hap", "mut"))
+        cv = None
+        if self.resident_cv:
+            if f"{pre}.cv" in z.files:
+                cv = torch.as_tensor(z[f"{pre}.cv"], device=self.device)
+            else:
+                cv = paint(seg_st, seg_hap, mut,
+                           torch.as_tensor(np.concatenate(self.founder_cv, 2),
+                                           device=self.device),
+                           self.cv_bp_all)
+        return PopState(seg_st=seg_st, seg_hap=seg_hap, mut=mut, cv=cv,
+                        **host)
+
     # ------------------------------------------------------------- recording
     def _record_traj(self, p: PopRuntime, gen: int) -> None:
         st = p.state
@@ -1125,11 +1362,25 @@ class Simulation:
     # ------------------------------------------------------------------- run
     def run(self) -> None:
         cfg = self.cfg
-        self.init_generation0()
+        start_gen = 1
+        ckpt = f"{cfg.prefix}.ckpt.npz"
+        if cfg.resume:
+            # `_load` built the maps and effect tables; the checkpoint
+            # restores the state and every constant frozen at generation 0
+            done = checkpoint.load(self, cfg.resume)
+            self._check_fits()  # at the checkpoint's capacities
+            start_gen = done + 1
+            self._log(f"    Resumed from {cfg.resume} after generation {done}")
+        else:
+            self.init_generation0()
+            if cfg.checkpoint_every:
+                checkpoint.save(self, 0, ckpt)
         with telemetry.profiler_trace(cfg.profile_dir, self.device):
-            for gen in range(1, self.tot_gen + 1):
+            for gen in range(start_gen, self.tot_gen + 1):
                 self._log(f"    Start generation {gen}")
                 self.step(gen)
+                if cfg.checkpoint_every and gen % cfg.checkpoint_every == 0:
+                    checkpoint.save(self, gen, ckpt)
         self._check_capacity_guard()  # last generation's deferred check
         self.timer.report(self._log)
         self.show_results()

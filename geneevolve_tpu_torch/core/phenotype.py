@@ -19,8 +19,10 @@ import torch
 def additive_dominance_chr(
     c0: torch.Tensor,  # (n, ncv) uint8 paternal-chromatid CV alleles
     c1: torch.Tensor,  # (n, ncv) maternal
-    a: torch.Tensor,  # (ncv,) f32 additive effects
-    d: torch.Tensor,  # (ncv,) f32 dominance effects
+    a0: torch.Tensor,  # (n, ncv) or (ncv,) f32 additive effect seen by
+    a1: torch.Tensor,  # chromatid 0 / 1 (its root population's)
+    d0: torch.Tensor,  # (n, ncv) or (ncv,) f32 dominance effects
+    d1: torch.Tensor,
     dominance_on: bool,  # False when vd == 0
     n_real: int,  # rows >= n_real are padding, excluded from frequencies
     tsum: torch.Tensor = None,  # optional (ncv,) allele counts of the WHOLE
@@ -28,7 +30,8 @@ def additive_dominance_chr(
     # population's, not the chunk's
     n_freq: int = None,  # the population size behind `tsum`
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One chromosome's (A, D) contribution for every row, f32."""
+    """One chromosome's (A, D) contribution for every row, f32. One
+    population passes its (ncv,) effect rows, broadcast over the rows."""
     t_int = c0.to(torch.int32) + c1.to(torch.int32)  # (n, ncv) in {0,1,2}
     t = t_int.to(torch.float32)
     if tsum is None:
@@ -37,14 +40,14 @@ def additive_dominance_chr(
     nr = torch.tensor(float(n_freq), dtype=torch.float32, device=c0.device)
     p = tsum.to(torch.float32) / (2.0 * nr)  # current-gen allele frequency
     q = 1.0 - p
-    a = 0.5 * (a + a)
-    d = 0.5 * (d + d) if dominance_on else torch.zeros_like(d)
+    a = 0.5 * (a0 + a1)
+    d = 0.5 * (d0 + d1) if dominance_on else torch.zeros_like(d0)
     alpha = a + d * (q - p)
-    A = ((t - 2.0 * p[None, :]) * alpha[None, :]).sum(1)
+    A = ((t - 2.0 * p[None, :]) * alpha).sum(1)
     c_t = torch.where(
         t == 0.0, -2.0 * p * p, torch.where(t == 1.0, 2.0 * p * q, -2.0 * q * q)
     )
-    D = (c_t * d[None, :]).sum(1)
+    D = (c_t * d).sum(1)
     return A, D
 
 

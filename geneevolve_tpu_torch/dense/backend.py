@@ -1,5 +1,5 @@
 """The dense genome backend (`--backend dense`) in PyTorch (counterpart of
-geneevolve_tpu/dense/backend.py), for one population.
+geneevolve_tpu/dense/backend.py).
 
 `DenseSimulation` runs the segment engine's scenario semantics — mating,
 A/D with per-generation allele frequencies, E/F/C/P assembly, MV/SV and
@@ -18,9 +18,12 @@ Chromosomes are padded to a multiple of 32 loci on every device, the JAX
 package's CPU unit, so a CUDA run, a CPU run and a JAX CPU run share one
 layout. Every device draw of a generation comes from `_plan`, so tests can
 inject the JAX run's draws. Founder panels are `.hap` files or
-`--file_ref_vcf` VCFs. Not ported yet (`check_slice` refuses them):
-several populations / migration (ROADMAP item 1.10), checkpoints (1.11),
-`--mesh` (1.14).
+`--file_ref_vcf` VCFs. Several populations need identical panel loci per
+chromosome, so their packed planes share one layout and migration is a
+row move of the planes and the resident CV matrices; a population's A/D
+uses its own effects (the JAX dense backend's law, unlike the segment
+engine's root-population effects). `--mesh` is not ported yet
+(`check_slice` refuses it, ROADMAP item 1.14).
 """
 
 from __future__ import annotations
@@ -123,12 +126,28 @@ class DenseSimulation(Simulation):
     # ------------------------------------------------------------ panel load
     def _load(self) -> None:
         super()._load()
-        self.dp = self._load_panel(self.pops[0])
-        # effects per phenotype over its CV columns (all chromosomes)
+        # one packed panel a population (`_load_all_panels` in the JAX
+        # backend): identical loci per chromosome, hence one padded
+        # chromosome length and one plane layout
+        self.dps: List[DensePanel] = []
+        for p in self.pops:
+            dp = self._load_panel(p)
+            for ic, leg in enumerate(dp.legends):
+                if self.dps and not np.array_equal(
+                        leg.pos, self.dps[0].legends[ic].pos):
+                    raise SimulationError(
+                        "--backend dense with multiple populations needs "
+                        "identical panel loci per chromosome; chr "
+                        f"{self.chrs[ic]} differs between populations 1 "
+                        f"and {p.index + 1}"
+                    )
+            self.dps.append(dp)
+        # [pop][pheno] (a, d) effects over the CV columns (all chromosomes)
         self.dense_eff = [
-            tuple(torch.as_tensor(np.concatenate(v).astype(np.float32),
-                                  device=self.device) for v in (ph.a, ph.d))
-            for ph in self.pops[0].phenos
+            [tuple(torch.as_tensor(np.concatenate(v).astype(np.float32),
+                                   device=self.device) for v in (ph.a, ph.d))
+             for ph in p.phenos]
+            for p in self.pops
         ]
 
     def _load_panel(self, p: PopRuntime) -> DensePanel:
@@ -217,21 +236,26 @@ class DenseSimulation(Simulation):
         )
 
     def _check_fits(self) -> None:
-        """Refuse a run whose planes do not fit the card: parents and
-        children coexist (2 x rows x 2 x mw x 4 B, plus both generations'
-        CV matrices), beside one generation's plan and `cv_child`'s
-        (rows, ncv) transients."""
+        """Refuse a run whose planes do not fit the card: every
+        population's planes and CV matrices stay resident, and the one
+        reproducing has parents and children at once (rows x 2 x mw x 4 B
+        each, plus its CV matrices), beside one generation's plan and
+        `cv_child`'s (rows, ncv) transients; a migration builds every
+        population's state anew beside the old."""
         if self.device.type != "cuda":
             return
-        p, cfg = self.pops[0], self.dp.cfg
-        rows = max(int(s) for s in p.schedule.pop_size)
-        rows = max(rows + 4 * int(np.sqrt(rows)) + 16, p.n_founders)
-        ncv = [int(c.shape[0]) for c in self.dp.cv_cols]
-        planes = rows * 2 * cfg.mw * 4
-        cv = rows * 2 * sum(ncv)
+        cfg = self.dps[0].cfg
+        ncv = [int(c.shape[0]) for c in self.dps[0].cv_cols]
+        pop_rows = []
+        for p in self.pops:
+            r = max(int(s) for s in p.schedule.pop_size)
+            pop_rows.append(max(r + 4 * int(np.sqrt(r)) + 16, p.n_founders))
+        rows = max(pop_rows)
+        state = [r * 2 * (cfg.mw * 4 + sum(ncv)) for r in pop_rows]
         plan = rows * 2 * (cfg.n_chr * (cfg.xo_cap + 1) + cfg.mut_cap) * 4
         transient = rows * max(ncv, default=0) * 16
-        need = 2 * (planes + cv) + plan + transient
+        need = max(sum(state) + max(state) + plan + transient,
+                   2 * sum(state) if self.n_pop > 1 else 0)
         free, _total = torch.cuda.mem_get_info(self.device)
         if need > free:
             raise SimulationError(
@@ -248,7 +272,7 @@ class DenseSimulation(Simulation):
             ], axis=1), device=self.device)
             for ph in p.phenos
         ]  # (n0, 2, ncv_j)
-        return DensePopState(hap=self.dp.founder_hap, cv=cv,
+        return DensePopState(hap=self.dps[p.index].founder_hap, cv=cv,
                              **self._gen0_host_fields(p, p.n_founders))
 
     # ------------------------------------------------------------- reproduce
@@ -257,7 +281,7 @@ class DenseSimulation(Simulation):
         (xo_p, st_p, xo_m, st_m, mu) — each gamete's (n, n_chr, K)
         crossover columns and (n, n_chr) start chromatids, and the (n, 2,
         Km) de novo mutation columns (None without a mutation map)."""
-        dp = self.dp
+        dp = self.dps[p.index]
         cfg = dataclasses.replace(dp.cfg, n=n_pad)
         g = generator(self.device, self.cfg.seed, gen, Stage.CROSSOVER,
                       p.index)
@@ -277,7 +301,7 @@ class DenseSimulation(Simulation):
 
     def _reproduce(self, p: PopRuntime, gen: int,
                    plan: mating.MatingPlan) -> DensePopState:
-        st, dp = p.state, self.dp
+        st, dp = p.state, self.dps[p.index]
         n_child = len(plan.child_father)
         n_pad = self._child_rows(p, gen, n_child, st.hap.shape[0])
         cfg = dataclasses.replace(dp.cfg, n=n_pad)
@@ -315,19 +339,58 @@ class DenseSimulation(Simulation):
         for j, ph in enumerate(p.phenos):
             if sum(self.ncv_real[j]) == 0:
                 continue
-            a, d = self.dense_eff[j]
+            a, d = self.dense_eff[p.index][j]
             A_j, D_j = phenotype.additive_dominance_chr(
-                st.cv[j][:, 0], st.cv[j][:, 1], a, d, ph.vd != 0, st.n,
+                st.cv[j][:, 0], st.cv[j][:, 1], a, a, d, d, ph.vd != 0, st.n,
             )
             A[j] = A_j[: st.n].double().cpu().numpy()
             D[j] = D_j[: st.n].double().cpu().numpy()
         return A, D
 
+    # ------------------------------------------------------------- migration
+    def _gather_state(self, parts) -> DensePopState:
+        """The selected rows of several populations' dense states: a row
+        move of the packed planes and of each phenotype's resident CVs
+        (`ras_do_migration`, `Simulation.cpp:877-989`)."""
+        def rows(get):
+            return torch.cat([
+                get(src.state)[torch.as_tensor(idx, dtype=torch.long,
+                                               device=self.device)]
+                for src, idx in parts])
+
+        return DensePopState(
+            hap=rows(lambda s: s.hap),
+            cv=[rows(lambda s, j=j: s.cv[j]) for j in range(self.n_pheno)],
+            **self._gather_host_fields(parts),
+        )
+
+    # ------------------------------------------------------------ checkpoint
+    def _ckpt_genome_arrays(self, st: DensePopState) -> dict:
+        """The packed planes as the JAX package's uint32 words and each
+        phenotype's CV matrix, padding rows kept (see the segment hook)."""
+        d = {"hap": st.hap.cpu().numpy().view(np.uint32)}
+        for j in range(self.n_pheno):
+            d[f"dcv{j}"] = st.cv[j].cpu().numpy()
+        return d
+
+    def _ckpt_make_state(self, z, pre: str, host: dict) -> DensePopState:
+        return DensePopState(
+            hap=torch.as_tensor(z[f"{pre}.hap"].view(np.int32),
+                                device=self.device),
+            cv=[torch.as_tensor(z[f"{pre}.dcv{j}"], device=self.device)
+                for j in range(self.n_pheno)],
+            **host,
+        )
+
     # --------------------------------------------------------------- outputs
     def save_genotypes(self, gen: int) -> None:
-        """`.hap`/`.indv`, `.vcf` and `.ped`/`.map` per chromosome, as the
-        JAX dense backend writes them."""
-        cfg, p, dp = self.cfg, self.pops[0], self.dp
+        """`.hap`/`.indv`, `.vcf` and `.ped`/`.map` per population and
+        chromosome, as the JAX dense backend writes them."""
+        for p in self.pops:
+            self._save_genotypes_pop(p, gen)
+
+    def _save_genotypes_pop(self, p: PopRuntime, gen: int) -> None:
+        cfg, dp = self.cfg, self.dps[p.index]
         st = p.state
         cw = dp.chr_len // 32
         for ic, chrom in enumerate(self.chrs):

@@ -19,7 +19,7 @@ from geneevolve_tpu_torch.ops import merge_count as tcount
 from geneevolve_tpu_torch.ops import paint as tpaint
 from torch_cases import (BIG, CASES, PAINT_CASES, STACKED_CASES, cdf,
                          dense_plan, foreign_slots, mutation_loci, paint_case,
-                         probes, stacked)
+                         paint_ledger, paint_positions, probes, stacked)
 
 T = torch.as_tensor
 
@@ -369,3 +369,79 @@ def test_cuda_paint_refuses_bad_inputs(cuda):
         tpaint.paint(st, hap, mut, founder, pos[:, ::2].contiguous())
     with pytest.raises(ValueError):
         tpaint.paint(st, hap, mut, founder.transpose(1, 2), pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C, n, S, Q, n_pop, order", [
+    (3, 500, 49, 100, 2, "sorted"),  # the gather path's shape, 2 pops
+    (2, 300, 49, 100, 255, "shuffled"),  # every root value a byte holds
+    (1, 200, 65, 5_000, 7, "sorted"),  # spans painted as runs
+])
+def test_cuda_paint_root_panel_no_mutations(cuda, C, n, S, Q, n_pop, order):
+    """The multi-population A/D's second launch: the ledger painted over a
+    root panel (the population of each founder hap, values up to n_pop -
+    1) with an empty (M = 0) mutation plane, bit-exact against the plain
+    version; roots equal the population of the hap the ledger holds."""
+    rng = np.random.default_rng(C * n + n_pop)
+    per = rng.integers(1, 4, size=n_pop)
+    starts = np.concatenate([[0], np.cumsum(2 * per)[:-1]])
+    H = int(2 * per.sum())
+    led = [paint_ledger(rng, n, S, 20, np.int16, H=H) for _ in range(C)]
+    pos = np.stack([paint_positions(rng, Q, big_queries=False)
+                    for _ in range(C)])
+    if order == "shuffled":
+        pos = np.stack([rng.permutation(p) for p in pos])
+    roots = np.repeat(np.arange(n_pop, dtype=np.uint8), 2 * per)
+    st, hap = (T(np.stack([x[i] for x in led]), device=cuda) for i in (0, 1))
+    panel = T(roots, device=cuda)[None, :, None].expand(C, H, Q).contiguous()
+    pos = T(pos, device=cuda)
+    empty = torch.empty((C, n, 2, 0), dtype=torch.int32, device=cuda)
+    before = tpaint.paint.launches
+    got = tpaint.paint(st, hap, empty, panel, pos)
+    torch.cuda.synchronize()
+    assert tpaint.paint.launches == before + 1
+    assert tpaint.paint.plan == tpaint.launch_plan(C, n, S, 0, Q)
+    assert torch.equal(got, tpaint.paint_plain(st, hap, empty, panel, pos))
+    h = torch.stack([tpaint.segments.hap_at(st[c], hap[c], pos[c])
+                     for c in range(C)]).long().cpu().numpy()
+    want = np.searchsorted(starts, np.clip(h, 0, H - 1), side="right") - 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert int(got.max()) == n_pop - 1
+
+
+@pytest.mark.cuda
+def test_cuda_int32_haps_past_32000(cuda):
+    """Several populations' founders past 32,000 haps: int32 haps through
+    the count, the merge (both modes) and paint (alleles over a 40,000-hap
+    panel, and roots with M = 0), each bit-exact against its plain
+    version."""
+    rng = np.random.default_rng(40_000)
+    nchr, n, S, K, H = 3, 2_000, 49, 23, 40_000
+    st, hap, parents, xo_f, xo_m, sh = stacked(rng, nchr, n, S, K, 14,
+                                               np.int32)
+    hap = np.where(st < BIG, rng.integers(0, H, size=st.shape), 0)
+    hap[:, ::3, 0, 0] = H - 1
+    a = [T(x, device=cuda) for x in (st, hap.astype(np.int32), parents,
+                                     xo_f, xo_m, sh)]
+    assert a[1].dtype == torch.int32 and int(a[1].max()) > 32_000
+    assert torch.equal(tcount.merge_count(a[0], *a[2:]),
+                       tcount.merge_count_plain(a[0], *a[2:]))
+    for merge_ibd in (True, False):
+        got = tmerge.meiose_merge(*a, S, merge_ibd)
+        want = tmerge.meiose_merge_plain(*a, S, merge_ibd)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, w) for x, w in zip(got, want))
+    c_st, c_hap, _ = tmerge.meiose_merge(*a, S, True)
+    pos = T(np.sort(rng.integers(0, 30_000, size=(nchr, 100)), 1)
+            .astype(np.int32), device=cuda)
+    mut = torch.full((nchr, n, 2, 4), BIG, dtype=torch.int32, device=cuda)
+    mut[:, ::5, 0, 0] = pos[:, 7, None]
+    founder = torch.randint(0, 2, (nchr, H, 100), dtype=torch.uint8,
+                            device=cuda)
+    roots = (torch.arange(H, device=cuda) >= 20_000).to(torch.uint8)
+    roots = roots[None, :, None].expand(nchr, H, 100).contiguous()
+    for panel, m in ((founder, mut), (roots, mut[..., :0].contiguous())):
+        got = tpaint.paint(c_st, c_hap, m, panel, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tpaint.paint_plain(c_st, c_hap, m, panel,
+                                                   pos))

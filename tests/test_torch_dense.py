@@ -430,10 +430,12 @@ def test_clip_counts_only_truncated_draws():
 # ----------------------------------------------------------- dense backend
 class JaxDenseRun:
     """A JAX `DenseSimulation` run with every generation's draws, mating
-    plans and states kept."""
+    plans and states kept (`states` population 1's, `pop_states` every
+    population's)."""
 
     def __init__(self, argv):
         self.mates, self.plans, self.muts, self.states = [], [], [], []
+        self.pop_states = []
         sample, mcols = jbackend._sample_gamete_plan, jbackend._mutation_cols
         assort = mating.assort_mate
 
@@ -467,22 +469,28 @@ class JaxDenseRun:
         self.sim = sim
 
     def _keep(self, sim):
-        st = sim.pops[0].state
-        self.states.append(dict(
+        self.n_pop = sim.n_pop
+        self.pop_states.append([dict(
             n=st.n, hap=np.asarray(st.hap), cv=[np.asarray(c) for c in st.cv],
             sex=st.sex, ids=st.ids, ped=st.ped, comp=st.comp, mv=st.mv,
             sv=st.sv, svf=st.svf,
-        ))
+        ) for st in (q.state for q in sim.pops)])
+        self.states.append(self.pop_states[-1][0])
 
     def inject(self, tsim):
-        """Feed the port this run's mating plans and device draws."""
-        tsim._mate = lambda p, gen, pop_size, g: self.mates[gen - 1]
+        """Feed the port this run's mating plans and device draws, those of
+        each (generation, population)."""
+        def at(p, gen):
+            return (gen - 1) * self.n_pop + p.index
+
+        tsim._mate = lambda p, gen, pop_size, g: self.mates[at(p, gen)]
         per = len(self.muts) // len(self.mates)
 
         def plan(p, gen, n_pad):
-            (xo_p, st_p), (xo_m, st_m) = self.plans[2 * gen - 2:2 * gen]
+            i = at(p, gen)
+            (xo_p, st_p), (xo_m, st_m) = self.plans[2 * i:2 * i + 2]
             assert xo_p.shape[0] == n_pad  # same plane-row policy
-            mu = (np.stack(self.muts[per * (gen - 1):per * gen], 1)
+            mu = (np.stack(self.muts[per * i:per * (i + 1)], 1)
                   if per else None)
             out = (xo_p, st_p, xo_m, st_m, mu)
             return tuple(None if x is None else T(np.array(x)) for x in out)
@@ -619,7 +627,8 @@ def test_dense_realized_sizes_follow_poisson_law(mini_scenario, tmp_path):
     assert all(30 <= s <= 100 for s in sizes), sizes
     st = sim.pops[0].state
     assert st.hap.shape[0] >= st.n
-    assert torch.equal(st.cv[0], tpk.cv_from_planes(st.hap, sim.dp.cv_cols[0]))
+    assert torch.equal(st.cv[0],
+                       tpk.cv_from_planes(st.hap, sim.dps[0].cv_cols[0]))
 
 
 def test_dense_cli_file_set(mini_scenario, tmp_path, monkeypatch):
@@ -644,7 +653,6 @@ def test_dense_cli_file_set(mini_scenario, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--resume", "x.ckpt.npz"], "1.11"),
     (["--mesh", "auto"], "1.14"),
     (["--device_mating"], "1.9"),
 ])

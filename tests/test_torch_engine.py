@@ -65,10 +65,14 @@ def _host(st):
 
 
 class JaxRun:
-    """A JAX engine run with every generation's plans and states kept."""
+    """A JAX engine run with every generation's plans and states kept:
+    mating and reproduce plans in call order, population by population
+    within a generation; `states` population 1's, `pop_states` every
+    population's, after each generation (after its migration)."""
 
     def __init__(self, argv):
         self.mates, self.plans, self.states, self.runtime = [], [], [], []
+        self.pop_states = []
         probe, assort = jax_engine._capacity_probe, mating.assort_mate
 
         def probe_rec(*a, **k):
@@ -96,7 +100,10 @@ class JaxRun:
 
     def _keep(self, sim):
         p = sim.pops[0]
-        self.states.append(dict(**_planes(p.state), **_host(p.state)))
+        self.n_pop = sim.n_pop
+        self.pop_states.append([dict(**_planes(q.state), **_host(q.state))
+                                for q in sim.pops])
+        self.states.append(self.pop_states[-1][0])
         self.runtime.append(dict(
             prev_phen=p.prev_phen.copy(), prev_F=p.prev_F.copy(),
             var_a_gen0=p.var_a_gen0, var_d_gen0=p.var_d_gen0,
@@ -107,11 +114,15 @@ class JaxRun:
 
 
 def _inject(tsim, run: JaxRun):
-    """Feed the port the JAX run's mating plans and reproduce plans."""
-    tsim._mate = lambda p, gen, pop_size, g: run.mates[gen - 1]
+    """Feed the port the JAX run's mating plans and reproduce plans, those
+    of each (generation, population)."""
+    def at(p, gen):
+        return (gen - 1) * run.n_pop + p.index
+
+    tsim._mate = lambda p, gen, pop_size, g: run.mates[at(p, gen)]
 
     def plan(p, gen, n_pad):
-        drawn = run.plans[gen - 1]
+        drawn = run.plans[at(p, gen)]
         assert drawn[0].shape[1] == n_pad  # same plane-row policy
         return tuple(torch.from_numpy(np.array(x)) for x in drawn)
 
@@ -366,8 +377,6 @@ def test_cli_refuses_without_cuda(mini_scenario, tmp_path, monkeypatch):
     [
         (["--mesh", "auto"], "1.14"),
         (["--device_mating"], "1.9"),
-        (["--resume", "x.ckpt.npz"], "1.11"),
-        (["--checkpoint_every", "1"], "1.11"),
     ],
 )
 def test_refuses_flags_outside_slice(mini_scenario, tmp_path, extra, item):
@@ -375,13 +384,3 @@ def test_refuses_flags_outside_slice(mini_scenario, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         torch_engine.Simulation(cfg, device="cpu", verbose=False)
 
-
-def test_refuses_two_populations(mini_scenario, tmp_path):
-    mig = tmp_path / "mig.txt"
-    mig.write_text("\n".join(["0.9 0.1 0.1 0.9"] * 4) + "\n")
-    base = _argv(mini_scenario, tmp_path / "out")
-    pop = base[: base.index("--seed")]
-    cfg = parse_args(pop + ["--next_population"] + pop
-                     + ["--file_migration", str(mig), "--seed", "1"])
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        torch_engine.Simulation(cfg, device="cpu", verbose=False)

@@ -290,3 +290,99 @@ def test_codec_builds_outside_the_source_tree():
         pytest.skip("no C++ toolchain: the pure-Python paths serve")
     path = tnative._lib_path()
     assert path.exists() and path.parent.name == "_build"
+
+
+def _ckpt_sim(seed=5, rows=6, gen_arrays=None):
+    """A stand-in simulation holding what `checkpoint.save` reads and
+    `checkpoint.load` restores: two populations, one phenotype, seeded
+    host arrays and genome arrays under the segment engine's keys."""
+    from types import SimpleNamespace as NS
+
+    rng = np.random.default_rng(seed)
+    pops = []
+    for i in range(2):
+        n = rows - i
+        state = NS(
+            n=n, sex=rng.integers(1, 3, n).astype(np.int8),
+            ids=np.arange(n, dtype=np.int64),
+            ped={k: rng.integers(0, 9, n) for k in
+                 ("father", "mother", "ff", "fm", "mf", "mm")},
+            comp={k: rng.normal(size=(1, n)) for k in "ADGCEFP"},
+            mv=rng.normal(size=n), sv=rng.normal(size=n), svf=np.ones(n),
+            genome={"seg_st": rng.integers(0, 99, (2, n, 2, 3), np.int32),
+                    "seg_hap": rng.integers(0, 99, (2, n, 2, 3), np.int16),
+                    "mut": rng.integers(0, 99, (2, n, 2, 2), np.int32)},
+        )
+        pops.append(NS(
+            index=i, state=state, prev_phen=rng.normal(size=(1, n)),
+            prev_F=rng.normal(size=(1, n)), var_a_gen0=rng.normal(size=1),
+            var_d_gen0=rng.normal(size=1), sv_mean_gen0=0.25,
+            sv_var_gen0=1.5, phenos=[NS(beta=0.7)],
+            traj={"var_A": rng.normal(size=(1, 4)),
+                  "var_mv": rng.normal(size=4)},
+        ))
+    sim = NS(cfg=NS(seed=seed, backend="segment"), n_pop=2, n_pheno=1,
+             s_cap=3, m_cap=2, pops=pops)
+    sim._ckpt_genome_arrays = lambda st: st.genome
+    sim._ckpt_make_state = lambda z, pre, host: NS(
+        genome={k: z[f"{pre}.{k}"] for k in ("seg_st", "seg_hap", "mut")},
+        **host)
+    return sim
+
+
+def test_checkpoint_copy_equal(tmp_path):
+    """The port's `core/checkpoint` writes the JAX module's arrays (keys,
+    dtypes, values) from the same simulation, and each module restores the
+    other's file into the same state."""
+    from geneevolve_tpu.core import checkpoint as jckpt
+    from geneevolve_tpu_torch.core import checkpoint as tckpt
+
+    assert tckpt.FORMAT_VERSION == jckpt.FORMAT_VERSION == 2
+    for mod, name in ((jckpt, "jax.npz"), (tckpt, "torch.npz")):
+        mod.save(_ckpt_sim(), 3, str(tmp_path / name))
+    zj, zt = np.load(tmp_path / "jax.npz"), np.load(tmp_path / "torch.npz")
+    assert sorted(zj.files) == sorted(zt.files)
+    for k in zj.files:
+        _same(zt[k], zj[k], k)
+    assert not list(tmp_path.glob("*.tmp"))  # written atomically
+    for name in ("jax.npz", "torch.npz"):
+        restored = []
+        for mod in (jckpt, tckpt):
+            sim = _ckpt_sim(rows=2)  # other sizes: load must replace them
+            assert mod.load(sim, str(tmp_path / name)) == 3
+            restored.append(sim)
+        want = _ckpt_sim()
+        for got in restored:
+            for p, q in zip(got.pops, want.pops):
+                _same({k: v for k, v in vars(p.state).items()},
+                      {k: v for k, v in vars(q.state).items()}, name)
+                for k in ("prev_phen", "prev_F", "var_a_gen0", "var_d_gen0",
+                          "traj"):
+                    _same(getattr(p, k), getattr(q, k), k)
+                assert (p.sv_mean_gen0, p.sv_var_gen0, p.phenos[0].beta) \
+                    == (0.25, 1.5, 0.7)
+            assert (got.s_cap, got.m_cap) == (3, 2)
+
+
+@pytest.mark.parametrize("bad, match", [
+    ("seed", "seed"), ("n_pop", "scenario"), ("backend", "backend")])
+def test_checkpoint_copy_refusals_equal(tmp_path, bad, match):
+    """Both modules refuse a checkpoint of another seed, shape or backend
+    with the same error."""
+    from geneevolve_tpu.core import checkpoint as jckpt
+    from geneevolve_tpu_torch.core import checkpoint as tckpt
+
+    tckpt.save(_ckpt_sim(), 1, str(tmp_path / "c.npz"))
+    errors = []
+    for mod in (jckpt, tckpt):
+        sim = _ckpt_sim()
+        if bad == "seed":
+            sim.cfg.seed = 6
+        elif bad == "n_pop":
+            sim.n_pop = 3
+        else:
+            sim.cfg.backend = "dense"
+        with pytest.raises(RuntimeError, match=match) as e:
+            mod.load(sim, str(tmp_path / "c.npz"))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]

@@ -24,6 +24,7 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.cli",
     "geneevolve_tpu_torch.config",
     "geneevolve_tpu_torch.core.engine",
+    "geneevolve_tpu_torch.core.checkpoint",
     "geneevolve_tpu_torch.core.convert",
     "geneevolve_tpu_torch.core.output",
     "geneevolve_tpu_torch.core.mating",
