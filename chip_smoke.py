@@ -112,7 +112,40 @@ Phases, each of which raises on failure (exit code non-zero):
    stage split into paint (fenced), device-to-host copy and text writing;
    the files are deleted after the checks;
 9. profile: one generation of the resident slice under `--profile`; the
-   trace's top device ops and the device's busy share of the generation.
+   trace's top device ops and the device's busy share of the generation;
+10. device mating (`segment_device_mating`): the segment slice again under
+   `--device_mating --avoid_inbreeding`, its schedule's mating correlation
+   0.3: the stacked kernels' launches a generation, the tripwire, from
+   generation 2 on each generation's realized couple correlation of
+   mating values within 0.05 of 0.3, no vetoed couple with a child; s/gen
+   and its `mate` stage beside the resident slice's host `mate` stage;
+11. device mating parity: `assort_mate_device` at 30,000 individuals on
+   the card and on the CPU from the same draws (drawn on the CPU and
+   moved), under the "p" law, the "f" law and MM 0.2 with the veto on:
+   identical plans; the card's pairing, CPU torch's and the host numpy
+   `assort_mate` timed;
+12. dense device mating (`dense_device_mating`): the dense slice under
+   `--device_mating`, 3 generations: one packed meiosis and two CV-row
+   gathers a generation, resident CVs equal to the planes'; s/gen and the
+   `mate` stage;
+13. the dense scenario CLI (`python -m geneevolve_tpu_torch.dense.scenario`,
+   in this process through `main`): first a cuda-vs-cpu parity with
+   `--out_hap` at the dense parity phase's size, the card fed the CPU
+   run's draws (`.hap`/`.indv` byte-identical); then `scenario31` over the
+   dense slice's panel, map and CVs (bootstrapped to 30,000, selection,
+   `--mut_rate 1.0`, 5 generations, a checkpoint every 2): one packed
+   meiosis and two CV-row gathers a generation, resident CVs equal to the
+   planes', s/gen; then `scenario31_resume` from the generation-4
+   checkpoint to generation 5, its final planes and CVs equal to the
+   straight run's on the card;
+14. streamed engine (`streamed`, after the packed engine): the flagship
+   shape without CVs, one chromosome a slab (8 slabs of 512 MiB, 4 GiB
+   pinned host memory, `/proc/meminfo`'s MemAvailable printed and
+   checked first), 1 warm-up and 3 timed generations: 8 packed meiosis
+   launches a generation, the first generation bit-exact against the
+   same kernel on device-resident copies of the founder slabs (after the
+   counted run), h2d / d2h copy seconds a generation, ind.loci.gens/s
+   beside the packed engine's.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. Each
@@ -124,6 +157,7 @@ CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -180,6 +214,11 @@ PATHS = {
     "dense_mutations": ("meiose_packed", "gather_rows"),
     "packed_engine": ("meiose_packed", "gather_rows"),
     "byte_engine": ("meiose_planes", "meiose_packed"),
+    "segment_device_mating": SEGMENT,
+    "dense_device_mating": ("meiose_packed", "gather_rows"),
+    "scenario31": ("meiose_packed", "gather_rows"),
+    "scenario31_resume": ("meiose_packed", "gather_rows"),
+    "streamed": ("meiose_packed",),
 }
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
@@ -203,6 +242,22 @@ MULTIPOP_GENS = 3
 MULTIPOP_PER_GEN = {k: MULTIPOP * v for k, v in dict(
     GATHER_PER_GEN, paint=2).items()}
 DENSE_MULTIPOP_PER_GEN = {"meiose_packed": MULTIPOP}
+# the dense engines a generation: one packed meiosis, one CV-row gather a
+# gamete (the packed step's `cv_child`, the dense backend's)
+DENSE_PER_GEN = {"meiose_packed": 1, "gather_rows": 2}
+# device mating: the mating correlation written into the schedule, and how
+# far a generation's realized couple correlation may lie from it (~6
+# standard errors at ~15,000 couples)
+MAT_COR = 0.3
+MAT_COR_TOL = 0.05
+DENSE_DM_GENS = 3
+# the dense scenario CLI: generations of the straight run (a checkpoint
+# every 2, the resumed run from the last one)
+SCENARIO_GENS = 5
+# the streamed engine: one chromosome a slab of the flagship's 8, 1 warm-up
+# and 3 timed generations
+STREAMED_SLABS = FLAGSHIP["n_chr"]
+STREAMED_TIMED = 3
 # launches of generation 0's A/D, by path
 GEN0_LAUNCHES = {"segment_gather": {"paint": 1},
                  "segment_multipop": {"paint": 2 * MULTIPOP}}
@@ -223,7 +278,10 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "segment_profiled": 1,
              "dense_slice": DENSE_SCENARIO["gens"],
              "dense_mutations": DENSE_MUT_GENS, "packed_engine": 6,
-             "byte_engine": 2}
+             "byte_engine": 2, "segment_device_mating": SCENARIO["gens"],
+             "dense_device_mating": DENSE_DM_GENS,
+             "scenario31": SCENARIO_GENS, "scenario31_resume": 1,
+             "streamed": 1 + STREAMED_TIMED}
 # H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
 # the tensor cores, taken as the scalar-lane rate for the kernels' integer
 # compares (the int32 lanes are no faster, so the bound stays a least time)
@@ -816,13 +874,13 @@ def _with(argv: list, flag: str, value: str) -> list:
     return argv
 
 
-def _popinfo(root: Path, scenario: dict, gens: int) -> Path:
+def _popinfo(root: Path, scenario: dict, gens: int, mat_cor=0.0) -> Path:
     """A generation-info file of `gens` rows of the scenario's schedule."""
     path = root / f"popinfo{gens}.txt"
     path.write_text(
         "pop_size mat_cor offspring_dist selection_func selection_func_par1 "
         "selection_func_par2\n"
-        + f"{scenario['pop_size']} 0 p thr 1 1\n" * gens)
+        + f"{scenario['pop_size']} {mat_cor:g} p thr 1 1\n" * gens)
     return path
 
 
@@ -1866,7 +1924,8 @@ def profile_phase(dev, work: Path, base: list) -> dict:
     return out
 
 
-def _dense_run(dev, work: Path, name: str, gens: int, base=None) -> dict:
+def _dense_run(dev, work: Path, name: str, gens: int, base=None,
+               extra=(), mat_cor=0.0) -> dict:
     """`--backend dense` at Table 3.1's shape with a real panel through
     `slice_phase`, `gens` generations; the resident CV matrices equal the
     planes' CVs at the end. The last generation's packed-meiosis and
@@ -1899,10 +1958,11 @@ def _dense_run(dev, work: Path, name: str, gens: int, base=None) -> dict:
         return cv_child(cv_par, parent, *rest)
 
     scenario = dict(DENSE_SCENARIO, gens=gens)
-    extra = ["--backend", "dense", *DENSE_VARIANCES]
+    extra = ["--backend", "dense", *DENSE_VARIANCES, *extra]
     if base is not None:
+        (work / name).mkdir(parents=True, exist_ok=True)
         base = _with(base, "--file_gen_info",
-                     str(_popinfo(work / name, scenario, gens)))
+                     str(_popinfo(work / name, scenario, gens, mat_cor)))
     backend.make_reproduce, backend.cv_child = make_reproduce_rec, cv_child_rec
     try:
         out = slice_phase(dev, work, name, scenario, extra, base=base)
@@ -2173,6 +2233,453 @@ def byte_engine_phase(dev) -> dict:
     return dict(s_per_gen_byte_packed=gen_s, clip=int(d["clip"]))
 
 
+@contextlib.contextmanager
+def _device_mate_recorded(plans: list):
+    """Within it, each `Simulation._device_mate` call (both backends) adds
+    (generation, plan, the parents' mating values, its host seconds: the
+    call ends in the plan's copy back, a sync) to `plans`."""
+    from geneevolve_tpu_torch.core import engine
+
+    device_mate = engine.Simulation._device_mate
+
+    def rec(self, p, gen, pop_size, g):
+        t0 = time.perf_counter()
+        plan = device_mate(self, p, gen, pop_size, g)
+        dt = time.perf_counter() - t0
+        plans.append((gen, plan, p.state.mv.copy(), dt))
+        return plan
+
+    engine.Simulation._device_mate = rec
+    try:
+        yield plans
+    finally:
+        engine.Simulation._device_mate = device_mate
+
+
+def segment_device_mating(dev, work: Path, base: list) -> dict:
+    """The segment slice under `--device_mating --avoid_inbreeding` with a
+    mating correlation of `MAT_COR` in its schedule: the pairing runs on
+    the card. Each generation's plan and the parents' mating values are
+    kept (host arrays the engine already has; no card work inside the
+    timed run) and checked after it: from generation 2 on (the founders'
+    mating values are all 0) the couples' realized correlation lies within
+    `MAT_COR_TOL` of the target (~6 standard errors at ~15,000 couples),
+    and no vetoed couple has a child."""
+    name = "dm31"
+    root = work / name
+    root.mkdir(parents=True, exist_ok=True)
+    base = _with(base, "--file_gen_info",
+                 str(_popinfo(root, SCENARIO, SCENARIO["gens"], MAT_COR)))
+    with _device_mate_recorded([]) as plans:
+        out = slice_phase(dev, work, name, SCENARIO, base=base,
+                          extra=["--device_mating", "--avoid_inbreeding"])
+    sim = out.pop("sim")
+    if len(plans) != SCENARIO["gens"]:
+        raise AssertionError(f"{name}: {len(plans)} device pairings")
+    if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
+        raise AssertionError(f"capacity tripwire: {sim.capacity_log}")
+    cors, vetoed = [], []
+    for gen, plan, mv, _ in plans:
+        inbred = plan.inbred
+        vetoed.append(int(inbred.sum()))
+        if inbred[plan.child_couple].any():
+            raise AssertionError(f"{name}: a vetoed couple has a child "
+                                 f"at gen {gen}")
+        if gen >= 2:
+            cors.append(plan.couple_cor_mating_value(mv))
+    if not all(abs(c - MAT_COR) < MAT_COR_TOL for c in cors):
+        raise AssertionError(f"{name}: couple correlations {cors}, target "
+                             f"{MAT_COR} +- {MAT_COR_TOL}")
+    if sum(vetoed[1:]) == 0:
+        raise AssertionError(f"{name}: the veto never bit")
+    out.update(couple_cor=cors, vetoed_couples=vetoed,
+               couples=[len(p[1].father_pos) for p in plans],
+               device_mate_s=[p[3] for p in plans])
+    print(f" {name}: couple correlation of mating values (gens 2..) "
+          + " ".join(f"{c:.4f}" for c in cors) + f" (target {MAT_COR}); "
+          f"vetoed couples {vetoed}, none with a child; device mate s a "
+          "generation " + " ".join(f"{p[3]:.4f}" for p in plans))
+    return out
+
+
+def device_mating_parity(dev) -> dict:
+    """`assort_mate_device` at the slice's 30,000 individuals, on the card
+    and on the CPU with the same draws (drawn on the CPU and moved), under
+    the "p" law, the "f" law and MM 0.2, with the veto on sparse pedigree
+    ids: the plans are identical. The card's pairing, the CPU's and the
+    host numpy `assort_mate` are timed (median ms of 5, in turns; the
+    card's with its draws and the plan copied back, as the engine's mate
+    stage takes it)."""
+    import numpy as np
+    import torch
+
+    from geneevolve_tpu_torch.core import mating
+    from geneevolve_tpu_torch.parallel import mating_device as md
+
+    n = N_CHILD
+    rng = np.random.default_rng(17)
+    host = dict(mv=rng.normal(size=n).astype(np.float32),
+                svf=rng.uniform(0.5, 1.0, size=n).astype(np.float32),
+                sex=rng.integers(1, 3, size=n),
+                ped={k: rng.integers(0, n // 2, size=n)
+                     for k in ("father", "ff", "fm", "mf", "mm")})
+    T = torch.as_tensor
+    cpu = (T(host["mv"]), T(host["svf"]), T(host["sex"]),
+           {k: T(v) for k, v in host["ped"].items()})
+    card = (cpu[0].to(dev), cpu[1].to(dev), cpu[2].to(dev),
+            {k: v.to(dev) for k, v in cpu[3].items()})
+    pop_size = n
+    n_emit = pop_size + 4 * int(np.sqrt(pop_size)) + 16
+    out = {}
+    for law, mm in (("p", 0.0), ("f", 0.0), ("p", 0.2)):
+        case = f"{law}_mm{mm:g}"
+        n_children = n_emit if law == "p" else pop_size
+        draws = md.draw_assort(torch.Generator().manual_seed(3), n, mm, law,
+                               n_children)
+        ddraws = md.MateDraws(*(None if d is None else d.to(dev)
+                                for d in draws))
+        args = (MAT_COR, True, pop_size, mm, law, n_children)
+        want = md.pair(draws, *cpu, *args)
+        got = md.pair(ddraws, *card, *args)
+        for k in md.DevicePlan._fields:
+            if not torch.equal(getattr(got, k).cpu(), getattr(want, k)):
+                raise AssertionError(f"device mating parity ({case}): {k} "
+                                     "differs")
+        if not want.inbred.any():
+            raise AssertionError(f"device mating parity ({case}): no veto")
+
+        gen = torch.Generator(device=dev).manual_seed(4)
+
+        def on_card():  # draws, pairing and the plan back on the host
+            plan = md.assort_mate_device(gen, *card, *args)
+            return [x.cpu() for x in plan]
+
+        def on_host():
+            return mating.assort_mate(
+                np.random.default_rng(1), host["mv"], host["svf"],
+                host["sex"], host["ped"], MAT_COR, mm, True, law, pop_size)
+
+        ms = _host_turns({"card": on_card,
+                          "cpu_torch": lambda: md.pair(draws, *cpu, *args),
+                          "host_numpy": on_host}, reps=5)
+        out[case] = dict(couples=int(want.n_couples),
+                         vetoed=int(want.inbred.sum()), **ms)
+        print(f" device mating parity ({case}): card == cpu, "
+              f"{out[case]['couples']} couples, {out[case]['vetoed']} "
+              f"vetoed; ms card {ms['card']:.3f}, cpu torch "
+              f"{ms['cpu_torch']:.3f}, host numpy assort_mate "
+              f"{ms['host_numpy']:.3f}")
+    return out
+
+
+def _host_turns(fns: dict, reps: int) -> dict:
+    """Median host-clock ms of each `fns[k]()` (each ends in a sync or on
+    the host), in turns, after one warm-up each."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for r in range(reps):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def dense_device_mating(dev, work: Path, dense_argv: list) -> dict:
+    """The dense slice under `--device_mating` (mating correlation
+    `MAT_COR`), `DENSE_DM_GENS` generations, with `_dense_run`'s checks:
+    one packed meiosis a generation, the resident CVs equal to the planes'
+    at the end."""
+    with _device_mate_recorded([]) as plans:
+        out = _dense_run(dev, work, "dense_dm31", DENSE_DM_GENS,
+                         base=dense_argv, extra=["--device_mating"],
+                         mat_cor=MAT_COR)
+    if len(plans) != DENSE_DM_GENS:
+        raise AssertionError(f"dense_dm31: {len(plans)} device pairings")
+    out.pop("captured")
+    del out["argv"], out["root"]
+    out["device_mate_s"] = [p[3] for p in plans]
+    print(" dense_dm31: device mate s a generation "
+          + " ".join(f"{p[3]:.4f}" for p in plans))
+    return out
+
+
+def _scenario_argv(dense_argv: list, prefix: Path, *extra) -> list:
+    """The dense scenario CLI's flags over a `--backend dense` scenario's
+    panel, map and CVs."""
+    take = {f: dense_argv[dense_argv.index(f) + 1]
+            for f in ("--file_hap_name", "--file_recom_map",
+                      "--file_cv_info")}
+    return [x for kv in take.items() for x in kv] + [
+        "--prefix", str(prefix), *extra]
+
+
+def _scenario_run(dev, argv: list, name: str) -> dict:
+    """`geneevolve_tpu_torch.dense.scenario.main(argv)` in this process on
+    the card, its step timed a generation (host clock after a sync); the
+    scenario object is kept."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import scenario
+
+    seen, gen_s, save_s = [], [], []
+    evolve, make_step = scenario.evolve, scenario.make_step
+    save = scenario.save_checkpoint
+
+    def evolve_rec(sc, *a, **k):
+        seen.append(sc)
+        return evolve(sc, *a, **k)
+
+    def save_rec(*a):
+        t0 = time.perf_counter()
+        save(*a)
+        save_s.append(time.perf_counter() - t0)
+
+    def make_step_rec(cfg, xo_cdf=None):
+        step = make_step(cfg, xo_cdf=xo_cdf)
+
+        def timed(state, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = step(state, gen)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            return state
+
+        return timed
+
+    scenario.evolve, scenario.make_step = evolve_rec, make_step_rec
+    scenario.save_checkpoint = save_rec
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = scenario.main(argv, device=str(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        scenario.evolve, scenario.make_step = evolve, make_step
+        scenario.save_checkpoint = save
+    if rc != 0:
+        raise AssertionError(f"{name}: scenario.main returned {rc}")
+    print(f" {name}: s/gen " + " ".join(f"{x:.4f}" for x in gen_s)
+          + f", checkpoint saves (s) " + " ".join(f"{x:.2f}" for x in save_s)
+          + f", wall {wall:.1f} s")
+    return dict(sc=seen[0], s_per_gen=gen_s, checkpoint_save_s=save_s,
+                wall_s=wall,
+                max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+                / 2**20)
+
+
+def scenario31(dev, work: Path, dense_argv: list) -> dict:
+    """`python -m geneevolve_tpu_torch.dense.scenario` over the dense
+    slice's panel, map and CVs (on panel sites): bootstrapped to 30,000,
+    selection, ~1 de novo mutation a gamete, `SCENARIO_GENS` generations
+    with a checkpoint every 2; the resident CVs must equal the planes'.
+    The straight run's final state is kept for `scenario31_resume`."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+
+    root = work / "scenario31"
+    root.mkdir(parents=True, exist_ok=True)
+    flags = ["--pop_size", str(DENSE_SCENARIO["pop_size"]), "--selection",
+             "--mut_rate", "1.0", "--seed", "12345",
+             "--checkpoint_every", "2"]
+    argv = _scenario_argv(dense_argv, root / "out", "--gens",
+                          str(SCENARIO_GENS), *flags)
+    t0 = time.perf_counter()
+    out = _scenario_run(dev, argv, "scenario31")
+    sc = out.pop("sc")
+    st = sc.state
+    if not torch.equal(st["cv"], packed.cv_from_planes(st["hap"],
+                                                       st["cv_idx"])):
+        raise AssertionError("scenario31: resident CVs differ from the "
+                             "planes' CVs")
+    ckpt = root / "out.ckpt.npz"
+    out.update(n=sc.cfg.n, loci=sc.cfg.m, ncv=sc.cfg.ncv,
+               mut_cap=sc.cfg.mut_cap, clip=int(st["clip"]),
+               checkpoint_mb=ckpt.stat().st_size / 2**20,
+               final=(st["hap"], st["cv"]), resume_argv=_scenario_argv(
+                   dense_argv, root / "resumed", "--gens",
+                   str(SCENARIO_GENS), *flags, "--resume", str(ckpt)))
+    print(f" scenario31: n {sc.cfg.n} x {sc.cfg.m} loci, {sc.cfg.ncv} CVs, "
+          f"resident CVs == planes' CVs; checkpoint {out['checkpoint_mb']:.1f}"
+          f" MiB; peak {out['max_memory_allocated_mb']:.1f} MiB")
+    return out
+
+
+def scenario31_resume(dev, straight: dict) -> dict:
+    """The scenario CLI resumed from the straight run's last checkpoint
+    (generation `SCENARIO_GENS` - 1) to generation `SCENARIO_GENS`: its
+    final planes and CVs equal the straight run's, compared on the card."""
+    import torch
+
+    out = _scenario_run(dev, straight["resume_argv"], "scenario31 resume")
+    st = out.pop("sc").state
+    hap, cv = straight["final"]
+    if not (torch.equal(st["hap"], hap) and torch.equal(st["cv"], cv)):
+        rows = int((st["hap"] != hap).flatten(1).any(1).sum())
+        raise AssertionError(
+            "scenario31: the resumed run's final state differs from the "
+            f"straight run's: {int((st['hap'] != hap).sum())} words in "
+            f"{rows} of {hap.shape[0]} rows, "
+            f"{int((st['cv'] != cv).sum())} CV alleles")
+    print(" scenario31 resume: final planes and CVs == the straight run's")
+    return out
+
+
+def scenario_parity(dev, work: Path) -> int:
+    """The scenario CLI with `--out_hap` on `dev` and on the CPU over the
+    dense parity scenario (200 founders, 3 chromosomes x 256 SNPs, CVs,
+    selection, mutations, 3 generations), the card fed the CPU run's
+    draws (parents, gamete plans, mutation loci): the `.hap`/`.indv`
+    files are byte-identical. Returns the files compared."""
+    import filecmp
+
+    from geneevolve_tpu_torch.dense import packed, scenario
+    from geneevolve_tpu_torch.dense import step as dense_step
+
+    root = work / "scenario_parity"
+    argv = _scenario(root, n0=200, pop_size=300, gens=3, nchr=3, ncv=12,
+                     snps=256, seed=3)
+    draws = {"draw_parents": [], "_sample_gamete_plan": [],
+             "mutation_positions": []}
+    owners = {"draw_parents": dense_step, "_sample_gamete_plan": dense_step,
+              "mutation_positions": packed}
+    saved = {k: getattr(m, k) for k, m in owners.items()}
+
+    def record(k):
+        def fn(*a, **kw):
+            out = saved[k](*a, **kw)
+            draws[k].append(out)
+            return out
+        return fn
+
+    def replay(k):
+        it = iter(draws[k])
+
+        def fn(*a, **kw):
+            return tuple(x.to(dev) for x in next(it))
+        return fn
+
+    for name, device, wrap in (("cpu", "cpu", record), ("dev", str(dev),
+                                                         replay)):
+        (root / name).mkdir()
+        for k, m in owners.items():
+            setattr(m, k, wrap(k))
+        try:
+            scenario.main(_scenario_argv(
+                argv, root / name / "out", "--gens", "3", "--selection",
+                "--mut_rate", "1.0", "--seed", "7", "--out_hap"),
+                device=device)
+        finally:
+            for k, m in owners.items():
+                setattr(m, k, saved[k])
+    names = sorted(x.name for x in (root / "cpu").iterdir())
+    if names != sorted(x.name for x in (root / "dev").iterdir()) or \
+            len(names) != 6:
+        raise AssertionError(f"scenario parity: files {names}")
+    for x in names:
+        if not filecmp.cmp(root / "cpu" / x, root / "dev" / x, shallow=False):
+            raise AssertionError(f"scenario parity: {x} differs")
+    print(f" scenario parity: cuda == cpu, {len(names)} .hap/.indv files "
+          "byte-identical")
+    return len(names)
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def streamed_phase(dev) -> dict:
+    """The streamed packed engine at the flagship shape without CVs (n
+    16,384 x 1 Mi loci, 8 chromosomes, one a slab: 8 slabs of 512 MiB, 4
+    GiB in pinned host memory), 1 warm-up and `STREAMED_TIMED` timed
+    generations; h2d/d2h copy seconds a generation and ind.loci.gens/s.
+    The founder slabs, the first generation's draws and its children are
+    kept on the card for `streamed_check`."""
+    import torch
+
+    from geneevolve_tpu_torch.dense.packed import PackedConfig
+    from geneevolve_tpu_torch.dense.streamed import StreamedPacked
+
+    cfg = PackedConfig(**{**FLAGSHIP, "ncv": 0, "selection": False,
+                          "mut_rate": 0.0})
+    state_gib = cfg.n * 2 * cfg.mw * 4 / 2**30
+    avail = _mem_available_gib()
+    print(f" streamed: MemAvailable {avail:.1f} GiB, host state "
+          f"{state_gib:.1f} GiB")
+    if avail < 2 * state_gib:
+        raise AssertionError(f"streamed: {avail:.1f} GiB available, "
+                             f"{2 * state_gib:.1f} needed")
+    t0 = time.perf_counter()
+    eng = StreamedPacked.build(0, cfg, 1, device=dev)
+    build_s = time.perf_counter() - t0
+    if not all(h.is_pinned() for h in eng.host):
+        raise AssertionError("streamed: host slabs are not pinned")
+    founders = [h.to(dev) for h in eng.host]
+    g = torch.Generator(device=dev).manual_seed(1)
+    draws = eng.draw(g)
+    t0 = time.perf_counter()
+    eng.apply(*draws)  # warm-up: the first generation, kept for the check
+    warm_s = time.perf_counter() - t0
+    first = [h.to(dev) for h in eng.host]
+    eng.h2d_s = eng.d2h_s = 0.0
+    gen_s = []
+    for _ in range(STREAMED_TIMED):
+        t0 = time.perf_counter()
+        eng.step(g)
+        gen_s.append(time.perf_counter() - t0)
+    gens = len(gen_s)
+    out = dict(
+        slabs=len(eng.host), state_gib=eng.state_bytes / 2**30,
+        mem_available_gib=avail, build_s=build_s, warm_s=warm_s,
+        s_per_gen=gen_s, h2d_s_per_gen=eng.h2d_s / gens,
+        d2h_s_per_gen=eng.d2h_s / gens,
+        ind_loci_gens_per_s=cfg.n * cfg.m * gens / sum(gen_s),
+        allele_mean=eng.allele_mean(0),
+        captured=(founders, draws, first, eng.cfg_slab),
+    )
+    print(f" streamed: {out['slabs']} slabs, {out['state_gib']:.2f} GiB "
+          f"pinned, build {build_s:.2f} s, warm-up {warm_s:.3f} s; s/gen "
+          + " ".join(f"{x:.4f}" for x in gen_s)
+          + f"; h2d {out['h2d_s_per_gen']:.4f} s, d2h "
+          f"{out['d2h_s_per_gen']:.4f} s a generation; "
+          f"{out['ind_loci_gens_per_s']:.4g} ind.loci.gens/s")
+    if not 0.05 < out["allele_mean"] < 0.95:
+        raise AssertionError(f"streamed: allele mean {out['allele_mean']}")
+    return out
+
+
+def streamed_check(captured) -> int:
+    """The streamed first generation against the same kernel on
+    device-resident copies of the founder slabs under the same draws,
+    bit-exact (comparison launches, after the counted run)."""
+    import torch
+
+    from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
+
+    founders, (fathers, mothers, plans), first, cfg_slab = captured
+    for s, (par, plan) in enumerate(zip(founders, plans)):
+        want = meiose_packed(par, fathers, mothers, *plan, None,
+                             n_chr=cfg_slab.n_chr, chr_len=cfg_slab.chr_len)
+        if not torch.equal(want, first[s]):
+            raise AssertionError(f"streamed: slab {s} differs from the "
+                                 "device-resident meiosis")
+    print(f" streamed: generation 1 == device-resident slabs ({len(first)} "
+          "slabs, bit-exact)")
+    return len(first)
+
+
 def main() -> int:
     import torch
 
@@ -2230,6 +2737,17 @@ def main() -> int:
         del res["gather"]["argv"], res["gather"]["root"]
         gather_paint_kernel(kernels, res["gather"].pop("captured"))
         torch.cuda.empty_cache()
+        res["device_mating"] = counted(
+            "segment_device_mating", wrappers,
+            lambda: segment_device_mating(dev, work, slice_argv), launches)
+        check_per_gen("segment_device_mating", SEGMENT_PER_GEN)
+        del res["device_mating"]["argv"], res["device_mating"]["root"]
+        print(" segment_device_mating: mate stage "
+              f"{res['device_mating']['stage_split_s']['mate']} s on the "
+              f"card against table31's {res['slice']['stage_split_s']['mate']}"
+              f" s on the host over {gens} generations")
+        res["device_mating_parity"] = device_mating_parity(dev)
+        torch.cuda.empty_cache()
         res["multipop_parity_gens"] = multipop_parity_phase(dev, work)
         res["multipop"] = counted(
             "segment_multipop", wrappers,
@@ -2267,6 +2785,29 @@ def main() -> int:
             lambda: dense_multipop(dev, work, dense_argv), launches)
         check_per_gen("dense_multipop", DENSE_MULTIPOP_PER_GEN)
         torch.cuda.empty_cache()
+        res["dense_device_mating"] = counted(
+            "dense_device_mating", wrappers,
+            lambda: dense_device_mating(dev, work, dense_argv), launches)
+        check_per_gen("dense_device_mating", DENSE_PER_GEN)
+        print(" dense_device_mating: mate stage "
+              f"{res['dense_device_mating']['stage_split_s']['mate']} s on "
+              f"the card over {DENSE_DM_GENS} generations (dense31's host "
+              f"mate {res['dense_slice']['stage_split_s']['mate']} s over "
+              f"{DENSE_SCENARIO['gens']})")
+        torch.cuda.empty_cache()
+        res["scenario_parity_files"] = scenario_parity(dev, work)
+        res["scenario31"] = counted(
+            "scenario31", wrappers,
+            lambda: scenario31(dev, work, dense_argv), launches)
+        check_per_gen("scenario31", DENSE_PER_GEN)
+        straight = {k: res["scenario31"].pop(k) for k in ("final",
+                                                          "resume_argv")}
+        res["scenario31_resume"] = counted(
+            "scenario31_resume", wrappers,
+            lambda: scenario31_resume(dev, straight), launches)
+        check_per_gen("scenario31_resume", DENSE_PER_GEN)
+        del straight
+        torch.cuda.empty_cache()
         res["output"] = counted(
             "segment_output", wrappers,
             lambda: segment_output_full(dev, work, dense_argv), launches)
@@ -2284,6 +2825,17 @@ def main() -> int:
     if launches["packed_engine"]["meiose_packed"] != 6:
         raise AssertionError("packed engine: one meiosis launch per "
                              "generation expected")
+    torch.cuda.empty_cache()
+    res["streamed"] = counted("streamed", wrappers,
+                              lambda: streamed_phase(dev), launches)
+    check_per_gen("streamed", {"meiose_packed": STREAMED_SLABS})
+    # after the counted run: these launches are comparisons
+    streamed_check(res["streamed"].pop("captured"))
+    print(f" streamed: {res['streamed']['ind_loci_gens_per_s']:.4g} "
+          "ind.loci.gens/s with the genome in host memory, against the "
+          f"packed engine's {res['packed_engine']['ind_loci_gens_per_s']:.4g}"
+          " resident (flagship shape)")
+    torch.cuda.empty_cache()
     res["byte_engine"] = counted("byte_engine", wrappers,
                                  lambda: byte_engine_phase(dev), launches)
     for k in kernels:

@@ -43,7 +43,8 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
  (and, with several populations, each chromatid's root population) from
  the ledger when it does not fit the card, when several populations run,
  or under GE_NO_RESIDENT_CV=1.
- Not ported yet (raise): --mesh, --device_mating.
+ --device_mating (assortative pairing on the device; both backends)
+ Not ported yet (raises): --mesh.
 """
 
 

@@ -26,9 +26,10 @@ Several populations (`--next_population`) reproduce one after another
 and then exchange migrants (`_migrate`, a row move of the ledgers); the
 A/D effect of a chromatid is then its root population's, painted from the
 ledger beside its alleles, so such runs take the gather path. Runs save
-and resume checkpoints (`core/checkpoint.py`). `--mesh` and
-`--device_mating` raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+and resume checkpoints (`core/checkpoint.py`). Under `--device_mating`
+the assortative pairing runs on the device (`parallel/mating_device.py`).
+`--mesh` raises `NotImplementedError` naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -74,16 +75,11 @@ class SimulationError(RuntimeError):
 def check_slice(cfg: ScenarioConfig) -> None:
     """Refuse what this port does not run yet, naming the ROADMAP item
     (queue 1) that ports it."""
-    later = [
-        (bool(cfg.mesh), "--mesh", "1.14"),
-        (cfg.device_mating, "--device_mating", "1.9"),
-    ]
-    for bad, what, item in later:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to geneevolve_tpu_torch yet "
-                f"(ROADMAP queue 1, item {item})"
-            )
+    if cfg.mesh:
+        raise NotImplementedError(
+            "--mesh is not ported to geneevolve_tpu_torch yet "
+            "(ROADMAP queue 1, item 1.14)"
+        )
 
 
 @dataclass
@@ -824,7 +820,10 @@ class Simulation:
     def _mate(self, p: PopRuntime, gen: int, pop_size: int,
               g: int) -> mating.MatingPlan:
         """Host mating (`core/mating.py`, the port's copy of the JAX
-        package's numpy mating module)."""
+        package's numpy mating module), or under `--device_mating` the
+        assortative pairing on the device (`_device_mate`)."""
+        if self.cfg.device_mating and not p.rm:
+            return self._device_mate(p, gen, pop_size, g)
         st = p.state
         rng_mate = np.random.default_rng(
             np_seed(self.cfg.seed, gen, Stage.MATE, p.index)
@@ -836,6 +835,70 @@ class Simulation:
             float(p.schedule.mat_cor[g]), p.mm_percent,
             self.cfg.avoid_inbreeding, p.schedule.offspring_dist[g], pop_size,
             exact_n=self.exact_n,
+        )
+
+    def _device_mate(self, p: PopRuntime, gen: int, pop_size: int,
+                     g: int) -> mating.MatingPlan:
+        """Assortative pairing on the device (`--device_mating`, the JAX
+        engine's `_device_mate`): the sorts, rank match and veto run on
+        the run's device and the plan lands in the same `MatingPlan` the
+        reproduce path takes. Same law as the host mating, another random
+        stream: a generator seeded from (seed, generation, population), so
+        a resumed run draws the same plan."""
+        from geneevolve_tpu_torch.parallel import mating_device as md
+
+        st = p.state
+        law = p.schedule.offspring_dist[g]
+        if law in ("f", "F") or self.exact_n:
+            n_emit = realized = pop_size
+        else:
+            # realized generation size ~ Poisson(pop_size)
+            # (`Simulation.cpp:2329-2337`), drawn on the host; the device
+            # plan emits a fixed padded child count and the realized total
+            # is taken off the front (each child's draw is its own)
+            rng_n = np.random.default_rng(
+                np_seed(self.cfg.seed, gen, Stage.MATE, p.index)
+            )
+            n_emit = pop_size + 4 * int(np.sqrt(pop_size)) + 16
+            drawn = max(1, int(rng_n.poisson(pop_size)))
+            realized = min(drawn, n_emit)
+            if drawn > n_emit:
+                # ~3e-5/gen upper-tail truncation vs the host path's
+                # unclamped law: rare, but made observable
+                self._log(
+                    f"      warning: realized generation size {drawn} "
+                    f"clamped to device-mating emit capacity {n_emit}"
+                )
+        dev = self.device
+
+        def put(x, dtype=None):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        ped = {}
+        if self.cfg.avoid_inbreeding:
+            ped = {k: put(st.ped[k]) for k in ("father", "ff", "fm", "mf",
+                                              "mm")}
+        plan = md.assort_mate_device(
+            generator(dev, self.cfg.seed, gen, Stage.MATE, p.index),
+            put(st.mv, torch.float32),
+            put(st.svf, torch.float32),
+            put(st.sex),
+            ped,
+            float(p.schedule.mat_cor[g]),
+            self.cfg.avoid_inbreeding,
+            pop_size,
+            mm_percent=p.mm_percent,
+            offspring_dist=law,
+            n_children=n_emit,
+        )
+        nc = int(plan.n_couples)
+        if nc == 0:
+            raise SimulationError("device mating produced zero couples")
+        return mating.MatingPlan(
+            father_pos=plan.father_pos[:nc].cpu().numpy(),
+            mother_pos=plan.mother_pos[:nc].cpu().numpy(),
+            inbred=plan.inbred[:nc].cpu().numpy(),
+            child_couple=plan.child_couple[:realized].cpu().numpy(),
         )
 
     def step(self, gen: int) -> None:

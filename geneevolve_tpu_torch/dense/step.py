@@ -202,13 +202,26 @@ def selection_logits(bv: torch.Tensor) -> torch.Tensor:
     return (bv - bv.mean()) / (bv.std(correction=0) + 1e-9)
 
 
+def _categorical(gen: torch.Generator, w: torch.Tensor, n: int):
+    """n draws of the categorical law of weights `w` (summing to ~1), by
+    inverse CDF over an int64 fixed-point CDF (2^-40 steps). An integer
+    prefix sum is exact in any order, so the draws are a function of the
+    generator alone; a float prefix sum on CUDA (`torch.multinomial` takes
+    one over a single distribution) may round in an order that varies from
+    run to run, and a resumed run could then pick other parents."""
+    cdf = torch.cumsum(torch.round(w.double() * 2.0**40).long(), 0)
+    u = torch.rand(n, generator=gen, device=w.device, dtype=torch.float64)
+    pick = torch.searchsorted(cdf, (u * cdf[-1]).long(), right=True)
+    return pick.clamp_(max=w.shape[0] - 1)
+
+
 def draw_parents(gen: torch.Generator, n: int, n_par: int, logits=None):
     """(fathers, mothers) int32 parent rows: categorical over `logits`
-    (`multinomial` on `softmax`), or uniform when there are none."""
+    (`_categorical` of their softmax), or uniform when there are none."""
     if logits is not None:
         w = torch.softmax(logits, 0)
-        f = torch.multinomial(w, n, replacement=True, generator=gen)
-        m = torch.multinomial(w, n, replacement=True, generator=gen)
+        f = _categorical(gen, w, n)
+        m = _categorical(gen, w, n)
     else:
         f = torch.randint(0, n_par, (n,), generator=gen, device=gen.device)
         m = torch.randint(0, n_par, (n,), generator=gen, device=gen.device)

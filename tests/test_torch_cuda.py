@@ -445,3 +445,49 @@ def test_cuda_int32_haps_past_32000(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, tpaint.paint_plain(c_st, c_hap, m, panel,
                                                    pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law, mm", [("p", 0.0), ("f", 0.0), ("p", 0.2)])
+def test_cuda_device_mating_equals_cpu(cuda, law, mm):
+    """`assort_mate_device`'s pairing on the card equals the CPU's under
+    the same draws (drawn on the CPU and moved): the plan is identical."""
+    from geneevolve_tpu_torch.parallel import mating_device as md
+
+    rng = np.random.default_rng(21)
+    n, pop_size = 3000, 3100
+    mv = T(rng.normal(size=n).astype(np.float32))
+    svf = T(rng.uniform(0.3, 1.0, size=n).astype(np.float32))
+    sex = T(rng.integers(1, 3, size=n))
+    ped = {k: T(rng.integers(0, n // 3, size=n))
+           for k in ("father", "ff", "fm", "mf", "mm")}
+    draws = md.draw_assort(torch.Generator().manual_seed(5), n, mm, law,
+                           pop_size)
+    args = (0.3, True, pop_size, mm, law, pop_size)
+    want = md.pair(draws, mv, svf, sex, ped, *args)
+    got = md.pair(md.MateDraws(*(None if d is None else d.to(cuda)
+                                 for d in draws)),
+                  mv.to(cuda), svf.to(cuda), sex.to(cuda),
+                  {k: v.to(cuda) for k, v in ped.items()}, *args)
+    torch.cuda.synchronize()
+    for k in md.DevicePlan._fields:
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    assert want.inbred.any()
+
+
+@pytest.mark.cuda
+def test_cuda_parent_draw_deterministic(cuda):
+    """The selection parent draw at the slice's 30,000 rows is a function
+    of the generator alone on the card: drawn twice from equal seeds, with
+    the allocator's blocks reused in between, the parents are equal."""
+    from geneevolve_tpu_torch.dense import step as tstep
+
+    logits = torch.randn(30_000, generator=torch.Generator().manual_seed(1))
+    logits = logits.to(cuda)
+    draws = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        draws.append(tstep.draw_parents(gen, 30_000, 30_000, logits))
+        torch.randint(0, 2**31, (1 << 26,), device=cuda)  # churn memory
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*draws))

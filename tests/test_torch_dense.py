@@ -400,6 +400,28 @@ def test_sampler_uniform_law_and_mutations():
     assert int(clip) == 0
 
 
+def test_parent_draw_follows_weights():
+    """The selection parent draw (`draw_parents` with logits): each row is
+    drawn with its softmax weight (chi-square p-value above 1e-4); a row
+    of weight 0 is never drawn."""
+    from scipy import stats
+
+    rng = np.random.default_rng(8)
+    logits = torch.as_tensor(rng.normal(size=40) * 1.5, dtype=torch.float32)
+    logits[7] = -float("inf")
+    n = 200_000
+    f, m = tstep.draw_parents(torch.Generator().manual_seed(9), n, 40, logits)
+    assert f.dtype == m.dtype == torch.int32
+    w = torch.softmax(logits, 0).double().numpy()
+    for draw in (f, m):
+        counts = np.bincount(draw.numpy(), minlength=40)
+        assert counts[7] == 0
+        keep = w > 0
+        assert stats.chisquare(counts[keep], w[keep] / w[keep].sum() * n
+                               ).pvalue > 1e-4
+    assert not torch.equal(f, m)
+
+
 def test_clip_counts_only_truncated_draws():
     """The clip count equals the number of Poisson draws above the cap
     (replayed from the same generator), and the real slots number
@@ -654,7 +676,6 @@ def test_dense_cli_file_set(mini_scenario, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra, item", [
     (["--mesh", "auto"], "1.14"),
-    (["--device_mating"], "1.9"),
 ])
 def test_dense_refuses_outside_slice(mini_scenario, tmp_path, extra, item):
     cfg = parse_args(_argv(mini_scenario, tmp_path / "out")

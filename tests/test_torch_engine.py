@@ -376,7 +376,6 @@ def test_cli_refuses_without_cuda(mini_scenario, tmp_path, monkeypatch):
     "extra, item",
     [
         (["--mesh", "auto"], "1.14"),
-        (["--device_mating"], "1.9"),
     ],
 )
 def test_refuses_flags_outside_slice(mini_scenario, tmp_path, extra, item):

@@ -39,6 +39,9 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.dense.step",
     "geneevolve_tpu_torch.dense.packed",
     "geneevolve_tpu_torch.dense.backend",
+    "geneevolve_tpu_torch.dense.scenario",
+    "geneevolve_tpu_torch.dense.streamed",
+    "geneevolve_tpu_torch.parallel.mating_device",
     "chip_smoke",
     "kernel_ab",
 ])
@@ -62,14 +65,26 @@ def _imported_names(path: Path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(
+SOURCES = sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "geneevolve_tpu_torch").rglob("*.py"),
               REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
-))
+)
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_sources_never_import_jax_package(path):
     bad = [n for n in _imported_names(REPO / path) if _forbidden(n)]
     assert not bad, (path, bad)
+
+
+def test_scan_covers_every_package():
+    """The scan reaches every subpackage of the port, `parallel/` too."""
+    for path in ("geneevolve_tpu_torch/parallel/__init__.py",
+                 "geneevolve_tpu_torch/parallel/mating_device.py",
+                 "geneevolve_tpu_torch/dense/scenario.py",
+                 "geneevolve_tpu_torch/dense/streamed.py"):
+        assert path in SOURCES, path
 
 
 def test_chip_smoke_refuses_without_cuda():
