@@ -145,7 +145,25 @@ Phases, each of which raises on failure (exit code non-zero):
    launches a generation, the first generation bit-exact against the
    same kernel on device-resident copies of the founder slabs (after the
    counted run), h2d / d2h copy seconds a generation, ind.loci.gens/s
-   beside the packed engine's.
+   beside the packed engine's;
+15. the mesh (after the two-population phases): `segment_mesh1`, the
+   slice through the CLI's `--mesh ind=1` joined to a one-rank NCCL group
+   as under torchrun (`.info`/`.summary` byte-identical to table31's, its
+   launches a generation as `SEGMENT_PER_GEN`, s/gen and exchange beside
+   it); `packed_mesh1` on the same group: the flagship through
+   `make_sharded_step` bit-identical to `dense.packed.make_step`, one
+   generation each of `make_deme_step` (ring migration) and
+   `make_routed_step` (overflow 0), and the byte step (n 4,096) through
+   `make_sharded_step(DenseConfig)` bit-identical to `dense.step.make_step`;
+   then `multipop31` without `--gamma` unsharded, and two ranks sharing
+   the card over gloo (`parallel.launch`, `backend="gloo"`), each counting
+   its own launches: `segment_mesh2` (the slice, 3 generations, files
+   byte-identical to table31's first 3), `multipop_mesh2` (files
+   byte-identical to the unsharded run's) and `packed_mesh2` (the three
+   steps at n 4,096 x 1 Mi loci at (ind, loci) = (2, 1) and (1, 2));
+   per rank s/gen, exchange bytes and seconds a generation and peak
+   memory; on each path every kernel's last call is held against its
+   plain version after the counted run.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. Each
@@ -219,6 +237,11 @@ PATHS = {
     "scenario31": ("meiose_packed", "gather_rows"),
     "scenario31_resume": ("meiose_packed", "gather_rows"),
     "streamed": ("meiose_packed",),
+    "segment_mesh1": SEGMENT,
+    "packed_mesh1": ("meiose_packed", "gather_rows", "meiose_planes"),
+    "segment_mesh2": SEGMENT,
+    "multipop_mesh2": SEGMENT + ("paint",),
+    "packed_mesh2": ("meiose_packed", "gather_rows"),
 }
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
@@ -282,6 +305,12 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "dense_device_mating": DENSE_DM_GENS,
              "scenario31": SCENARIO_GENS, "scenario31_resume": 1,
              "streamed": 1 + STREAMED_TIMED}
+# the mesh paths: generations of the two-rank segment runs, and the rows of
+# the two-rank packed steps (the flagship's 16,384 cut to 4,096: two ranks
+# share one card and stage their exchanges through host memory)
+MESH_GENS = 3
+MESH_N = 4096
+MESH_TIMEOUT_S = 600
 # H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
 # the tensor cores, taken as the scalar-lane rate for the kernels' integer
 # compares (the int32 lanes are no faster, so the bound stays a least time)
@@ -2680,6 +2709,577 @@ def streamed_check(captured) -> int:
     return len(first)
 
 
+# ---------------------------------------------------------------- the mesh
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _targets(kind: str) -> list:
+    """(module, attribute, kernel, plain version) of each kernel call site
+    a mesh path reaches: the segment engine's, or the packed steps'."""
+    from geneevolve_tpu_torch.core import engine, segments
+    from geneevolve_tpu_torch.dense import packed
+    from geneevolve_tpu_torch.ops import (cdf_bins, materialize,
+                                          meiose_merge, meiose_packed,
+                                          meiose_planes, merge_count, paint)
+    from geneevolve_tpu_torch.parallel import mesh
+
+    if kind == "segment":
+        return [
+            (segments, "cdf_bins", "cdf_bins", cdf_bins.cdf_bins_plain),
+            (engine, "merge_count", "merge_count",
+             merge_count.merge_count_plain),
+            (engine, "meiose_merge", "meiose_merge",
+             meiose_merge.meiose_merge_plain),
+            (engine, "gather_rows_stacked", "gather_rows",
+             materialize.gather_rows_stacked_plain),
+            (engine, "paint", "paint", paint.paint_plain),
+        ]
+    return [
+        (mesh, "meiose_packed", "meiose_packed",
+         meiose_packed.meiose_packed_plain),
+        (mesh, "meiose_planes", "meiose_planes",
+         meiose_planes.meiose_planes_plain),
+        (packed, "gather_rows", "gather_rows", materialize.gather_rows_plain),
+    ]
+
+
+@contextlib.contextmanager
+def _last_calls(targets: list, calls: dict):
+    """Within it, each target keeps its last call's wrapper and arguments
+    (references, no copy) in `calls[kernel]`; the packed meiosis without
+    mutations (kernel 7's function) under its own key."""
+    saved = []
+    for mod, attr, name, _plain in targets:
+        fn = getattr(mod, attr)
+
+        def rec(*a, _fn=fn, _name=name, **k):
+            if _name == "meiose_packed" and a[7] is None:
+                _name = "meiose_packed:no_mutations"
+            calls[_name] = (_fn, a, k)
+            return _fn(*a, **k)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, rec)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _check_calls(path: str, targets: list, calls: dict) -> dict:
+    """Each kernel's last call on `path` made again (comparison launches,
+    after the counted run) against its plain version on the same inputs,
+    bit-exact; returns each kernel's max_abs_err."""
+    plains = {t[2]: t[3] for t in targets}
+    out = {}
+    for name, (fn, a, k) in sorted(calls.items()):
+        plain = plains[name.split(":")[0]]
+        out[name] = _max_abs_err(fn(*a, **k), plain(*a, **k))
+        if out[name]:
+            raise AssertionError(f"{path}: {name} differs from its plain "
+                                 f"version by {out[name]}")
+    print(f" {path}: {', '.join(out)} == plain on the path's last call "
+          "of each")
+    return out
+
+
+def _expect(path: str, counts: dict, want: dict) -> None:
+    bad = {k: counts[k] for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{path}: launches {bad}, {want} expected")
+
+
+@contextlib.contextmanager
+def _gens_timed(gen_s: list, traffic: list, seen: list):
+    """Within it, each `Simulation.step` is timed to a device sync, the
+    run's `Simulation` kept in `seen` and its mesh's cumulative exchange
+    record read after each generation into `traffic`."""
+    import torch
+
+    from geneevolve_tpu_torch.core import engine
+
+    run, step = engine.Simulation.run, engine.Simulation.step
+
+    def run_rec(self):
+        seen.append(self)
+        return run(self)
+
+    def step_rec(self, gen):
+        t0 = time.perf_counter()
+        step(self, gen)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+        if self.mesh is not None:
+            traffic.append(self.mesh.traffic.summary())
+
+    engine.Simulation.run, engine.Simulation.step = run_rec, step_rec
+    try:
+        yield
+    finally:
+        engine.Simulation.run, engine.Simulation.step = run, step
+
+
+@contextlib.contextmanager
+def _exchange_peaks(rec: list):
+    """Within it, each `exchange_rows` call of the engine appends (MiB
+    allocated at its entry, the device's peak MiB at its end, whether the
+    peak rose inside it) to `rec`: whether the parents' fetch sets a
+    rank's peak memory."""
+    import torch
+
+    from geneevolve_tpu_torch.core import engine
+
+    fn = engine.exchange_rows
+
+    def rec_call(*a, **k):
+        before = torch.cuda.max_memory_allocated()
+        entry = torch.cuda.memory_allocated()
+        out = fn(*a, **k)
+        after = torch.cuda.max_memory_allocated()
+        rec.append((entry / 2**20, after / 2**20, after > before))
+        return out
+
+    engine.exchange_rows = rec_call
+    try:
+        yield
+    finally:
+        engine.exchange_rows = fn
+
+
+def _exchange_peak(rec: list, peak_mb: float) -> dict:
+    """The highest peak reached inside an exchange, the allocation at
+    that exchange's entry, and whether it is the run's peak."""
+    rose = [(e, a) for e, a, up in rec if up]
+    if not rose:
+        return dict(exchange_peak_mb=None, exchange_entry_mb=None,
+                    exchange_sets_peak=False)
+    e, a = max(rose, key=lambda x: x[1])
+    return dict(exchange_peak_mb=a, exchange_entry_mb=e,
+                exchange_sets_peak=a >= peak_mb)
+
+
+def _peak_text(out: dict) -> str:
+    if out["exchange_peak_mb"] is None:
+        return " (never raised inside an exchange)"
+    return (f" (highest inside an exchange: {out['exchange_peak_mb']:.1f} "
+            f"MiB, entered at {out['exchange_entry_mb']:.1f}; the run's "
+            f"peak: {out['exchange_sets_peak']})")
+
+
+def _per_gen_traffic(traffic: list) -> dict:
+    """Exchange bytes and seconds of each generation, from the cumulative
+    records read after each (generation 0's collectives in the first)."""
+    b = [t["bytes"] for t in traffic]
+    s = [t["seconds"] for t in traffic]
+    return dict(exchange_bytes_per_gen=[b[0]] + [y - x for x, y in
+                                                 zip(b, b[1:])],
+                exchange_s_per_gen=[s[0]] + [y - x for x, y in zip(s, s[1:])],
+                exchange_calls=traffic[-1]["calls"])
+
+
+def _same_files(name: str, a: Path, b: Path, names: list,
+                lines=None) -> int:
+    """Files `names` byte-identical in `a` and `b` (with `lines`, their
+    first `lines` lines)."""
+    for x in names:
+        fa, fb = (a / x).read_bytes(), (b / x).read_bytes()
+        if lines is not None:
+            fa = b"".join(fa.splitlines(True)[:lines])
+            fb = b"".join(fb.splitlines(True)[:lines])
+        if fa != fb:
+            raise AssertionError(f"{name}: {x} differs from {a / x}")
+    return len(names)
+
+
+def _info_files(pops: int, gens: int) -> list:
+    return [f"out.info.pop{p}.gen{g}.txt" for p in range(1, pops + 1)
+            for g in range(gens + 1)]
+
+
+def segment_mesh1(dev, work: Path, slice_argv: list, table31: dict) -> dict:
+    """The segment slice through the CLI's `--mesh ind=1`, joined to a
+    one-rank NCCL group as under torchrun (the environment names it):
+    `.info`/`.summary` byte-identical to table31's, s/gen beside it. The
+    kernels' last calls are kept under `calls`."""
+    import os
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    calls, gen_s, traffic, seen, ex = {}, [], [], [], []
+    with _last_calls(_targets("segment"), calls), \
+            _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
+        out = slice_phase(dev, work, "segment_mesh1", SCENARIO,
+                          ["--mesh", "ind=1"], base=slice_argv)
+    sim = out.pop("sim")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if sim.mesh is None or sim.mesh.backend != backend or \
+            sim.mesh.dims() != {"ind": 1, "loci": 1}:
+        raise AssertionError("segment_mesh1: not on a one-rank NCCL mesh")
+    n = _same_files("segment_mesh1", table31["root"], out["root"],
+                    _info_files(1, SCENARIO["gens"]) + ["out.pop1.summary"])
+    if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
+        raise AssertionError(f"segment_mesh1: tripwire {sim.capacity_log}")
+    out.update(_per_gen_traffic(traffic), files_identical=n, calls=calls,
+               **_exchange_peak(ex, out["max_memory_allocated_mb"]))
+    print(f" segment_mesh1: {n} files byte-identical to table31's; s/gen "
+          + " ".join(f"{x:.3f}" for x in out["s_per_gen"]) + " (table31 "
+          + " ".join(f"{x:.3f}" for x in table31["s_per_gen"]) + ")"
+          + f"; peak {out['max_memory_allocated_mb']:.1f} MiB"
+          + _peak_text(out))
+    return out
+
+
+def _byte_flagship():
+    from geneevolve_tpu_torch.dense.packed import PackedConfig
+
+    return PackedConfig(**{**FLAGSHIP, "n": BYTE_N}).as_dense()
+
+
+def packed_mesh1_inputs(dev) -> dict:
+    """The flagship's founders and the one-rank packed step's generation
+    from them; the byte step's founders (n 4,096 x 1 Mi loci) and its
+    one-rank generation: the references of `packed_mesh1`, made before
+    its counted run."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed, step
+
+    cfg = packed.PackedConfig(**FLAGSHIP)
+    state = packed.init_state_streamed(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    ref = packed.make_step(cfg)(state, torch.Generator(device=dev)
+                                .manual_seed(5))
+    dcfg = _byte_flagship()
+    dstate = step.init_state(torch.Generator(device=dev).manual_seed(11),
+                             dcfg)
+    dref = step.make_step(dcfg)(dstate, torch.Generator(device=dev)
+                                .manual_seed(5))
+    torch.cuda.synchronize()
+    return dict(cfg=cfg, state=state, ref=ref, dcfg=dcfg, dstate=dstate,
+                dref=dref)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _overflows(seen: list):
+    """Within it, every `routed_fetch` overflow count lands in `seen`."""
+    from geneevolve_tpu_torch.parallel import mesh
+
+    fetch = mesh.routed_fetch
+
+    def rec(*a, **k):
+        out = fetch(*a, **k)
+        seen.append(out[1])
+        return out
+
+    mesh.routed_fetch = rec
+    try:
+        yield
+    finally:
+        mesh.routed_fetch = fetch
+
+
+def _packed_steps(mesh, cfg, state, tag: str, ref=None) -> dict:
+    """`make_sharded_step` (against `ref`, the one-rank generation), then
+    one generation each of `make_deme_step` with ring migration and
+    without mutations (the packed meiosis's no-mutation entry, kernel 7's
+    function) and `make_routed_step`, on this rank's shard of `state`;
+    seconds and ind.loci.gens/s of each, exchange bytes, routed
+    overflows."""
+    import dataclasses
+
+    import torch
+
+    from geneevolve_tpu_torch.parallel import mesh as pm
+
+    shard = pm.shard_state(state, mesh)
+    out, ov = {}, []
+    for kind, make in (("sharded", pm.make_sharded_step),
+                       ("deme", lambda c, m: pm.make_deme_step(
+                           dataclasses.replace(c, mut_rate=0.0), m,
+                           mig_rate=0.125)),
+                       ("routed", pm.make_routed_step)):
+        mesh.traffic.reset()
+        step = make(cfg, mesh)
+        with _overflows(ov):
+            got, s = _timed(lambda: step(
+                shard, torch.Generator(device=mesh.device).manual_seed(5)))
+        out[kind] = dict(s=s, ind_loci_gens_per_s=cfg.n * cfg.m / s,
+                         **mesh.traffic.summary())
+        rows = cfg.n // mesh.size("ind")
+        if got["hap"].shape[0] != rows or got["cv"].shape[0] != rows:
+            raise AssertionError(f"{tag} {kind}: {got['hap'].shape[0]} rows "
+                                 f"on a rank, {rows} expected")
+        if kind == "sharded" and ref is not None:
+            want = pm.shard_state(ref, mesh)
+            for k in ("hap", "cv", "clip"):
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"{tag}: sharded step's {k} "
+                                         "differs from the one-rank step's")
+        del got
+    out["routed_overflow"] = int(sum(int(x) for x in ov))
+    if out["routed_overflow"]:
+        raise AssertionError(f"{tag}: routed overflow {ov}")
+    print(f" {tag}: " + ", ".join(
+        f"{k} {v['s'] * 1e3:.2f} ms ({v['ind_loci_gens_per_s']:.4g} "
+        f"ind.loci.gens/s, {v['bytes'] / 2**20:.1f} MiB exchanged)"
+        for k, v in out.items() if isinstance(v, dict))
+        + "; sharded == one rank, routed overflow 0")
+    return out
+
+
+def packed_mesh1(dev, inp: dict) -> dict:
+    """On the one-rank NCCL group: the flagship through `make_sharded_step`
+    bit-identical to `dense.packed.make_step`, one generation each of the
+    deme and routed steps, and the byte step (n 4,096) through
+    `make_sharded_step(DenseConfig)` bit-identical to
+    `dense.step.make_step`. The kernels' last calls are kept under
+    `calls`."""
+    import torch
+
+    from geneevolve_tpu_torch.parallel import mesh as pm
+
+    calls = {}
+    with _last_calls(_targets("packed"), calls):
+        mesh = pm.make_mesh((1, 1), dev)
+        out = _packed_steps(mesh, inp["cfg"], inp.pop("state"),
+                            "packed_mesh1", inp.pop("ref"))
+        torch.cuda.empty_cache()
+        step = pm.make_sharded_step(inp["dcfg"], mesh)
+        got, s = _timed(lambda: step(pm.shard_state(inp["dstate"], mesh),
+                                     torch.Generator(device=dev)
+                                     .manual_seed(5)))
+        for k in ("hapA", "hapB", "clip"):
+            if not torch.equal(got[k], inp["dref"][k]):
+                raise AssertionError(f"packed_mesh1: byte step's {k} "
+                                     "differs from the one-rank step's")
+        out["byte_sharded_s"] = s
+    print(f" packed_mesh1: byte sharded step {s * 1e3:.2f} ms == one rank")
+    out["calls"] = calls
+    return out
+
+
+def _mesh_cli(dev, root: Path, argv: list) -> dict:
+    """`cli.main` with `--mesh ind=2` in a rank of the two-rank group (it
+    joins the group); s/gen, exchange per generation and the tripwire."""
+    from geneevolve_tpu_torch import cli
+
+    root.mkdir(parents=True, exist_ok=True)
+    gen_s, traffic, seen, ex = [], [], [], []
+    with _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
+        rc = cli.main(argv + ["--seed", "12345", "--prefix",
+                              str(root / "out"), "--stage_sync", "--mesh",
+                              "ind=2"], device=dev.type)
+    if rc != 0:
+        raise AssertionError(f"{root.name}: cli.main returned {rc}")
+    sim = seen[0]
+    if sim.mesh.backend != "gloo" or sim.mesh.dims() != {"ind": 2,
+                                                         "loci": 1}:
+        raise AssertionError(f"{root.name}: not on a 2-rank gloo mesh")
+    if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
+        raise AssertionError(f"{root.name}: tripwire {sim.capacity_log}")
+    rows = [int(p.state.seg_st.shape[1]) for p in sim.pops]
+    split = {k: round(v, 4) for k, v in sim.timer.totals.items()}
+    return dict(s_per_gen=gen_s, block_rows=rows, stage_split_s=split,
+                exchange_calls_rec=ex, **_per_gen_traffic(traffic))
+
+
+def _packed_mesh2(dev, cfg, state, ref) -> dict:
+    """The three steps at n 4,096 x 1 Mi loci on the two-rank group, at
+    (ind, loci) = (2, 1) and (1, 2), the sharded step against `ref`."""
+    from geneevolve_tpu_torch.parallel import mesh as pm
+
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = pm.make_mesh(shape, dev)
+        out[f"{shape[0]}x{shape[1]}"] = _packed_steps(
+            mesh, cfg, state, f"packed_mesh2 {shape}", ref)
+    return out
+
+
+def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
+                multipop_argv: list) -> dict:
+    """One rank of the two ranks that share the card over gloo: the
+    segment slice (`segment_mesh2`), two populations (`multipop_mesh2`)
+    and the packed steps (`packed_mesh2`), each with the launch counts set
+    to 0 just before it and read just after; on rank 0 each kernel's last
+    call of the path held against its plain version after it."""
+    import io
+
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+    from geneevolve_tpu_torch.ops import _build
+
+    if rank:
+        sys.stdout = io.StringIO()  # rank 0 prints the runs' logs
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _build.lib()
+        dev = torch.device("cuda", torch.cuda.current_device())
+    wrappers = _wrappers()
+    work = Path(work)
+    res = {}
+
+    def phase(path, kind, fn):
+        calls = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with _last_calls(_targets(kind), calls):
+            out = fn()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = {k: w.launches for k, w in wrappers.items()}
+        out["max_memory_allocated_mb"] = \
+            torch.cuda.max_memory_allocated() / 2**20
+        if "exchange_calls_rec" in out:
+            out.update(_exchange_peak(out.pop("exchange_calls_rec"),
+                                      out["max_memory_allocated_mb"]))
+        if rank == 0:
+            out["plain_checks"] = _check_calls(path, _targets(kind), calls)
+        res[path] = out
+        torch.cuda.empty_cache()
+
+    phase("segment_mesh2", "segment",
+          lambda: _mesh_cli(dev, work / "segment_mesh2", seg_argv))
+    phase("multipop_mesh2", "segment",
+          lambda: _mesh_cli(dev, work / "multipop_mesh2", multipop_argv))
+    # the one-rank reference, made before the counted run
+    cfg = packed.PackedConfig(**{**FLAGSHIP, "n": MESH_N})
+    state = packed.init_state_streamed(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    ref = packed.make_step(cfg)(state,
+                                torch.Generator(device=dev).manual_seed(5))
+    phase("packed_mesh2", "packed",
+          lambda: _packed_mesh2(dev, cfg, state, ref))
+    return res
+
+
+def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
+                slice_out: dict, multipop_argv: list) -> dict:
+    """The mesh paths: `segment_mesh1` and `packed_mesh1` on a one-rank
+    NCCL group in this process; then two ranks sharing the card over gloo
+    (`segment_mesh2`, `multipop_mesh2`, `packed_mesh2`) against the
+    unsharded runs' files."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from geneevolve_tpu_torch.parallel import launch
+
+    t_all = time.perf_counter()
+    res = {}
+    res["segment_mesh1"] = counted(
+        "segment_mesh1", wrappers,
+        lambda: segment_mesh1(dev, work, slice_out["argv"], slice_out),
+        launches)
+    _expect("segment_mesh1", launches["segment_mesh1"],
+            {k: v * SCENARIO["gens"] for k, v in SEGMENT_PER_GEN.items()})
+    res["segment_mesh1"]["plain_checks"] = _check_calls(
+        "segment_mesh1", _targets("segment"),
+        res["segment_mesh1"].pop("calls"))
+    for k in ("argv", "root", "sim"):
+        res["segment_mesh1"].pop(k, None)
+    torch.cuda.empty_cache()
+    inp = packed_mesh1_inputs(dev)
+    res["packed_mesh1"] = counted("packed_mesh1", wrappers,
+                                  lambda: packed_mesh1(dev, inp), launches)
+    _expect("packed_mesh1", launches["packed_mesh1"],
+            {"meiose_packed": 3, "gather_rows": 6, "meiose_planes": 1})
+    del inp
+    res["packed_mesh1"]["plain_checks"] = _check_calls(
+        "packed_mesh1", _targets("packed"), res["packed_mesh1"].pop("calls"))
+    dist.destroy_process_group()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    # the unsharded two-population run without --gamma (under a mesh the
+    # gamma moments are f32 device sums, as in the JAX engine)
+    ref = slice_phase(dev, work, "multipop_ref",
+                      dict(SCENARIO, gens=MESH_GENS), base=multipop_argv)
+    ref.pop("sim")
+    torch.cuda.empty_cache()
+    seg_argv = _with(slice_out["argv"], "--file_gen_info", str(_popinfo(
+        work, SCENARIO, MESH_GENS)))
+    t0 = time.perf_counter()
+    ranks = launch.launch(_mesh2_rank, 2, (dev.type, str(work), seg_argv,
+                                            multipop_argv),
+                          device=dev.type, backend="gloo",
+                          timeout_s=MESH_TIMEOUT_S, pg_timeout_s=300)
+    spawn_s = time.perf_counter() - t0
+    want = {
+        "segment_mesh2": {k: v * MESH_GENS for k, v in
+                          SEGMENT_PER_GEN.items()},
+        "multipop_mesh2": {k: v * MESH_GENS + GEN0_LAUNCHES[
+            "segment_multipop"].get(k, 0)
+            for k, v in MULTIPOP_PER_GEN.items()},
+        "packed_mesh2": {"meiose_packed": 6, "gather_rows": 12},
+    }
+    for path in ("segment_mesh2", "multipop_mesh2", "packed_mesh2"):
+        for r, out in enumerate(ranks):
+            counts = out[path]["launches"]
+            idle = [k for k in PATHS[path] if counts[k] <= 0]
+            if idle:
+                raise AssertionError(f"{path} rank {r}: kernels never "
+                                     f"launched: {idle}")
+            _expect(f"{path} rank {r}", counts, want[path])
+        launches[path] = ranks[0][path]["launches"]
+        res[path] = {f"rank{r}": out[path] for r, out in enumerate(ranks)}
+        print(f" {path}: launches a rank {json.dumps(launches[path])}")
+    n = _same_files("segment_mesh2", slice_out["root"],
+                    work / "segment_mesh2", _info_files(1, MESH_GENS))
+    n += _same_files("segment_mesh2", slice_out["root"],
+                     work / "segment_mesh2", ["out.pop1.summary"],
+                     lines=MESH_GENS + 2)
+    res["segment_mesh2"]["files_identical"] = n
+    n = _same_files("multipop_mesh2", ref["root"], work / "multipop_mesh2",
+                    _info_files(2, MESH_GENS)
+                    + ["out.pop1.summary", "out.pop2.summary"])
+    res["multipop_mesh2"]["files_identical"] = n
+    res["multipop_ref_s_per_gen"] = ref["s_per_gen"]
+    for path in ("segment_mesh2", "multipop_mesh2"):
+        for r in range(2):
+            o = res[path][f"rank{r}"]
+            print(f" {path} rank {r}: s/gen "
+                  + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
+                  + "; exchange a generation "
+                  + " ".join(f"{b / 2**20:.1f} MiB/{s:.3f} s" for b, s in
+                             zip(o["exchange_bytes_per_gen"][1:],
+                                 o["exchange_s_per_gen"][1:]))
+                  + f"; peak {o['max_memory_allocated_mb']:.1f} MiB"
+                  + _peak_text(o))
+    print(f" segment_mesh2: files byte-identical to table31's first "
+          f"{MESH_GENS} generations (table31 s/gen "
+          + " ".join(f"{x:.3f}" for x in slice_out["s_per_gen"]) + ")")
+    print(" multipop_mesh2: files byte-identical to the unsharded run's "
+          "(s/gen " + " ".join(f"{x:.3f}" for x in ref["s_per_gen"]) + ")")
+    res["spawn_s"] = spawn_s
+    res["wall_s"] = time.perf_counter() - t_all
+    print(f" mesh phases: {res['wall_s']:.1f} s of wall time "
+          f"(the two-rank launch {spawn_s:.1f} s)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2762,6 +3362,15 @@ def main() -> int:
             "segment_multipop_resume", wrappers,
             lambda: segment_multipop_resume(dev, straight), launches)
         check_per_gen("segment_multipop_resume", MULTIPOP_PER_GEN)
+        multipop_argv = straight["argv"]
+        if multipop_argv[-2] != "--gamma":
+            raise AssertionError("multipop31's argv ends in --gamma")
+        torch.cuda.empty_cache()
+        res["mesh"] = mesh_phases(
+            dev, work, wrappers, launches,
+            dict(argv=slice_argv, root=slice_root,
+                 s_per_gen=res["slice"]["s_per_gen"]),
+            multipop_argv[:-2])
         torch.cuda.empty_cache()
         res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)

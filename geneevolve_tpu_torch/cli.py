@@ -6,9 +6,12 @@ Runs one or several populations (`--next_population`, with migration and
 `--gamma`) with the segment engine (the default; resident CV matrix, or
 the ledger gather path when it does not fit or when several populations
 run) or, under `--backend dense`, with the bit-packed dense engine, and
-saves or resumes checkpoints. Flags whose features are not ported yet
-raise `NotImplementedError` naming the ROADMAP item that ports them.
-Without a CUDA device the run fails: it never falls back to the CPU.
+saves or resumes checkpoints. `--mesh` shards the segment engine's
+individuals over ranks, one a card (`parallel/`): under torchrun this
+process joins the process group torchrun describes, else it starts the
+ranks itself. Flags whose features are not ported yet raise
+`NotImplementedError` naming the ROADMAP item that ports them. Without a
+CUDA device the run fails: it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +19,14 @@ from __future__ import annotations
 import sys
 import time
 
-from geneevolve_tpu_torch.config import ConfigError, parse_args, print_config
+from geneevolve_tpu_torch.config import (
+    ConfigError,
+    build_mesh,
+    local_devices,
+    mesh_shape,
+    parse_args,
+    print_config,
+)
 
 _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
 
@@ -44,7 +54,11 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
  the ledger when it does not fit the card, when several populations run,
  or under GE_NO_RESIDENT_CV=1.
  --device_mating (assortative pairing on the device; both backends)
- Not ported yet (raises): --mesh.
+ --mesh auto|ind=N[,loci=M] (segment backend: individuals sharded over
+   ranks, one a card over NCCL; outputs byte-identical to one card; under
+   `torchrun --nproc_per_node N -m geneevolve_tpu_torch` the ranks join
+   torchrun's group, else this process starts them)
+ Not ported yet (raises): --mesh with --backend dense.
 """
 
 
@@ -69,6 +83,21 @@ def main(argv=None, device=None) -> int:
                 "geneevolve_tpu_torch needs a CUDA device; none is available"
             )
         device = "cuda"
+    if cfg.mesh:
+        from geneevolve_tpu_torch.parallel import multihost
+
+        # under torchrun: join its group (rank 0 alone prints)
+        rank, _world = multihost.maybe_init_distributed(device)
+        if rank == 0:
+            print_config(cfg)
+        try:
+            _run_mesh(cfg, device)
+        except ConfigError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
+        if rank == 0:
+            print(f" Total time: {time.time() - t0:.1f} s")
+        return 0
     print_config(cfg)
     if cfg.backend == "dense":
         from geneevolve_tpu_torch.dense.backend import DenseSimulation as Sim
@@ -79,6 +108,51 @@ def main(argv=None, device=None) -> int:
     sim.run()
     print(f" Total time: {time.time() - t0:.1f} s")
     return 0
+
+
+def _mesh_line(shape, device: str, backend: str) -> str:
+    dims = {"ind": shape[0], "loci": shape[1]}
+    return (f" Device mesh: {dims} on {shape[0] * shape[1]} x "
+            f"{device} ranks over {backend}")
+
+
+def _run_mesh(cfg, device: str) -> None:
+    """Run `cfg` on its --mesh: in the process group this process belongs
+    to, or on ranks it starts (one a card over NCCL; on the CPU gloo
+    ranks, and `auto` one rank, as JAX has one CPU device)."""
+    import torch
+
+    from geneevolve_tpu_torch.core.engine import check_slice
+    from geneevolve_tpu_torch.parallel import launch, multihost
+
+    check_slice(cfg)
+    rank, _world = multihost.process_info()
+    if torch.distributed.is_initialized():
+        mesh = build_mesh(cfg.mesh, device)
+        if rank == 0:
+            print(_mesh_line(mesh.shape, device, mesh.backend), flush=True)
+        _simulate(rank, cfg, mesh)
+        return
+    backend = multihost.default_backend(device)
+    spec = cfg.mesh
+    if spec == "auto" and torch.device(device).type == "cpu":
+        spec = "ind=1"
+    shape = mesh_shape(spec, local_devices(device))
+    print(_mesh_line(shape, device, backend), flush=True)
+    launch.launch(_mesh_rank, shape[0] * shape[1], (cfg, shape, device),
+                  device=device, backend=backend)
+
+
+def _simulate(rank: int, cfg, mesh) -> None:
+    from geneevolve_tpu_torch.core.engine import Simulation
+
+    Simulation(cfg, mesh=mesh, verbose=rank == 0).run()
+
+
+def _mesh_rank(rank: int, cfg, shape, device: str) -> None:
+    from geneevolve_tpu_torch.parallel.mesh import make_mesh
+
+    _simulate(rank, cfg, make_mesh(shape, device))
 
 
 if __name__ == "__main__":

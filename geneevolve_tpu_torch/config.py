@@ -1,6 +1,6 @@
 """Scenario configuration and GeneEvolve-compatible CLI parsing (the
-port's copy of geneevolve_tpu/config.py, without its JAX mesh builder:
-`--mesh` parses here and the engines refuse it, ROADMAP item 1.14).
+port's copy of geneevolve_tpu/config.py; `build_mesh` builds the port's
+rank mesh in place of the JAX `Mesh`).
 
 Mirrors the semantics of the reference flag parser
 (`src/parameters.cpp:15-213`): `--next_population` partitions
@@ -260,6 +260,55 @@ def parse_mesh_spec(spec: str):
     if not shape["ind"]:
         raise ConfigError("[--mesh] requires an ind=N axis")
     return (shape["ind"], shape["loci"])
+
+
+def local_devices(device: str = "cuda") -> int:
+    """What a --mesh spec may use: the ranks of a joined process group;
+    else this machine's cards, or on the CPU its cores."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return len(os.sched_getaffinity(0))
+
+
+def mesh_shape(spec: str, n_dev: int):
+    """(ind, loci) of a --mesh spec over `n_dev` devices ('auto': all of
+    them on 'ind'); raises ConfigError when the spec needs more."""
+    shape = parse_mesh_spec(spec)
+    if shape is None:
+        shape = (n_dev, 1)
+    if shape[0] * shape[1] > n_dev:
+        raise ConfigError(
+            f"[--mesh] {spec} needs {shape[0] * shape[1]} devices; "
+            f"only {n_dev} visible"
+        )
+    return shape
+
+
+def build_mesh(spec: str, device: str = "cuda"):
+    """The port's mesh (`parallel.mesh.Mesh`) named by a --mesh spec over
+    the joined process group (None if the spec is empty); its ranks must
+    be exactly the devices the spec asks for."""
+    if not spec:
+        return None
+    import torch.distributed as dist
+
+    from geneevolve_tpu_torch.parallel.mesh import make_mesh
+
+    shape = mesh_shape(spec, local_devices(device))
+    world = dist.get_world_size()
+    if shape[0] * shape[1] != world:
+        raise ConfigError(
+            f"[--mesh] {spec} needs {shape[0] * shape[1]} devices; the "
+            f"process group has {world} ranks"
+        )
+    return make_mesh(shape, device)
 
 
 def _num(v: float) -> str:

@@ -66,6 +66,8 @@ def save(sim: "Simulation", gen: int, path: str) -> None:
         data[f"{pre}.beta"] = np.array([ph.beta for ph in p.phenos])
         for k, v in p.traj.items():
             data[f"{pre}.traj.{k}"] = v
+    if not getattr(sim, "is_root", True):
+        return  # under a mesh rank 0 writes (every rank gathers above)
     buf = io.BytesIO()
     np.savez_compressed(buf, **data)
     tmp = path + ".tmp"

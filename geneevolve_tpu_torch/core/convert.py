@@ -7,7 +7,9 @@ this one:
 - `dense_state_*`: the dense backend's `DensePopState` (`hap`, per-phenotype
   `cv` list, plus the host fields);
 - `packed_state_*`: the packed step's dict (`hap`, `cv`, `cv_idx`, `eff`,
-  `clip`).
+  `clip`); `packed_shard_from_numpy` gives one rank's shard of it on a
+  mesh (`parallel.mesh.shard_state`), so both packages step the same
+  founders.
 
 Packed words are uint32 in the JAX package and int32 here: the arrays are
 reinterpreted (`.view`), never converted, so every bit pattern survives.
@@ -101,3 +103,11 @@ def packed_state_to_numpy(state: dict) -> dict:
         "eff": state["eff"].cpu().numpy(),
         "clip": int(state["clip"]),
     }
+
+
+def packed_shard_from_numpy(d: dict, mesh) -> dict:
+    """This rank's shard of a packed state given as whole arrays (as
+    `packed_state_from_numpy` takes them), on the mesh's device."""
+    from geneevolve_tpu_torch.parallel.mesh import shard_state
+
+    return shard_state(packed_state_from_numpy(d, device="cpu"), mesh)

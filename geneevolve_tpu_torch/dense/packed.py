@@ -199,7 +199,7 @@ def meiose_packed_xla(hap, parent, xo, start, cfg: PackedConfig):
 def mutation_positions(gen: torch.Generator, n: int, cfg: PackedConfig):
     """(n, mut_cap) int32 de novo mutation loci, pad = m, plus the count of
     Poisson draws truncated at mut_cap. The byte engine's
-    `_apply_mutations` draws the same numbers, so both engines flip the
+    `draw_generation` draws the same numbers, so both engines flip the
     same loci."""
     pos, valid, clip = dense_step._mutation_draws(gen, n, cfg.as_dense())
     return torch.where(valid, pos, cfg.m).to(torch.int32), clip
@@ -273,52 +273,67 @@ def make_step(cfg: PackedConfig, xo_cdf=None):
     xo_cdf: optional (m,) cumulative-Morgans array for map-aware
     crossovers."""
     reproduce = make_reproduce(cfg)
-    dense_cfg = cfg.as_dense()
 
     def step(state, gen: torch.Generator):
         hap = state["hap"]
-        n = cfg.n
-        logits = None
-        if cfg.selection:
-            logits = dense_step.selection_logits(
-                phenotype_from_cv(state["cv"], state["eff"]))
-        fathers, mothers = dense_step.draw_parents(gen, n, hap.shape[0],
-                                                   logits)
-        if cfg.couples:
-            # households: the first n//2 draws act as the couple pool and
-            # children land multinomially, sorted so siblings are adjacent
-            c = max(n // 2, 1)
-            cc = torch.randint(0, c, (n,), generator=gen,
-                               device=gen.device).sort().values
-            fathers, mothers = fathers[cc], mothers[cc]
-        xo_p, st_p, clip_p = dense_step._sample_gamete_plan(
-            gen, dense_cfg, n, xo_cdf)
-        xo_m, st_m, clip_m = dense_step._sample_gamete_plan(
-            gen, dense_cfg, n, xo_cdf)
-        clip = clip_p + clip_m
-        mu = None
-        if cfg.mut_rate > 0:
-            mu_a, clip_a = mutation_positions(gen, n, cfg)
-            mu_b, clip_b = mutation_positions(gen, n, cfg)
-            mu = torch.stack([mu_a, mu_b], 1)
-            clip = clip + clip_a + clip_b
-        child = reproduce(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu)
+        d = draw_generation(gen, cfg, state["cv"], state["eff"],
+                            hap.shape[0], xo_cdf)
+        child = reproduce(hap, d["fathers"], d["mothers"], d["xo_p"],
+                          d["st_p"], d["xo_m"], d["st_m"], d["mu"])
         # the resident CV matrix advances through the SAME meiosis law:
         # no genome-plane traffic for the phenotype path
-        cv = torch.stack([
-            cv_child(state["cv"], fathers, xo_p, st_p,
-                     None if mu is None else mu[:, 0], state["cv_idx"],
-                     cfg.chr_len),
-            cv_child(state["cv"], mothers, xo_m, st_m,
-                     None if mu is None else mu[:, 1], state["cv_idx"],
-                     cfg.chr_len),
-        ], 1)
         return {
             "hap": child,
-            "cv": cv,
+            "cv": cv_children(state["cv"], d, state["cv_idx"], cfg.chr_len),
             "cv_idx": state["cv_idx"],
             "eff": state["eff"],
-            "clip": state["clip"] + clip,
+            "clip": state["clip"] + d["clip"],
         }
 
     return step
+
+
+def draw_generation(gen: torch.Generator, cfg: PackedConfig, cv, eff,
+                    n_par: int, xo_cdf=None) -> dict:
+    """Every draw of one packed-step generation, in the step's order: the
+    parents (by selection on the (n_par, 2, ncv) CV matrix `cv`, when
+    configured; then the household draw under `couples`), the paternal and
+    maternal plans, the paternal and maternal mutation loci (`mu`: (n, 2,
+    Km), or None), and the count of Poisson draws truncated at their
+    caps."""
+    n, dense_cfg = cfg.n, cfg.as_dense()
+    logits = None
+    if cfg.selection:
+        logits = dense_step.selection_logits(phenotype_from_cv(cv, eff))
+    fathers, mothers = dense_step.draw_parents(gen, n, n_par, logits)
+    if cfg.couples:
+        # households: the first n//2 draws act as the couple pool and
+        # children land multinomially, sorted so siblings are adjacent
+        c = max(n // 2, 1)
+        cc = torch.randint(0, c, (n,), generator=gen,
+                           device=gen.device).sort().values
+        fathers, mothers = fathers[cc], mothers[cc]
+    xo_p, st_p, clip_p = dense_step._sample_gamete_plan(gen, dense_cfg, n,
+                                                        xo_cdf)
+    xo_m, st_m, clip_m = dense_step._sample_gamete_plan(gen, dense_cfg, n,
+                                                        xo_cdf)
+    clip, mu = clip_p + clip_m, None
+    if cfg.mut_rate > 0:
+        mu_a, clip_a = mutation_positions(gen, n, cfg)
+        mu_b, clip_b = mutation_positions(gen, n, cfg)
+        mu = torch.stack([mu_a, mu_b], 1)
+        clip = clip + clip_a + clip_b
+    return dict(fathers=fathers, mothers=mothers, xo_p=xo_p, st_p=st_p,
+                xo_m=xo_m, st_m=st_m, mu=mu, clip=clip)
+
+
+def cv_children(cv, d: dict, cv_idx, chr_len: int) -> torch.Tensor:
+    """(n, 2, ncv) children's CV alleles from the parents' (N, 2, ncv) and
+    one generation's draws `d` (`draw_generation`'s keys)."""
+    mu = d["mu"]
+    return torch.stack([
+        cv_child(cv, d["fathers"], d["xo_p"], d["st_p"],
+                 None if mu is None else mu[:, 0], cv_idx, chr_len),
+        cv_child(cv, d["mothers"], d["xo_m"], d["st_m"],
+                 None if mu is None else mu[:, 1], cv_idx, chr_len),
+    ], 1)

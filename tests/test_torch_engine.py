@@ -370,16 +370,3 @@ def test_cli_refuses_without_cuda(mini_scenario, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_cli.main(_argv(mini_scenario, tmp_path / "out"))
     assert not list(tmp_path.iterdir())
-
-
-@pytest.mark.parametrize(
-    "extra, item",
-    [
-        (["--mesh", "auto"], "1.14"),
-    ],
-)
-def test_refuses_flags_outside_slice(mini_scenario, tmp_path, extra, item):
-    cfg = parse_args(_argv(mini_scenario, tmp_path / "out") + extra)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        torch_engine.Simulation(cfg, device="cpu", verbose=False)
-

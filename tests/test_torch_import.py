@@ -42,6 +42,10 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.dense.scenario",
     "geneevolve_tpu_torch.dense.streamed",
     "geneevolve_tpu_torch.parallel.mating_device",
+    "geneevolve_tpu_torch.parallel.comm",
+    "geneevolve_tpu_torch.parallel.launch",
+    "geneevolve_tpu_torch.parallel.mesh",
+    "geneevolve_tpu_torch.parallel.multihost",
     "chip_smoke",
     "kernel_ab",
 ])
@@ -82,6 +86,7 @@ def test_scan_covers_every_package():
     """The scan reaches every subpackage of the port, `parallel/` too."""
     for path in ("geneevolve_tpu_torch/parallel/__init__.py",
                  "geneevolve_tpu_torch/parallel/mating_device.py",
+                 "geneevolve_tpu_torch/parallel/mesh.py",
                  "geneevolve_tpu_torch/dense/scenario.py",
                  "geneevolve_tpu_torch/dense/streamed.py"):
         assert path in SOURCES, path
