@@ -146,7 +146,8 @@ Phases, each of which raises on failure (exit code non-zero):
    same kernel on device-resident copies of the founder slabs (after the
    counted run), h2d / d2h copy seconds a generation, ind.loci.gens/s
    beside the packed engine's;
-15. the mesh (after the two-population phases): `segment_mesh1`, the
+15. the mesh (after the two-population phases and the dense slice):
+   `segment_mesh1`, the
    slice through the CLI's `--mesh ind=1` joined to a one-rank NCCL group
    as under torchrun (`.info`/`.summary` byte-identical to table31's, its
    launches a generation as `SEGMENT_PER_GEN`, s/gen and exchange beside
@@ -160,10 +161,20 @@ Phases, each of which raises on failure (exit code non-zero):
    its own launches: `segment_mesh2` (the slice, 3 generations, files
    byte-identical to table31's first 3), `multipop_mesh2` (files
    byte-identical to the unsharded run's) and `packed_mesh2` (the three
-   steps at n 4,096 x 1 Mi loci at (ind, loci) = (2, 1) and (1, 2));
-   per rank s/gen, exchange bytes and seconds a generation and peak
-   memory; on each path every kernel's last call is held against its
-   plain version after the counted run.
+   steps at n 4,096 x 1 Mi loci at (ind, loci) = (2, 1) and (1, 2), and
+   the sharded step at (1, 2) over 7 chromosomes of 131,072 loci, each
+   rank holding 3.5 of them: kernel 4's window entry once a piece,
+   bit-identical to the one-rank step); per rank s/gen, exchange bytes
+   and seconds a generation and peak memory; on each path every kernel's
+   last call is held against its plain version after the counted run.
+   The dense backend: `dense_mesh1`, the dense slice through `--mesh
+   ind=1` on the one-rank NCCL group (`.info`/`.summary` byte-identical
+   to dense31's, s/gen and peak beside it), and `dense_mesh2` in the
+   two-rank launch, at `--mesh ind=2` and `ind=1,loci=2`, 3 generations
+   each, files byte-identical to dense31's first 3 generations. The
+   kernel phase also times kernel 4's window entry (whole chromosomes,
+   half a chromosome, a window at an odd word) beside the whole-plane
+   launch.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run. Each
@@ -242,6 +253,8 @@ PATHS = {
     "segment_mesh2": SEGMENT,
     "multipop_mesh2": SEGMENT + ("paint",),
     "packed_mesh2": ("meiose_packed", "gather_rows"),
+    "dense_mesh1": ("meiose_packed", "gather_rows"),
+    "dense_mesh2": ("meiose_packed", "gather_rows"),
 }
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
@@ -311,6 +324,12 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
 MESH_GENS = 3
 MESH_N = 4096
 MESH_TIMEOUT_S = 600
+# the sharded step over chromosomes a loci axis of 2 cuts in half: 7 of
+# the flagship's 131,072-locus chromosomes, 3.5 a rank (two window
+# launches of kernel 4 a rank: 3 whole chromosomes, half of one)
+SPLIT = dict(FLAGSHIP, m=7 * (1 << 17), n_chr=7, n=MESH_N)
+# launches of kernel 4's and kernel 5's window entries, by path
+WINDOW_LAUNCHES: dict = {}
 # H100 SXM data sheet at 700 W: HBM3 bytes/s, and the float32 rate outside
 # the tensor cores, taken as the scalar-lane rate for the kernels' integer
 # compares (the int32 lanes are no faster, so the bound stays a least time)
@@ -333,6 +352,16 @@ def _wrappers():
                 paint=paint)
 
 
+def _windows():
+    """The window entries of kernels 4 and 5, whose launches also count
+    as their kernel's."""
+    from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed_window
+    from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes_window
+
+    return dict(meiose_packed=meiose_packed_window,
+                meiose_planes=meiose_planes_window)
+
+
 def counted(path: str, wrappers: dict, fn, launches: dict):
     """Run `fn()` with every launch count set to 0 just before it; record
     the counts just after in `launches[path]`, and fail if a kernel of the
@@ -341,9 +370,12 @@ def counted(path: str, wrappers: dict, fn, launches: dict):
 
     for w in wrappers.values():
         w.launches = 0
+    for w in _windows().values():
+        w.launches = 0
     out = fn()
     torch.cuda.synchronize()
     launches[path] = {k: w.launches for k, w in wrappers.items()}
+    WINDOW_LAUNCHES[path] = {k: w.launches for k, w in _windows().items()}
     idle = [k for k in PATHS[path] if launches[path][k] <= 0]
     if idle:
         raise AssertionError(f"{path}: kernels never launched: {idle}")
@@ -703,6 +735,81 @@ def _compare_packed(name: str, kern, plain, work: dict, wrapper) -> dict:
     return r
 
 
+def _window_entries(hap, args, mu, cfg) -> list:
+    """Kernel 4's window entry at the flagship's planes, as the sharded
+    steps and the dense mesh launch it (in place, at a word offset, with
+    the plan made local to the piece): four whole chromosomes, the second
+    half of one (16-byte copies) and a chromosome less its first word (an
+    odd word offset: word copies); each against its plain version, timed
+    and bounded as the whole-plane launch."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import meiose_packed as mp
+    from geneevolve_tpu_torch.parallel import mesh as pm
+
+    L = cfg.chr_len
+    pieces = {"window_whole_chromosomes": pm.Piece(4, 4, 0, L, 0),
+              "window_half_chromosome": pm.Piece(3, 1, L // 2, L // 2, 0),
+              "window_odd_word": pm.Piece(2, 1, 32, L - 32, 0)}
+    f, mo, xo_p, st_p, xo_m, st_m = args
+    outs = [torch.zeros_like(hap) for _ in range(2)]
+    entries = []
+    for name, pc in pieces.items():
+        lo = pc.c0 * L + pc.off
+        local = (f, mo, *pm.piece_plan(xo_p, st_p, pc, L),
+                 *pm.piece_plan(xo_m, st_m, pc, L))
+        mu_pc = pm.local_loci(mu, lo, pc.m)[0]
+        kw = dict(n_chr=pc.n_chr, chr_len=pc.length)
+        r = _compare_packed(
+            f"meiose_packed/{name}",
+            lambda: mp.meiose_packed_window(hap, outs[0], lo // 32, *local,
+                                            mu_pc, **kw),
+            lambda: mp.meiose_packed_window_plain(hap, outs[1], lo // 32,
+                                                  *local, mu_pc, **kw),
+            _packed_work(_packed_need(hap.shape[0], local, **kw), local,
+                         mu_pc, **kw), mp.meiose_packed_window)
+        entries.append(dict(entry=name, replaces=KERNELS["meiose_packed"][1],
+                            words=pc.m // 32, word_offset=lo // 32, **r))
+    return entries
+
+
+def _planes_window_entries(hapA, hapB, args, rows: int, cfg) -> list:
+    """Kernel 5's window entry on the byte planes, as the sharded byte
+    step launches it: four whole chromosomes (16-byte accesses) and a
+    chromosome less its first 5 loci (an odd offset: byte accesses); each
+    against its plain version, its bound the whole launch's scaled to the
+    window's loci."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import meiose_planes as mpl
+    from geneevolve_tpu_torch.parallel import mesh as pm
+
+    L = cfg.chr_len
+    pieces = {"window_whole_chromosomes": pm.Piece(4, 4, 0, L, 0),
+              "window_odd_offset": pm.Piece(2, 1, 5, L - 5, 0)}
+    f, mo, xo_p, st_p, xo_m, st_m = args
+    outs = [[torch.zeros((BYTE_N, cfg.m), dtype=torch.uint8,
+                         device=hapA.device) for _ in range(2)]
+            for _ in range(2)]
+    entries = []
+    for name, pc in pieces.items():
+        lo = pc.c0 * L + pc.off
+        local = (f, mo, *pm.piece_plan(xo_p, st_p, pc, L),
+                 *pm.piece_plan(xo_m, st_m, pc, L))
+        kw = dict(n_chr=pc.n_chr, chr_len=pc.length)
+        r = _compare(
+            f"meiose_planes/{name}",
+            lambda: mpl.meiose_planes_window(hapA, hapB, *outs[0], lo,
+                                             *local, **kw),
+            lambda: mpl.meiose_planes_window_plain(hapA, hapB, *outs[1], lo,
+                                                   *local, **kw),
+            _bound(rows * pc.m // cfg.m + _nbytes(*local)
+                   + 2 * BYTE_N * pc.m, 2 * BYTE_N * pc.m))
+        entries.append(dict(entry=name, replaces=KERNELS["meiose_planes"][1],
+                            loci=pc.m, offset=lo, **r))
+    return entries
+
+
 def dense_kernel_phase(dev) -> list:
     """The packed meiosis (three entries) at the flagship shape and the
     byte meiosis at n 4,096 x 1 Mi loci, each against its plain version,
@@ -752,6 +859,7 @@ def dense_kernel_phase(dev) -> list:
             lambda: mp.meiose_packed(hap, *args, None, **kw),
             lambda: mp.meiose_packed_plain(hap, *args, None, **kw),
             work(None), mp.meiose_packed))]
+    entries += _window_entries(hap, args, mu, cfg)
     hapA, hapB = hap[:, 0].contiguous(), hap[:, 1].contiguous()
     del hap
     entries.append(dict(entry="split_planes", replaces=PACKED_ENTRIES[
@@ -779,6 +887,8 @@ def dense_kernel_phase(dev) -> list:
                                         n_chr=cfg.n_chr),
         _bound(rows + _nbytes(*args) + 2 * BYTE_N * cfg.m,
                2 * BYTE_N * cfg.m))))
+    results[-1]["entries"] = _planes_window_entries(hapA, hapB, args, rows,
+                                                    cfg)
     del hapA, hapB
     torch.cuda.empty_cache()
     for r in results:
@@ -1967,20 +2077,19 @@ def _dense_run(dev, work: Path, name: str, gens: int, base=None,
     from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
 
     captured = {"mutations": []}
-    make_reproduce, cv_child = backend.make_reproduce, backend.cv_child
+    window, cv_child = backend.meiose_window, backend.cv_child
 
-    def make_reproduce_rec(cfg):
-        reproduce = make_reproduce(cfg)
-
-        def rec(*args):
-            captured["meiose_packed"] = (
-                args, dict(n_chr=cfg.n_chr, chr_len=cfg.chr_len))
-            mu = args[7]
-            captured["mutations"].append(
-                (None if mu is None else (mu < cfg.m).sum(), 2 * cfg.n))
-            return reproduce(*args)
-
-        return rec
+    def window_rec(hap, fathers, mothers, plan, mu, pieces, chr_len, lo,
+                   m_loc):
+        # one card: one piece, the whole genome, as `meiose_packed` takes it
+        captured["meiose_packed"] = (
+            (hap, fathers, mothers, *plan, mu),
+            dict(n_chr=m_loc // chr_len, chr_len=chr_len))
+        captured["mutations"].append(
+            (None if mu is None else (mu < m_loc).sum(),
+             2 * fathers.shape[0]))
+        return window(hap, fathers, mothers, plan, mu, pieces, chr_len, lo,
+                      m_loc)
 
     def cv_child_rec(cv_par, parent, *rest):
         captured["gather_rows"] = (cv_par, parent)
@@ -1992,11 +2101,11 @@ def _dense_run(dev, work: Path, name: str, gens: int, base=None,
         (work / name).mkdir(parents=True, exist_ok=True)
         base = _with(base, "--file_gen_info",
                      str(_popinfo(work / name, scenario, gens, mat_cor)))
-    backend.make_reproduce, backend.cv_child = make_reproduce_rec, cv_child_rec
+    backend.meiose_window, backend.cv_child = window_rec, cv_child_rec
     try:
         out = slice_phase(dev, work, name, scenario, extra, base=base)
     finally:
-        backend.make_reproduce, backend.cv_child = make_reproduce, cv_child
+        backend.meiose_window, backend.cv_child = window, cv_child
     sim = out.pop("sim")
     if meiose_packed.launches != gens:
         raise AssertionError(f"{name}: {meiose_packed.launches} packed "
@@ -2719,8 +2828,11 @@ def _free_port() -> int:
 
 
 def _targets(kind: str) -> list:
-    """(module, attribute, kernel, plain version) of each kernel call site
-    a mesh path reaches: the segment engine's, or the packed steps'."""
+    """(module, attribute, call key, plain version, index of the mutation
+    argument or None, indices of the output arguments it writes in place)
+    of each kernel call site a mesh path reaches: the segment engine's,
+    the packed steps', or the dense backend's. The call key is the
+    kernel's name, then `:entry` for another entry of it."""
     from geneevolve_tpu_torch.core import engine, segments
     from geneevolve_tpu_torch.dense import packed
     from geneevolve_tpu_torch.ops import (cdf_bins, materialize,
@@ -2728,39 +2840,50 @@ def _targets(kind: str) -> list:
                                           meiose_planes, merge_count, paint)
     from geneevolve_tpu_torch.parallel import mesh
 
+    window = (mesh, "meiose_packed_window", "meiose_packed:window",
+              meiose_packed.meiose_packed_window_plain, 9, (1,))
+    gather = (packed, "gather_rows", "gather_rows",
+              materialize.gather_rows_plain, None, ())
     if kind == "segment":
         return [
-            (segments, "cdf_bins", "cdf_bins", cdf_bins.cdf_bins_plain),
+            (segments, "cdf_bins", "cdf_bins", cdf_bins.cdf_bins_plain,
+             None, ()),
             (engine, "merge_count", "merge_count",
-             merge_count.merge_count_plain),
+             merge_count.merge_count_plain, None, ()),
             (engine, "meiose_merge", "meiose_merge",
-             meiose_merge.meiose_merge_plain),
+             meiose_merge.meiose_merge_plain, None, ()),
             (engine, "gather_rows_stacked", "gather_rows",
-             materialize.gather_rows_stacked_plain),
-            (engine, "paint", "paint", paint.paint_plain),
+             materialize.gather_rows_stacked_plain, None, ()),
+            (engine, "paint", "paint", paint.paint_plain, None, ()),
         ]
+    if kind == "dense":
+        return [window, gather]
     return [
         (mesh, "meiose_packed", "meiose_packed",
-         meiose_packed.meiose_packed_plain),
-        (mesh, "meiose_planes", "meiose_planes",
-         meiose_planes.meiose_planes_plain),
-        (packed, "gather_rows", "gather_rows", materialize.gather_rows_plain),
+         meiose_packed.meiose_packed_plain, 7, ()),
+        window,
+        (mesh, "meiose_planes_window", "meiose_planes:window",
+         meiose_planes.meiose_planes_window_plain, None, (2, 3)),
+        gather,
     ]
 
 
 @contextlib.contextmanager
 def _last_calls(targets: list, calls: dict):
-    """Within it, each target keeps its last call's wrapper and arguments
-    (references, no copy) in `calls[kernel]`; the packed meiosis without
-    mutations (kernel 7's function) under its own key."""
+    """Within it, each target keeps its last call's wrapper, plain version,
+    arguments (references, no copy) and output arguments in
+    `calls[key]`; a packed meiosis entry without mutations (kernel 7's
+    function) under `key:no_mutations`."""
     saved = []
-    for mod, attr, name, _plain in targets:
+    for mod, attr, key, plain, mu_at, outs in targets:
         fn = getattr(mod, attr)
 
-        def rec(*a, _fn=fn, _name=name, **k):
-            if _name == "meiose_packed" and a[7] is None:
-                _name = "meiose_packed:no_mutations"
-            calls[_name] = (_fn, a, k)
+        def rec(*a, _fn=fn, _key=key, _plain=plain, _mu=mu_at, _outs=outs,
+                **k):
+            name = _key
+            if _mu is not None and a[_mu] is None:
+                name += ":no_mutations"
+            calls[name] = (_fn, _plain, a, k, _outs)
             return _fn(*a, **k)
 
         saved.append((mod, attr, fn))
@@ -2772,15 +2895,18 @@ def _last_calls(targets: list, calls: dict):
             setattr(mod, attr, fn)
 
 
-def _check_calls(path: str, targets: list, calls: dict) -> dict:
+def _check_calls(path: str, calls: dict) -> dict:
     """Each kernel's last call on `path` made again (comparison launches,
     after the counted run) against its plain version on the same inputs,
-    bit-exact; returns each kernel's max_abs_err."""
-    plains = {t[2]: t[3] for t in targets}
+    bit-exact, each writing into its own copy of the outputs an entry
+    writes in place; returns each call key's max_abs_err."""
     out = {}
-    for name, (fn, a, k) in sorted(calls.items()):
-        plain = plains[name.split(":")[0]]
-        out[name] = _max_abs_err(fn(*a, **k), plain(*a, **k))
+    for name, (fn, plain, a, k, outs) in sorted(calls.items()):
+        def fresh():
+            return tuple(x.clone() if i in outs else x
+                         for i, x in enumerate(a))
+
+        out[name] = _max_abs_err(fn(*fresh(), **k), plain(*fresh(), **k))
         if out[name]:
             raise AssertionError(f"{path}: {name} differs from its plain "
                                  f"version by {out[name]}")
@@ -2935,6 +3061,35 @@ def segment_mesh1(dev, work: Path, slice_argv: list, table31: dict) -> dict:
     return out
 
 
+def dense_mesh1(dev, work: Path, dense31: dict) -> dict:
+    """The dense slice through the CLI's `--mesh ind=1` on the one-rank
+    NCCL group `segment_mesh1` joined: `.info`/`.summary` byte-identical
+    to dense31's, s/gen and peak beside it. The kernels' last calls are
+    kept under `calls`."""
+    calls, gen_s, traffic, seen, ex = {}, [], [], [], []
+    with _last_calls(_targets("dense"), calls), \
+            _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
+        out = slice_phase(dev, work, "dense_mesh1", DENSE_SCENARIO,
+                          ["--backend", "dense", *DENSE_VARIANCES,
+                           "--mesh", "ind=1"], base=dense31["argv"])
+    sim = out.pop("sim")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if sim.mesh is None or sim.mesh.backend != backend or \
+            sim.mesh.dims() != {"ind": 1, "loci": 1}:
+        raise AssertionError("dense_mesh1: not on a one-rank NCCL mesh")
+    n = _same_files("dense_mesh1", dense31["root"], out["root"],
+                    _info_files(1, DENSE_SCENARIO["gens"])
+                    + ["out.pop1.summary"])
+    out.update(_per_gen_traffic(traffic), files_identical=n, calls=calls,
+               **_exchange_peak(ex, out["max_memory_allocated_mb"]))
+    print(f" dense_mesh1: {n} files byte-identical to dense31's; s/gen "
+          + " ".join(f"{x:.3f}" for x in out["s_per_gen"]) + " (dense31 "
+          + " ".join(f"{x:.3f}" for x in dense31["s_per_gen"]) + ")"
+          + f"; peak {out['max_memory_allocated_mb']:.1f} MiB (dense31 "
+          f"{dense31['max_memory_allocated_mb']:.1f})" + _peak_text(out))
+    return out
+
+
 def _byte_flagship():
     from geneevolve_tpu_torch.dense.packed import PackedConfig
 
@@ -3074,9 +3229,10 @@ def packed_mesh1(dev, inp: dict) -> dict:
     return out
 
 
-def _mesh_cli(dev, root: Path, argv: list) -> dict:
-    """`cli.main` with `--mesh ind=2` in a rank of the two-rank group (it
-    joins the group); s/gen, exchange per generation and the tripwire."""
+def _mesh_cli(dev, root: Path, argv: list, shape=(2, 1)) -> dict:
+    """`cli.main` with `--mesh` of `shape` in a rank of the two-rank group
+    (it joins the group); s/gen, exchange per generation, the block of
+    the planes a rank holds and the tripwire."""
     from geneevolve_tpu_torch import cli
 
     root.mkdir(parents=True, exist_ok=True)
@@ -3084,24 +3240,44 @@ def _mesh_cli(dev, root: Path, argv: list) -> dict:
     with _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
         rc = cli.main(argv + ["--seed", "12345", "--prefix",
                               str(root / "out"), "--stage_sync", "--mesh",
-                              "ind=2"], device=dev.type)
+                              f"ind={shape[0]},loci={shape[1]}"],
+                      device=dev.type)
     if rc != 0:
         raise AssertionError(f"{root.name}: cli.main returned {rc}")
     sim = seen[0]
-    if sim.mesh.backend != "gloo" or sim.mesh.dims() != {"ind": 2,
-                                                         "loci": 1}:
-        raise AssertionError(f"{root.name}: not on a 2-rank gloo mesh")
+    if sim.mesh.backend != "gloo" or sim.mesh.dims() != {
+            "ind": shape[0], "loci": shape[1]}:
+        raise AssertionError(f"{root.name}: not on a {shape} gloo mesh")
     if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
         raise AssertionError(f"{root.name}: tripwire {sim.capacity_log}")
-    rows = [int(p.state.seg_st.shape[1]) for p in sim.pops]
+    rows = [sim._block_rows(p.state) for p in sim.pops]
     split = {k: round(v, 4) for k, v in sim.timer.totals.items()}
-    return dict(s_per_gen=gen_s, block_rows=rows, stage_split_s=split,
-                exchange_calls_rec=ex, **_per_gen_traffic(traffic))
+    out = dict(s_per_gen=gen_s, block_rows=rows, stage_split_s=split,
+               exchange_calls_rec=ex, **_per_gen_traffic(traffic))
+    if hasattr(sim.pops[0].state, "hap"):
+        out["block_shape"] = list(sim.pops[0].state.hap.shape)
+    return out
 
 
-def _packed_mesh2(dev, cfg, state, ref) -> dict:
+def _dense_mesh2(dev, work: Path, argv: list) -> dict:
+    """The dense slice's first generations through the CLI at `--mesh
+    ind=2` and at `ind=1,loci=2` in the two-rank group."""
+    out, ex = {}, []
+    for shape in ((2, 1), (1, 2)):
+        tag = f"{shape[0]}x{shape[1]}"
+        out[tag] = _mesh_cli(dev, work / f"dense_mesh2_{tag}", argv, shape)
+        ex += out[tag].pop("exchange_calls_rec")
+    out["exchange_calls_rec"] = ex
+    return out
+
+
+def _packed_mesh2(dev, cfg, state, ref, split) -> dict:
     """The three steps at n 4,096 x 1 Mi loci on the two-rank group, at
-    (ind, loci) = (2, 1) and (1, 2), the sharded step against `ref`."""
+    (ind, loci) = (2, 1) and (1, 2), the sharded step against `ref`; then
+    the sharded step at (1, 2) over `split` = (cfg, state, one-rank
+    generation) of 7 chromosomes, a rank's window holding 3.5 of them."""
+    import torch
+
     from geneevolve_tpu_torch.parallel import mesh as pm
 
     out = {}
@@ -3109,16 +3285,34 @@ def _packed_mesh2(dev, cfg, state, ref) -> dict:
         mesh = pm.make_mesh(shape, dev)
         out[f"{shape[0]}x{shape[1]}"] = _packed_steps(
             mesh, cfg, state, f"packed_mesh2 {shape}", ref)
+    scfg, sstate, sref = split
+    mesh = pm.make_mesh((1, 2), dev)
+    lo = mesh.coord("loci") * scfg.m // 2
+    pieces = pm.loci_pieces(scfg.n_chr, scfg.chr_len, lo, scfg.m // 2)
+    step = pm.make_sharded_step(scfg, mesh)
+    got, s = _timed(lambda: step(pm.shard_state(sstate, mesh),
+                                 torch.Generator(device=dev).manual_seed(5)))
+    want = pm.shard_state(sref, mesh)
+    for k in ("hap", "cv", "clip"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"packed_mesh2 split: the sharded step's {k}"
+                                 " differs from the one-rank step's")
+    out["split_1x2"] = dict(
+        s=s, pieces=[dict(c0=p.c0, n_chr=p.n_chr, off=p.off,
+                          length=p.length, lo=p.lo) for p in pieces])
+    print(f" packed_mesh2 split (1, 2): 7 chromosomes of {scfg.chr_len} "
+          f"loci, {len(pieces)} pieces a rank, {s * 1e3:.2f} ms == one rank")
     return out
 
 
 def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
-                multipop_argv: list) -> dict:
+                multipop_argv: list, dense_argv: list) -> dict:
     """One rank of the two ranks that share the card over gloo: the
-    segment slice (`segment_mesh2`), two populations (`multipop_mesh2`)
-    and the packed steps (`packed_mesh2`), each with the launch counts set
-    to 0 just before it and read just after; on rank 0 each kernel's last
-    call of the path held against its plain version after it."""
+    segment slice (`segment_mesh2`), two populations (`multipop_mesh2`),
+    the dense slice (`dense_mesh2`) and the packed steps (`packed_mesh2`),
+    each with the launch counts set to 0 just before it and read just
+    after; on rank 0 each kernel's last call of the path held against its
+    plain version after it."""
     import io
 
     import torch
@@ -3132,7 +3326,7 @@ def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
     if dev.type == "cuda":
         _build.lib()
         dev = torch.device("cuda", torch.cuda.current_device())
-    wrappers = _wrappers()
+    wrappers, windows = _wrappers(), _windows()
     work = Path(work)
     res = {}
 
@@ -3140,7 +3334,7 @@ def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
         calls = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
+        for w in (*wrappers.values(), *windows.values()):
             w.launches = 0
         t0 = time.perf_counter()
         with _last_calls(_targets(kind), calls):
@@ -3148,13 +3342,14 @@ def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
         torch.cuda.synchronize()
         out["wall_s"] = time.perf_counter() - t0
         out["launches"] = {k: w.launches for k, w in wrappers.items()}
+        out["window_launches"] = {k: w.launches for k, w in windows.items()}
         out["max_memory_allocated_mb"] = \
             torch.cuda.max_memory_allocated() / 2**20
         if "exchange_calls_rec" in out:
             out.update(_exchange_peak(out.pop("exchange_calls_rec"),
                                       out["max_memory_allocated_mb"]))
         if rank == 0:
-            out["plain_checks"] = _check_calls(path, _targets(kind), calls)
+            out["plain_checks"] = _check_calls(path, calls)
         res[path] = out
         torch.cuda.empty_cache()
 
@@ -3162,23 +3357,31 @@ def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
           lambda: _mesh_cli(dev, work / "segment_mesh2", seg_argv))
     phase("multipop_mesh2", "segment",
           lambda: _mesh_cli(dev, work / "multipop_mesh2", multipop_argv))
-    # the one-rank reference, made before the counted run
+    phase("dense_mesh2", "dense",
+          lambda: _dense_mesh2(dev, work, dense_argv))
+    # the one-rank references, made before the counted run
     cfg = packed.PackedConfig(**{**FLAGSHIP, "n": MESH_N})
     state = packed.init_state_streamed(
         torch.Generator(device=dev).manual_seed(0), cfg)
     ref = packed.make_step(cfg)(state,
                                 torch.Generator(device=dev).manual_seed(5))
+    scfg = packed.PackedConfig(**SPLIT)
+    sstate = packed.init_state_streamed(
+        torch.Generator(device=dev).manual_seed(1), scfg)
+    sref = packed.make_step(scfg)(sstate,
+                                  torch.Generator(device=dev).manual_seed(5))
     phase("packed_mesh2", "packed",
-          lambda: _packed_mesh2(dev, cfg, state, ref))
+          lambda: _packed_mesh2(dev, cfg, state, ref,
+                                (scfg, sstate, sref)))
     return res
 
 
 def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
-                slice_out: dict, multipop_argv: list) -> dict:
-    """The mesh paths: `segment_mesh1` and `packed_mesh1` on a one-rank
-    NCCL group in this process; then two ranks sharing the card over gloo
-    (`segment_mesh2`, `multipop_mesh2`, `packed_mesh2`) against the
-    unsharded runs' files."""
+                slice_out: dict, multipop_argv: list, dense31: dict) -> dict:
+    """The mesh paths: `segment_mesh1`, `packed_mesh1` and `dense_mesh1`
+    on a one-rank NCCL group in this process; then two ranks sharing the
+    card over gloo (`segment_mesh2`, `multipop_mesh2`, `dense_mesh2`,
+    `packed_mesh2`) against the unsharded runs' files."""
     import os
 
     import torch
@@ -3195,8 +3398,7 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
     _expect("segment_mesh1", launches["segment_mesh1"],
             {k: v * SCENARIO["gens"] for k, v in SEGMENT_PER_GEN.items()})
     res["segment_mesh1"]["plain_checks"] = _check_calls(
-        "segment_mesh1", _targets("segment"),
-        res["segment_mesh1"].pop("calls"))
+        "segment_mesh1", res["segment_mesh1"].pop("calls"))
     for k in ("argv", "root", "sim"):
         res["segment_mesh1"].pop(k, None)
     torch.cuda.empty_cache()
@@ -3207,7 +3409,19 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
             {"meiose_packed": 3, "gather_rows": 6, "meiose_planes": 1})
     del inp
     res["packed_mesh1"]["plain_checks"] = _check_calls(
-        "packed_mesh1", _targets("packed"), res["packed_mesh1"].pop("calls"))
+        "packed_mesh1", res["packed_mesh1"].pop("calls"))
+    torch.cuda.empty_cache()
+    res["dense_mesh1"] = counted(
+        "dense_mesh1", wrappers, lambda: dense_mesh1(dev, work, dense31),
+        launches)
+    _expect("dense_mesh1", launches["dense_mesh1"],
+            {k: v * DENSE_SCENARIO["gens"] for k, v in DENSE_PER_GEN.items()})
+    _expect("dense_mesh1 (window entry)", WINDOW_LAUNCHES["dense_mesh1"],
+            {"meiose_packed": DENSE_SCENARIO["gens"]})
+    res["dense_mesh1"]["plain_checks"] = _check_calls(
+        "dense_mesh1", res["dense_mesh1"].pop("calls"))
+    for k in ("argv", "root", "gen0_launches"):
+        res["dense_mesh1"].pop(k, None)
     dist.destroy_process_group()
     for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
               "LOCAL_RANK"):
@@ -3221,9 +3435,13 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
     torch.cuda.empty_cache()
     seg_argv = _with(slice_out["argv"], "--file_gen_info", str(_popinfo(
         work, SCENARIO, MESH_GENS)))
+    (work / "dense_mesh").mkdir(exist_ok=True)
+    dense_argv = _with(dense31["argv"], "--file_gen_info", str(_popinfo(
+        work / "dense_mesh", DENSE_SCENARIO, MESH_GENS))) + [
+        "--backend", "dense", *DENSE_VARIANCES]
     t0 = time.perf_counter()
     ranks = launch.launch(_mesh2_rank, 2, (dev.type, str(work), seg_argv,
-                                            multipop_argv),
+                                            multipop_argv, dense_argv),
                           device=dev.type, backend="gloo",
                           timeout_s=MESH_TIMEOUT_S, pg_timeout_s=300)
     spawn_s = time.perf_counter() - t0
@@ -3233,9 +3451,18 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
         "multipop_mesh2": {k: v * MESH_GENS + GEN0_LAUNCHES[
             "segment_multipop"].get(k, 0)
             for k, v in MULTIPOP_PER_GEN.items()},
-        "packed_mesh2": {"meiose_packed": 6, "gather_rows": 12},
+        # 2 layouts x 3 generations, 1 window launch each (whole
+        # chromosomes at both layouts: 22 split as 11 + 11)
+        "dense_mesh2": {k: 2 * v * MESH_GENS
+                        for k, v in DENSE_PER_GEN.items()},
+        # 2 layouts x 3 steps, then the split case's 2 window launches and
+        # 2 CV gathers a rank
+        "packed_mesh2": {"meiose_packed": 8, "gather_rows": 14},
     }
-    for path in ("segment_mesh2", "multipop_mesh2", "packed_mesh2"):
+    want_window = {"dense_mesh2": {"meiose_packed": 2 * MESH_GENS},
+                   "packed_mesh2": {"meiose_packed": 4}}
+    for path in ("segment_mesh2", "multipop_mesh2", "dense_mesh2",
+                 "packed_mesh2"):
         for r, out in enumerate(ranks):
             counts = out[path]["launches"]
             idle = [k for k in PATHS[path] if counts[k] <= 0]
@@ -3243,7 +3470,10 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
                 raise AssertionError(f"{path} rank {r}: kernels never "
                                      f"launched: {idle}")
             _expect(f"{path} rank {r}", counts, want[path])
+            _expect(f"{path} rank {r} (window entry)",
+                    out[path]["window_launches"], want_window.get(path, {}))
         launches[path] = ranks[0][path]["launches"]
+        WINDOW_LAUNCHES[path] = ranks[0][path]["window_launches"]
         res[path] = {f"rank{r}": out[path] for r, out in enumerate(ranks)}
         print(f" {path}: launches a rank {json.dumps(launches[path])}")
     n = _same_files("segment_mesh2", slice_out["root"],
@@ -3257,17 +3487,35 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
                     + ["out.pop1.summary", "out.pop2.summary"])
     res["multipop_mesh2"]["files_identical"] = n
     res["multipop_ref_s_per_gen"] = ref["s_per_gen"]
-    for path in ("segment_mesh2", "multipop_mesh2"):
+    n = 0
+    for tag in ("2x1", "1x2"):
+        d = work / f"dense_mesh2_{tag}"
+        n += _same_files("dense_mesh2", dense31["root"], d,
+                         _info_files(1, MESH_GENS))
+        n += _same_files("dense_mesh2", dense31["root"], d,
+                         ["out.pop1.summary"], lines=MESH_GENS + 2)
+    res["dense_mesh2"]["files_identical"] = n
+
+    def gen_line(path, r, o):
+        print(f" {path} rank {r}: s/gen "
+              + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
+              + "; exchange a generation "
+              + " ".join(f"{b / 2**20:.1f} MiB/{s:.3f} s" for b, s in
+                         zip(o["exchange_bytes_per_gen"][1:],
+                             o["exchange_s_per_gen"][1:])))
+
+    for path in ("segment_mesh2", "multipop_mesh2", "dense_mesh2"):
         for r in range(2):
             o = res[path][f"rank{r}"]
-            print(f" {path} rank {r}: s/gen "
-                  + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
-                  + "; exchange a generation "
-                  + " ".join(f"{b / 2**20:.1f} MiB/{s:.3f} s" for b, s in
-                             zip(o["exchange_bytes_per_gen"][1:],
-                                 o["exchange_s_per_gen"][1:]))
-                  + f"; peak {o['max_memory_allocated_mb']:.1f} MiB"
-                  + _peak_text(o))
+            if path == "dense_mesh2":
+                for tag in ("2x1", "1x2"):
+                    gen_line(f"{path} {tag}", r, o[tag])
+            else:
+                gen_line(path, r, o)
+            print(f" {path} rank {r}: peak {o['max_memory_allocated_mb']:.1f}"
+                  " MiB" + _peak_text(o))
+    print(f" dense_mesh2: {n} files byte-identical to dense31's first "
+          f"{MESH_GENS} generations at (2, 1) and (1, 2)")
     print(f" segment_mesh2: files byte-identical to table31's first "
           f"{MESH_GENS} generations (table31 s/gen "
           + " ".join(f"{x:.3f}" for x in slice_out["s_per_gen"]) + ")")
@@ -3366,20 +3614,25 @@ def main() -> int:
         if multipop_argv[-2] != "--gamma":
             raise AssertionError("multipop31's argv ends in --gamma")
         torch.cuda.empty_cache()
-        res["mesh"] = mesh_phases(
-            dev, work, wrappers, launches,
-            dict(argv=slice_argv, root=slice_root,
-                 s_per_gen=res["slice"]["s_per_gen"]),
-            multipop_argv[:-2])
         torch.cuda.empty_cache()
         res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)
         res["dense_slice"] = counted("dense_slice", wrappers,
                                      lambda: dense_slice(dev, work), launches)
         dense_argv = res["dense_slice"].pop("argv")
-        del res["dense_slice"]["root"]
+        dense_root = res["dense_slice"].pop("root")
         # after the counted run: these launches are comparisons
         dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["mesh"] = mesh_phases(
+            dev, work, wrappers, launches,
+            dict(argv=slice_argv, root=slice_root,
+                 s_per_gen=res["slice"]["s_per_gen"]),
+            multipop_argv[:-2],
+            dict(argv=dense_argv, root=dense_root,
+                 s_per_gen=res["dense_slice"]["s_per_gen"],
+                 max_memory_allocated_mb=res["dense_slice"][
+                     "max_memory_allocated_mb"]))
         torch.cuda.empty_cache()
         res["dense_mutations"] = counted(
             "dense_mutations", wrappers,
@@ -3454,6 +3707,10 @@ def main() -> int:
             home, {}).get(k["name"], 0)) / PATH_GENS[home]
         k["launches_by_path"] = {p: launches[p][k["name"]]
                                  for p, ks in PATHS.items() if k["name"] in ks}
+        windows = {p: w[k["name"]] for p, w in WINDOW_LAUNCHES.items()
+                   if w.get(k["name"])}
+        if windows:
+            k["window_launches_by_path"] = windows
     print(json.dumps(res))
     print(smi)
     print(json.dumps({"kernels": kernels}))

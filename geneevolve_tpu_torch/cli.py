@@ -6,12 +6,11 @@ Runs one or several populations (`--next_population`, with migration and
 `--gamma`) with the segment engine (the default; resident CV matrix, or
 the ledger gather path when it does not fit or when several populations
 run) or, under `--backend dense`, with the bit-packed dense engine, and
-saves or resumes checkpoints. `--mesh` shards the segment engine's
-individuals over ranks, one a card (`parallel/`): under torchrun this
-process joins the process group torchrun describes, else it starts the
-ranks itself. Flags whose features are not ported yet raise
-`NotImplementedError` naming the ROADMAP item that ports them. Without a
-CUDA device the run fails: it never falls back to the CPU.
+saves or resumes checkpoints. `--mesh` shards either backend's
+individuals over ranks, one a card (`parallel/`), and the dense backend's
+packed words over 'loci': under torchrun this process joins the process
+group torchrun describes, else it starts the ranks itself. Without a CUDA
+device the run fails: it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -54,11 +53,15 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
  the ledger when it does not fit the card, when several populations run,
  or under GE_NO_RESIDENT_CV=1.
  --device_mating (assortative pairing on the device; both backends)
- --mesh auto|ind=N[,loci=M] (segment backend: individuals sharded over
-   ranks, one a card over NCCL; outputs byte-identical to one card; under
-   `torchrun --nproc_per_node N -m geneevolve_tpu_torch` the ranks join
-   torchrun's group, else this process starts them)
- Not ported yet (raises): --mesh with --backend dense.
+ --mesh auto|ind=N[,loci=M] (individuals sharded over ranks, one a card
+   over NCCL; outputs byte-identical to one card; under `torchrun
+   --nproc_per_node N -m geneevolve_tpu_torch` the ranks join torchrun's
+   group, else this process starts them; `auto`: every card on 'ind').
+   The segment backend replicates over 'loci'. The dense backend also
+   splits its packed words over 'loci': a chromosome's words are padded
+   to a multiple of 32 loci, and the genome's word count must divide by
+   M (refused otherwise, as the JAX package refuses it); rank 0 writes
+   whole genotype files and checkpoints.
 """
 
 
@@ -122,10 +125,8 @@ def _run_mesh(cfg, device: str) -> None:
     ranks, and `auto` one rank, as JAX has one CPU device)."""
     import torch
 
-    from geneevolve_tpu_torch.core.engine import check_slice
     from geneevolve_tpu_torch.parallel import launch, multihost
 
-    check_slice(cfg)
     rank, _world = multihost.process_info()
     if torch.distributed.is_initialized():
         mesh = build_mesh(cfg.mesh, device)
@@ -144,9 +145,12 @@ def _run_mesh(cfg, device: str) -> None:
 
 
 def _simulate(rank: int, cfg, mesh) -> None:
-    from geneevolve_tpu_torch.core.engine import Simulation
+    if cfg.backend == "dense":
+        from geneevolve_tpu_torch.dense.backend import DenseSimulation as Sim
+    else:
+        from geneevolve_tpu_torch.core.engine import Simulation as Sim
 
-    Simulation(cfg, mesh=mesh, verbose=rank == 0).run()
+    Sim(cfg, mesh=mesh, verbose=rank == 0).run()
 
 
 def _mesh_rank(rank: int, cfg, shape, device: str) -> None:

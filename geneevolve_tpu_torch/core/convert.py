@@ -5,7 +5,9 @@ this one:
 - `state_*`: the segment engine's `PopState` (`seg_st`, `seg_hap`, `mut`,
   `cv`, plus the host fields);
 - `dense_state_*`: the dense backend's `DensePopState` (`hap`, per-phenotype
-  `cv` list, plus the host fields);
+  `cv` list, plus the host fields); `dense_shard_from_numpy` gives one
+  rank's part of it on a mesh (`dense.backend.plane_block`) and
+  `dense_shard_to_numpy` the whole state back from every rank's part;
 - `packed_state_*`: the packed step's dict (`hap`, `cv`, `cv_idx`, `eff`,
   `clip`); `packed_shard_from_numpy` gives one rank's shard of it on a
   mesh (`parallel.mesh.shard_state`), so both packages step the same
@@ -76,6 +78,33 @@ def dense_state_from_numpy(d: dict, device="cuda") -> DensePopState:
 def dense_state_to_numpy(st: DensePopState) -> dict:
     out = {"n": st.n, "hap": _words_out(st.hap),
            "cv": [c.cpu().numpy() for c in st.cv]}
+    out.update({k: getattr(st, k) for k in HOST_FIELDS})
+    return out
+
+
+def dense_shard_from_numpy(d: dict, mesh) -> DensePopState:
+    """This rank's part of a dense state given whole (as
+    `dense_state_from_numpy` takes it): its block of rows of the planes and
+    CV matrices and its window of the words, on the mesh's device, with
+    the whole row count in `rows`."""
+    from geneevolve_tpu_torch.dense.backend import take_block
+
+    st = dense_state_from_numpy(d, device="cpu")
+    st.rows = st.hap.shape[0]
+    st.hap = take_block(st.hap, mesh).to(mesh.device)
+    st.cv = [take_block(c, mesh).to(mesh.device) for c in st.cv]
+    return st
+
+
+def dense_shard_to_numpy(st: DensePopState, mesh) -> dict:
+    """The whole dense state as numpy (words as uint32) from every rank's
+    part (collectives every rank joins)."""
+    from geneevolve_tpu_torch.dense.backend import gather_block
+
+    rows = st.rows
+    out = {"n": st.n,
+           "hap": _words_out(gather_block(st.hap, rows, mesh)),
+           "cv": [gather_block(c, rows, mesh).cpu().numpy() for c in st.cv]}
     out.update({k: getattr(st, k) for k in HOST_FIELDS})
     return out
 

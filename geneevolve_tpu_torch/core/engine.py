@@ -83,16 +83,6 @@ class SimulationError(RuntimeError):
     pass
 
 
-def check_slice(cfg: ScenarioConfig) -> None:
-    """Refuse what this port does not run yet, naming the ROADMAP item
-    (queue 1) that ports it."""
-    if cfg.mesh and cfg.backend == "dense":
-        raise NotImplementedError(
-            "--mesh with --backend dense is not ported to "
-            "geneevolve_tpu_torch yet (ROADMAP queue 1, item 1.14)"
-        )
-
-
 @dataclass
 class PhenoScheme:
     """Static per-phenotype data for one population."""
@@ -206,7 +196,6 @@ class Simulation:
         """`mesh`: a `parallel.mesh.Mesh` with an 'ind' axis (its device
         replaces `device`): results are byte-identical to the unsharded
         run."""
-        check_slice(cfg)
         self.mesh = mesh
         if mesh is not None and "ind" not in mesh.axis_names:
             raise SimulationError("mesh must have an 'ind' axis")
@@ -253,10 +242,15 @@ class Simulation:
             print(msg, flush=True)
 
     # ------------------------------------------------------------------ mesh
-    @staticmethod
-    def _rows(st: PopState) -> int:
+    _row_axis = 1  # the axis of the genome planes' rows (individuals)
+
+    def _block_rows(self, st: PopState) -> int:
+        """Rows of this rank's block of the planes."""
+        return st.seg_st.shape[1]
+
+    def _rows(self, st: PopState) -> int:
         """The planes' rows in the unsharded run."""
-        return st.rows or st.seg_st.shape[1]
+        return st.rows or self._block_rows(st)
 
     def _block(self, rows: int) -> int:
         """Rows an 'ind' rank holds of planes of `rows` rows."""
@@ -276,20 +270,20 @@ class Simulation:
     def _real_rows(self, st: PopState) -> int:
         """Rows of this rank's block that hold individuals (global row <
         n)."""
-        lo = self._me * st.seg_st.shape[1]
-        return max(0, min(st.n - lo, st.seg_st.shape[1]))
+        b = self._block_rows(st)
+        return max(0, min(st.n - self._me * b, b))
 
     def _reduce_ind(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """`t` reduced over the 'ind' ranks (itself without a mesh)."""
-        if self.mesh is None:
+        """`t` reduced over the 'ind' ranks (itself on one)."""
+        if self._ind == 1:
             return t
         return comm.all_reduce(t.contiguous(), op, self.mesh.group("ind"),
                                self.mesh.traffic)
 
     def _gather_ind(self, t: torch.Tensor, n: int, axis: int = 0):
         """The first `n` rows along `axis` of every 'ind' rank's block of
-        `t`, in row order (itself without a mesh)."""
-        if self.mesh is None:
+        `t`, in row order (its own on one 'ind' rank)."""
+        if self._ind == 1:
             return t.narrow(axis, 0, n)
         g = gather_dim(t, axis, self.mesh.group("ind"), self.mesh.traffic)
         return g.narrow(axis, 0, n)
@@ -605,8 +599,8 @@ class Simulation:
         transient = 8 * rows * (self.xo_cap + 2 * self.m_cap + self.mn_cap) \
             * c_all
         both = [a + b for a, b in zip(state, cv)]
-        # the parents' rows a rank fetches (none without a mesh)
-        fetched = 0 if self.mesh is None else max(
+        # the parents' rows a rank fetches (none on one 'ind' rank)
+        fetched = 0 if self._ind == 1 else max(
             min(2 * a, b) for a, b in zip(loc, pop_rows))
         need = sum(both) + max(both) + plan + transient \
             + fetched * (row_state + nchr * 2 * c_all)
@@ -755,7 +749,7 @@ class Simulation:
             ad = (self.eff_a[j], self.eff_d[j], p.phenos[j].vd != 0)
             if st.cv is not None:
                 c = st.cv[..., j * self.ncv_pad:(j + 1) * self.ncv_pad]
-                if self.mesh is None:
+                if self._ind == 1:
                     A_j, D_j = _ad_resident(c, *ad, st.n)
                 else:
                     k = self._real_rows(st)
@@ -814,7 +808,7 @@ class Simulation:
         k = self._real_rows(st)
         if want_cv or rows <= chunk:
             c, r = painted(0, rows)
-            if self.mesh is None:
+            if self._ind == 1:
                 return (*_ad_resident(c, *ad, st.n, roots=r), c)
             return (*_ad_resident(c, *ad, k, self._allele_counts(c, k),
                                   st.n, roots=r), c)
@@ -1217,9 +1211,8 @@ class Simulation:
             dtype=torch.int32, device=self.device)
         with self.timer("reproduce/probe"):
             draws = self._plan(p, gen, n_pad)
-            if self.mesh is not None:
-                st, parents, draws = self._fetch_parents(st, parents, draws,
-                                                         n_pad)
+            st, parents, draws = self._fetch_parents(st, parents, draws,
+                                                     n_pad)
             seg_need, mut_need = self._capacity_probe(st, parents, draws)
         if seg_need > self.s_cap:
             self.s_cap = seg_need * 3 // 2 + 8
@@ -1250,28 +1243,42 @@ class Simulation:
         )
 
     def _fetch_parents(self, st: PopState, parents, draws, n_pad: int):
-        """This rank's part of a generation under a mesh: its block of the
-        children's rows of the parents and of the plan (both drawn in
-        full), and the rows of every parent they name, fetched from the
-        ranks that hold them in one exchange (every rank knows every
-        rank's parents, so each sends exactly the rows asked of it).
+        """This rank's part of a generation over several 'ind' ranks: its
+        block of the children's rows of the parents and of the plan (both
+        drawn in full), and the rows of every parent they name, fetched
+        from the ranks that hold them in one exchange (every rank knows
+        every rank's parents, so each sends exactly the rows asked of it).
         Returns (the fetched parents as a state, the children's parents as
-        rows of it, the plan's block)."""
+        rows of it, the plan's block). One 'ind' rank (or no mesh) holds
+        every row: the parents and the plan stay as they are."""
+        if self._ind == 1:
+            return st, parents, draws
         b = self._block(n_pad)
         full = parents[:, torch.arange(b * self._ind, device=self.device)
                        .clamp_(max=n_pad - 1)]  # edge-padded
         wants = [torch.unique(full[:, r * b:(r + 1) * b])
                  for r in range(self._ind)]
-        tables = [st.seg_st, st.seg_hap, st.mut]
-        if st.cv is not None:
-            tables.append(st.cv)
-        got = exchange_rows(tables, wants, self._block(self._rows(st)),
-                            self.mesh.group("ind"), self.mesh.traffic, axis=1)
+        got = exchange_rows(self._row_tables(st), wants,
+                            self._block(self._rows(st)),
+                            self.mesh.group("ind"), self.mesh.traffic,
+                            axis=self._row_axis)
         mine = full[:, self._me * b:(self._me + 1) * b].contiguous()
         local = torch.searchsorted(wants[self._me], mine).to(torch.int32)
-        par = PopState(n=0, seg_st=got[0], seg_hap=got[1], mut=got[2],
-                       cv=got[3] if st.cv is not None else None)
-        return par, local, tuple(self._own(x, n_pad) for x in draws)
+        return (self._from_tables(got, n=0), local,
+                tuple(None if x is None else self._own(x, n_pad,
+                                                       self._row_axis)
+                      for x in draws))
+
+    def _row_tables(self, st: PopState) -> list:
+        """The genome planes of a state whose rows a parents' fetch or a
+        migration moves (rows on `_row_axis`)."""
+        return [st.seg_st, st.seg_hap, st.mut] + (
+            [st.cv] if st.cv is not None else [])
+
+    def _from_tables(self, tabs: list, **fields) -> PopState:
+        """A state of planes laid out as `_row_tables` gives them."""
+        return PopState(seg_st=tabs[0], seg_hap=tabs[1], mut=tabs[2],
+                        cv=tabs[3] if len(tabs) > 3 else None, **fields)
 
     def _real_pass(self, st: PopState, parents, draws):
         """Every chromosome's children, written into fresh planes
@@ -1417,57 +1424,61 @@ class Simulation:
 
     def _gather_state(self, parts) -> PopState:
         """The selected rows of several populations' states, concatenated:
-        ledgers and mutations padded to the current capacities (a
-        population that has not reproduced since another one grew them
-        holds narrower planes). Migrants keep their founder hap indices,
-        which name their root population. Under a mesh each rank fetches
-        the rows of its block from every source population in one exchange
-        each."""
+        the planes of `_migrant_tables` (the segment ledgers and mutations
+        padded to the current capacities: a population that has not
+        reproduced since another one grew them holds narrower planes).
+        Migrants keep their founder hap indices, which name their root
+        population. Under a mesh each rank fetches the rows of its block
+        from every source population in one exchange each."""
         if self.mesh is not None:
             return self._gather_state_mesh(parts)
-        st_p, hap_p, mut_p = [], [], []
-        for src, idx in parts:
-            i = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-            st = src.state
-            st_p.append(_pad_last(st.seg_st[:, i], self.s_cap, BIG))
-            hap_p.append(_pad_last(st.seg_hap[:, i], self.s_cap, 0))
-            mut_p.append(_pad_last(st.mut[:, i], self.m_cap, BIG))
-        return PopState(
-            seg_st=torch.cat(st_p, 1), seg_hap=torch.cat(hap_p, 1),
-            mut=torch.cat(mut_p, 1), cv=None,
-            **self._gather_host_fields(parts),
-        )
+        ax = self._row_axis
+        picked = [[t.index_select(ax, torch.as_tensor(
+            idx, dtype=torch.long, device=self.device))
+            for t in self._migrant_tables(src.state)] for src, idx in parts]
+        return self._from_tables([torch.cat(ts, ax) for ts in zip(*picked)],
+                                 **self._gather_host_fields(parts))
 
     def _gather_state_mesh(self, parts) -> PopState:
+        """`_gather_state` under a mesh: the new state's block of rows on
+        each rank, its rows fetched from every source population in one
+        exchange each (the planes of `_row_tables`, the segment ledgers
+        padded to the current capacities first)."""
         n = sum(len(idx) for _, idx in parts)
-        b, me = self._block(n), self._me
+        b, me, ax = self._block(n), self._me, self._row_axis
         # (source part, row) of every row of the new state, edge-padded
         edge = np.minimum(np.arange(b * self._ind), n - 1)
         part_of = np.repeat(np.arange(len(parts)),
                             [len(idx) for _, idx in parts])[edge]
         row_of = np.concatenate([np.asarray(idx) for _, idx in parts])[edge]
-        caps = (self.s_cap, self.s_cap, self.m_cap)
         out = None
         for k, (src, _idx) in enumerate(parts):
             sst = src.state
-            tabs = [_pad_last(x, c, v) for x, c, v in zip(
-                (sst.seg_st, sst.seg_hap, sst.mut), caps, (BIG, 0, BIG))]
+            tabs = self._migrant_tables(sst)
             wants = [torch.as_tensor(
                 row_of[r * b:(r + 1) * b][part_of[r * b:(r + 1) * b] == k],
                 device=self.device) for r in range(self._ind)]
             got = exchange_rows(tabs, wants, self._block(self._rows(sst)),
                                 self.mesh.group("ind"), self.mesh.traffic,
-                                axis=1)
+                                axis=ax)
             if out is None:
-                out = [x.new_empty((x.shape[0], b) + tuple(x.shape[2:]))
+                out = [x.new_empty(x.shape[:ax] + (b,) + x.shape[ax + 1:])
                        for x in got]
             sel = torch.as_tensor(
                 np.flatnonzero(part_of[me * b:(me + 1) * b] == k),
                 device=self.device)
             for o, x in zip(out, got):
-                o[:, sel] = x
-        return PopState(seg_st=out[0], seg_hap=out[1], mut=out[2], cv=None,
-                        rows=n, **self._gather_host_fields(parts))
+                o.index_copy_(ax, sel, x)
+        return self._from_tables(out, rows=n,
+                                 **self._gather_host_fields(parts))
+
+    def _migrant_tables(self, st: PopState) -> list:
+        """The planes a migration moves: the ledgers, padded to the
+        current capacities (several populations take the gather path, so
+        no CV matrix)."""
+        return [_pad_last(x, c, v) for x, c, v in zip(
+            (st.seg_st, st.seg_hap, st.mut), (self.s_cap, self.s_cap,
+                                              self.m_cap), (BIG, 0, BIG))]
 
     def _gather_host_fields(self, parts) -> dict:
         """The host fields of the selected rows, concatenated (shared by

@@ -83,8 +83,9 @@ template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     meiose_planes_kernel(const uint8_t* __restrict__ hapA,
                          const uint8_t* __restrict__ hapB,
+                         int64_t par_stride,
                          uint8_t* __restrict__ outA,
-                         uint8_t* __restrict__ outB,
+                         uint8_t* __restrict__ outB, int64_t out_stride,
                          const int32_t* __restrict__ fathers,
                          const int32_t* __restrict__ mothers,
                          const int32_t* __restrict__ xo_p,
@@ -134,9 +135,9 @@ __global__ void __launch_bounds__(kThreads)
   const int l_hi = min(m, l_lo + kLociPerBlock);
   for (int g = 0; g < 2; ++g) {
     const int64_t par = (g ? mothers : fathers)[child];
-    const uint8_t* pa = hapA + par * (int64_t)m;
-    const uint8_t* pb = hapB + par * (int64_t)m;
-    uint8_t* po = (g ? outB : outA) + child * (int64_t)m;
+    const uint8_t* pa = hapA + par * par_stride;
+    const uint8_t* pb = hapB + par * par_stride;
+    uint8_t* po = (g ? outB : outA) + child * out_stride;
     for (int col0 = l_lo + 16 * threadIdx.x; col0 < l_hi;
          col0 += 16 * kThreads) {
       const int nb = min(16, l_hi - col0);
@@ -163,11 +164,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// hapA/hapB (N, m) uint8 parent planes; outA/outB (n, m) uint8;
-// fathers/mothers (n,) int32; xo_p/xo_m (n, n_chr, K) int32 global loci
-// (pad = m); st_p/st_m (n, n_chr) int32.
-GE_API int ge_meiose_planes(const void* hapA, const void* hapB, void* outA,
-                            void* outB, const void* fathers,
+// hapA/hapB: locus 0 of parent row 0 of (N, m) uint8 planes whose rows lie
+// par_stride bytes apart; outA/outB: locus 0 of child row 0, rows
+// out_stride bytes apart (a window of wider planes, or whole ones);
+// fathers/mothers (n,) int32; xo_p/xo_m (n, n_chr, K) int32 loci of the
+// window (pad = m); st_p/st_m (n, n_chr) int32.
+GE_API int ge_meiose_planes(const void* hapA, const void* hapB,
+                            int64_t par_stride, void* outA, void* outB,
+                            int64_t out_stride, const void* fathers,
                             const void* mothers, const void* xo_p,
                             const void* st_p, const void* xo_m,
                             const void* st_m, int64_t n, int m, int n_chr,
@@ -177,13 +181,15 @@ GE_API int ge_meiose_planes(const void* hapA, const void* hapB, void* outA,
   const size_t smem = sizeof(int32_t) * (2 * (size_t)n_chr * K + 6 * n_chr);
   const uintptr_t align =
       (uintptr_t)hapA | (uintptr_t)hapB | (uintptr_t)outA | (uintptr_t)outB;
-  const bool vec = align % 16 == 0 && m % 16 == 0;
+  const bool vec = align % 16 == 0 && m % 16 == 0 && par_stride % 16 == 0 &&
+                   out_stride % 16 == 0;
   const dim3 grid((unsigned)(n * nchunks));
   cudaStream_t s = (cudaStream_t)stream;
 #define GE_LAUNCH(V)                                                        \
   meiose_planes_kernel<V><<<grid, kThreads, smem, s>>>(                     \
-      (const uint8_t*)hapA, (const uint8_t*)hapB, (uint8_t*)outA,           \
-      (uint8_t*)outB, (const int32_t*)fathers, (const int32_t*)mothers,     \
+      (const uint8_t*)hapA, (const uint8_t*)hapB, par_stride,               \
+      (uint8_t*)outA, (uint8_t*)outB, out_stride, (const int32_t*)fathers,  \
+      (const int32_t*)mothers,                                              \
       (const int32_t*)xo_p, (const int32_t*)st_p, (const int32_t*)xo_m,     \
       (const int32_t*)st_m, m, n_chr, K, chr_len, nchunks)
   if (vec) {

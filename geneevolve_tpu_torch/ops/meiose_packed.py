@@ -8,6 +8,10 @@ experiments tools/kexp.py `meiose_v3` (combined planes, no mutations:
 `meiose_packed_split`)). The plain version is `dense/packed.py`'s
 `meiose_packed_xla` + `apply_mutations_packed`; the kernel equals it bit for
 bit. A CPU tensor goes to the plain version; a CUDA tensor to the kernel.
+`meiose_packed_window` launches the same kernel on a window of words of
+the parent and child planes (a pointer offset beside the planes' row
+stride, nothing copied): the sharded steps' and the dense mesh's pieces
+of a chromosome.
 
 The kernel cuts the work into tiles aligned to chromosomes, (child, gamete,
 chromosome, span of words); `launch_plan` sizes them from the shapes alone,
@@ -178,6 +182,59 @@ def meiose_packed(
     return out
 
 
+def meiose_packed_window_plain(hap, out, w0, fathers, mothers, xo_p, st_p,
+                               xo_m, st_m, mu=None, *, n_chr, chr_len):
+    w = n_chr * chr_len // 32
+    out[:, :, w0:w0 + w] = meiose_packed_plain(
+        hap[:, :, w0:w0 + w], fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
+        n_chr=n_chr, chr_len=chr_len)
+    return out
+
+
+def meiose_packed_window(
+    hap: torch.Tensor,  # (N, 2, mw) int32 parent planes
+    out: torch.Tensor,  # (n, 2, mw) int32 child planes, written in place
+    w0: int,  # the window's first word, in both
+    fathers: torch.Tensor,
+    mothers: torch.Tensor,
+    xo_p: torch.Tensor,  # (n, n_chr, K) loci local to the window, pad = m
+    st_p: torch.Tensor,
+    xo_m: torch.Tensor,
+    st_m: torch.Tensor,
+    mu=None,  # (n, 2, Km) loci local to the window, pad = m
+    *,
+    n_chr: int,
+    chr_len: int,
+) -> torch.Tensor:
+    """`out` with words [w0, w0 + n_chr * chr_len / 32) of every child
+    row written: `meiose_packed` of that window of the parents' words, its
+    n_chr chromosomes of chr_len loci each. The kernel reads and writes
+    the planes in place, one launch; 16-byte copies only where the
+    window's offset keeps them aligned."""
+    if hap.device.type == "cpu":
+        return meiose_packed_window_plain(
+            hap, out, w0, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
+            n_chr=n_chr, chr_len=chr_len)
+    w = n_chr * chr_len // 32
+    if (hap.dim() != 3 or out.dim() != 3 or hap.shape[1] != 2
+            or out.shape[1] != 2 or out.shape[0] != fathers.shape[0]):
+        raise ValueError("meiose_packed_window takes (N, 2, mw) parent and "
+                         "(n, 2, mw) child planes")
+    if not (hap.is_contiguous() and out.is_contiguous()):
+        raise ValueError("meiose_packed_window: planes must be contiguous")
+    if w0 < 0 or w0 + w > min(hap.shape[2], out.shape[2]):
+        raise ValueError(f"meiose_packed_window: words [{w0}, {w0 + w}) "
+                         "lie outside the planes")
+    meiose_packed_window.plan = _launch(
+        (hap[:, 0, w0:w0 + w], hap[:, 1, w0:w0 + w]),
+        (out[:, 0, w0:w0 + w], out[:, 1, w0:w0 + w]), hap.stride(0),
+        out.stride(0), fathers, mothers, xo_p, st_p, xo_m, st_m, mu, n_chr,
+        chr_len, w)
+    meiose_packed.launches += 1  # the kernel's count, through any entry
+    meiose_packed_window.launches += 1
+    return out
+
+
 def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
                         st_m, *, n_chr, chr_len):
     """(childA, childB), each (n, mw) int32, from split parent planes hapA,
@@ -200,6 +257,11 @@ def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
     return outA, outB
 
 
-meiose_packed.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset: `meiose_packed`'s through it and
+# the window entry, `meiose_packed_window`'s through the window entry
+meiose_packed.launches = 0
+meiose_packed_window.launches = 0
 meiose_packed_split.launches = 0
-meiose_packed.plan = meiose_packed_split.plan = None  # last LaunchPlan
+# the last LaunchPlan of each entry
+meiose_packed.plan = meiose_packed_window.plan = None
+meiose_packed_split.plan = None

@@ -26,6 +26,59 @@ def meiose_planes_plain(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m,
             dense_step._meiose_xla(hapA, hapB, mothers, xo_m, st_m, cfg))
 
 
+def meiose_planes_window_plain(hapA, hapB, outA, outB, l0, fathers, mothers,
+                               xo_p, st_p, xo_m, st_m, *, n_chr, chr_len):
+    w = slice(l0, l0 + n_chr * chr_len)
+    outA[:, w], outB[:, w] = meiose_planes_plain(
+        hapA[:, w], hapB[:, w], fathers, mothers, xo_p, st_p, xo_m, st_m,
+        n_chr=n_chr)
+    return outA, outB
+
+
+def _launch(hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
+            st_m, n_chr, chr_len):
+    """One launch over loci [l0, l0 + n_chr * chr_len) of the (N, M)
+    parent and (n, M') child planes, rows as far apart as they lie."""
+    dev = hapA.device
+    ts = (hapB, outA, outB, fathers, mothers, xo_p, st_p, xo_m, st_m)
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError("meiose_planes: all tensors must lie on one CUDA "
+                         "device")
+    if any(t.dtype != torch.uint8 for t in (hapA, hapB, outA, outB)) or any(
+            t.dtype != torch.int32 for t in ts[3:]):
+        raise TypeError("meiose_planes takes uint8 planes and int32 plans")
+    m = n_chr * chr_len
+    n = fathers.shape[0]
+    K = xo_p.shape[2]
+    if (hapA.dim() != 2 or hapB.shape != hapA.shape or outA.dim() != 2
+            or outB.shape != outA.shape or outA.shape[0] != n
+            or mothers.shape != (n,) or xo_p.shape != (n, n_chr, K)
+            or xo_m.shape != xo_p.shape or st_p.shape != (n, n_chr)
+            or st_m.shape != st_p.shape):
+        raise ValueError("meiose_planes: shape mismatch")
+    if l0 < 0 or l0 + m > min(hapA.shape[1], outA.shape[1]):
+        raise ValueError(f"meiose_planes: loci [{l0}, {l0 + m}) lie outside "
+                         "the planes")
+    if any(t.stride(1) != 1 for t in (hapA, hapB, outA, outB)):
+        raise ValueError("meiose_planes: plane rows must be contiguous")
+    if outA.stride(0) != outB.stride(0) or hapA.stride(0) != hapB.stride(0):
+        raise ValueError("meiose_planes: both planes need one row stride")
+    if 4 * (2 * n_chr * K + 6 * n_chr) > MAX_SMEM:
+        raise ValueError("meiose_planes: plan too large for shared memory")
+    if n * ((m + 16383) // 16384) >= 2**31:
+        raise ValueError("meiose_planes: too many blocks")
+    fathers, mothers, xo_p, st_p, xo_m, st_m = (
+        t.contiguous() for t in (fathers, mothers, xo_p, st_p, xo_m, st_m))
+    code = _build.lib().ge_meiose_planes(
+        hapA[:, l0:].data_ptr(), hapB[:, l0:].data_ptr(), hapA.stride(0),
+        outA[:, l0:].data_ptr(), outB[:, l0:].data_ptr(), outA.stride(0),
+        fathers.data_ptr(), mothers.data_ptr(), xo_p.data_ptr(),
+        st_p.data_ptr(), xo_m.data_ptr(), st_m.data_ptr(), n, m, n_chr, K,
+        chr_len, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(code, "meiose_planes")
+
+
 def meiose_planes(
     hapA: torch.Tensor,  # (N, m) uint8 parents' paternal chromatids
     hapB: torch.Tensor,  # (N, m) uint8 maternal chromatids
@@ -43,40 +96,52 @@ def meiose_planes(
     if hapA.device.type == "cpu":
         return meiose_planes_plain(hapA, hapB, fathers, mothers, xo_p, st_p,
                                    xo_m, st_m, n_chr=n_chr)
-    dev = hapA.device
-    ts = (hapB, fathers, mothers, xo_p, st_p, xo_m, st_m)
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError("meiose_planes: all tensors must lie on one CUDA "
-                         "device")
-    if hapA.dtype != torch.uint8 or hapB.dtype != torch.uint8 or any(
-            t.dtype != torch.int32 for t in ts[1:]):
-        raise TypeError("meiose_planes takes uint8 planes and int32 plans")
     N, m = hapA.shape
-    n = fathers.shape[0]
-    K = xo_p.shape[2]
-    if (hapB.shape != (N, m) or m % n_chr or mothers.shape != (n,)
-            or xo_p.shape != (n, n_chr, K) or xo_m.shape != xo_p.shape
-            or st_p.shape != (n, n_chr) or st_m.shape != st_p.shape):
+    if m % n_chr:
         raise ValueError("meiose_planes: shape mismatch")
-    if 4 * (2 * n_chr * K + 6 * n_chr) > MAX_SMEM:
-        raise ValueError("meiose_planes: plan too large for shared memory")
-    if n * ((m + 16383) // 16384) >= 2**31:
-        raise ValueError("meiose_planes: too many blocks")
-    hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m = (
-        t.contiguous()
-        for t in (hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m)
-    )
-    outA = torch.empty((n, m), dtype=torch.uint8, device=dev)
+    hapA, hapB = hapA.contiguous(), hapB.contiguous()
+    outA = torch.empty((fathers.shape[0], m), dtype=torch.uint8,
+                       device=hapA.device)
     outB = torch.empty_like(outA)
-    code = _build.lib().ge_meiose_planes(
-        hapA.data_ptr(), hapB.data_ptr(), outA.data_ptr(), outB.data_ptr(),
-        fathers.data_ptr(), mothers.data_ptr(), xo_p.data_ptr(),
-        st_p.data_ptr(), xo_m.data_ptr(), st_m.data_ptr(), n, m, n_chr, K,
-        m // n_chr, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(code, "meiose_planes")
+    _launch(hapA, hapB, outA, outB, 0, fathers, mothers, xo_p, st_p, xo_m,
+            st_m, n_chr, m // n_chr)
     meiose_planes.launches += 1
     return outA, outB
 
 
-meiose_planes.launches = 0  # kernel launches since the last reset
+def meiose_planes_window(
+    hapA: torch.Tensor,  # (N, M) uint8 parent planes
+    hapB: torch.Tensor,
+    outA: torch.Tensor,  # (n, M) uint8 child planes, written in place
+    outB: torch.Tensor,
+    l0: int,  # the window's first locus, in both
+    fathers: torch.Tensor,
+    mothers: torch.Tensor,
+    xo_p: torch.Tensor,  # (n, n_chr, K) loci local to the window, pad = m
+    st_p: torch.Tensor,
+    xo_m: torch.Tensor,
+    st_m: torch.Tensor,
+    *,
+    n_chr: int,
+    chr_len: int,
+):
+    """(outA, outB) with loci [l0, l0 + n_chr * chr_len) of every child row
+    written: `meiose_planes` of that window of the parents' loci, its n_chr
+    chromosomes of chr_len loci each, read and written in place (the
+    planes' row strides passed to the kernel, nothing copied); 16-byte
+    accesses only where the window keeps them aligned."""
+    if hapA.device.type == "cpu":
+        return meiose_planes_window_plain(
+            hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
+            st_m, n_chr=n_chr, chr_len=chr_len)
+    _launch(hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
+            st_m, n_chr, chr_len)
+    meiose_planes.launches += 1  # the kernel's count, through any entry
+    meiose_planes_window.launches += 1
+    return outA, outB
+
+
+# kernel launches since the last reset: `meiose_planes`'s through it and
+# the window entry, `meiose_planes_window`'s through the window entry
+meiose_planes.launches = 0
+meiose_planes_window.launches = 0

@@ -12,9 +12,14 @@ itself (`parallel/comm.py`) over the grid's row and column groups:
   identically seeded generator (with selection, from the CV rows gathered
   over 'ind'), keeps its own children, fetches the parent rows they need
   from their owners (`exchange_rows`, exact split sizes) and runs the
-  meiosis on its words: whole chromosomes on each loci rank, or equal
-  pieces of each chromosome, its crossovers shifted into the piece and
-  clipped, so that crossovers before it still set its phase.
+  meiosis on its window of loci (any split of the words, or of the byte
+  step's loci, over 'loci', as the JAX step takes): the window cut at
+  chromosome boundaries into a run of whole chromosomes and at most two
+  partial ones (`loci_pieces`), one kernel launch a piece on the window in
+  place, each piece's crossovers shifted into it and clipped, so that
+  crossovers before it still set its phase (`piece_plan`). The dense
+  backend's mesh (`dense/backend.py`) reproduces through the same
+  pieces.
 - `make_deme_step`: each 'ind' row of the grid is a deme; per-rank
   streams keyed as the JAX step keys them, the global allele-count
   centering as an integer all-reduce, the CV matrix reassembled by an
@@ -41,8 +46,11 @@ from geneevolve_tpu_torch.dense import packed as pk
 from geneevolve_tpu_torch.dense import step as dense_step
 from geneevolve_tpu_torch.dense.packed import PackedConfig
 from geneevolve_tpu_torch.dense.step import DenseConfig
-from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
-from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes
+from geneevolve_tpu_torch.ops.meiose_packed import (
+    meiose_packed,
+    meiose_packed_window,
+)
+from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes_window
 from geneevolve_tpu_torch.parallel import comm
 from geneevolve_tpu_torch.parallel.comm import Traffic
 
@@ -207,8 +215,12 @@ def exchange_rows(tables: Sequence[torch.Tensor],
     owner sends exactly the rows asked of it, all tables in one
     all-to-all of row bytes. The send buffer is freed before the received
     rows are split into tables, so at most the received bytes and one
-    table's rows are held beside the results."""
+    table's rows are held beside the results. A group of one rank holds
+    every row: each table's rows are taken in place, one `index_select`
+    a table, with no bytes packed or exchanged."""
     d = dist.get_world_size(group)
+    if d == 1:
+        return [t.index_select(axis, wants[0].long()) for t in tables]
     me = dist.get_rank(group)
     owners = [(w // block).long() for w in wants]
     cnt = torch.stack([torch.bincount(o, minlength=d)[:d]
@@ -227,48 +239,103 @@ def exchange_rows(tables: Sequence[torch.Tensor],
 
 
 # --------------------------------------------------- the panmictic step
-def _loci_pieces(n_chr: int, chr_len: int, loci: int, j: int):
-    """The pieces of the genome loci rank j holds, as (chromosome, first
-    locus in it), and their common length: whole chromosomes when the
-    chromosomes divide over the loci ranks, else equal pieces of each
-    chromosome when the loci ranks divide over the chromosomes."""
-    if n_chr % loci == 0:
-        per = n_chr // loci
-        return [(j * per + k, 0) for k in range(per)], chr_len
-    if loci % n_chr == 0 and chr_len % (loci // n_chr) == 0:
-        per = loci // n_chr
-        length = chr_len // per
-        return [(j // per, (j % per) * length)], length
-    raise ValueError(
-        f"a loci axis of {loci} splits {n_chr} chromosomes into unequal "
-        "pieces: the meiosis kernels need chromosomes of one length")
+def refuse_split(what: str, shape, dim: int, d: int) -> None:
+    """Raise unless axis `dim` of `shape` splits into `d` equal blocks, in
+    the words of the JAX package's refusal of such a sharding."""
+    if shape[dim] % d:
+        raise ValueError(
+            f"{what} was given a sharding which implies that the global "
+            f"size of its dimension {dim} should be divisible by {d}, but "
+            f"it is equal to {shape[dim]} (full shape: {tuple(shape)})")
 
 
-def _local_plan(xo, st, pieces, chr_len: int, length: int, m_loc: int):
+@dataclass(frozen=True)
+class Piece:
+    """A run of a loci rank's window: `n_chr` chromosomes from `c0`, each
+    `length` loci from its locus `off` (whole chromosomes: off 0 and
+    length chr_len; else one partial chromosome), at locus `lo` of the
+    window."""
+
+    c0: int
+    n_chr: int
+    off: int
+    length: int
+    lo: int
+
+    @property
+    def m(self) -> int:
+        return self.n_chr * self.length
+
+
+def loci_pieces(n_chr: int, chr_len: int, lo: int, m_loc: int):
+    """The window [lo, lo + m_loc) of the genome cut at chromosome
+    boundaries: the tail of the chromosome it starts in, a run of whole
+    chromosomes, the head of the one it ends in (each present when not
+    empty; one partial piece when the window lies inside a chromosome),
+    so at most three pieces."""
+    out, pos, end = [], lo, lo + m_loc
+    if pos % chr_len and pos < end:
+        c = pos // chr_len
+        e = min(end, (c + 1) * chr_len)
+        out.append(Piece(c, 1, pos - c * chr_len, e - pos, pos - lo))
+        pos = e
+    whole = (end - pos) // chr_len
+    if whole:
+        out.append(Piece(pos // chr_len, whole, 0, chr_len, pos - lo))
+        pos += whole * chr_len
+    if pos < end:
+        out.append(Piece(pos // chr_len, 1, 0, end - pos, pos - lo))
+    if n_chr * chr_len < end:
+        raise ValueError(f"loci [{lo}, {end}) lie past {n_chr} chromosomes "
+                         f"of {chr_len}")
+    return out
+
+
+def piece_plan(xo, st, pc: Piece, chr_len: int):
     """Crossovers (n, n_chr, K) and starts (n, n_chr) of the whole genome
-    made local to the pieces: each piece's crossovers shifted into it,
-    those before it clipped to its first locus (they set its phase),
-    those past it made padding (m_loc)."""
+    made local to piece `pc`: each of its chromosomes' crossovers shifted
+    into it, those before it clipped to its first locus (they set its
+    phase), those past it made padding (pc.m)."""
     dev = xo.device
-    cs = torch.tensor([c for c, _ in pieces], device=dev)
-    g0 = torch.tensor([c * chr_len + o for c, o in pieces],
-                      dtype=torch.int32, device=dev)
-    base = torch.arange(len(pieces), dtype=torch.int32, device=dev) * length
+    cs = slice(pc.c0, pc.c0 + pc.n_chr)
+    k = torch.arange(pc.n_chr, dtype=torch.int32, device=dev)
+    g0 = (pc.c0 + k) * chr_len + pc.off  # each chromosome's first locus
     x = xo[:, cs, :] - g0[None, :, None]
-    loc = torch.where(x >= length, m_loc, x.clamp(min=0) + base[None, :, None])
+    loc = torch.where(x >= pc.length, pc.m,
+                      x.clamp(min=0) + (k * pc.length)[None, :, None])
     return loc.to(torch.int32).contiguous(), st[:, cs].contiguous()
 
 
-def _local_loci(pos, lo: int, m_loc: int):
+def local_loci(pos, lo: int, m_loc: int):
     """Loci made local to [lo, lo + m_loc); the rest padding (m_loc)."""
     inr = (pos >= lo) & (pos < lo + m_loc)
     return torch.where(inr, pos - lo, m_loc).to(torch.int32), inr
 
 
+def meiose_window(hap, fathers, mothers, plan, mu, pieces, chr_len: int,
+                  lo: int, m_loc: int) -> torch.Tensor:
+    """(n, 2, m_loc / 32) packed child words of the genome window [lo, lo +
+    m_loc) from the parents' words of it (N, 2, m_loc / 32): kernel
+    `meiose_packed` once a piece of `loci_pieces` (whole chromosomes in one
+    launch, a partial one in its own), on the window in place. `plan`:
+    (xo_p, st_p, xo_m, st_m) of the whole genome; `mu` (n, 2, Km) global
+    mutation loci or None."""
+    out = torch.empty((fathers.shape[0], 2, m_loc // 32), dtype=torch.int32,
+                      device=hap.device)
+    xo_p, st_p, xo_m, st_m = plan
+    for pc in pieces:
+        mu_pc = None if mu is None else local_loci(mu, lo + pc.lo, pc.m)[0]
+        meiose_packed_window(hap, out, pc.lo // 32, fathers, mothers,
+                             *piece_plan(xo_p, st_p, pc, chr_len),
+                             *piece_plan(xo_m, st_m, pc, chr_len), mu_pc,
+                             n_chr=pc.n_chr, chr_len=pc.length)
+    return out
+
+
 def _cv_columns(hapA, hapB, cv_idx, lo: int, m_loc: int, group):
     """(nloc, ncv) alleles of both chromatids at the CV columns, each
     column read by the loci rank that holds it and summed over 'loci'."""
-    idx, inr = _local_loci(cv_idx, lo, m_loc)
+    idx, inr = local_loci(cv_idx, lo, m_loc)
     idx = idx.clamp(max=m_loc - 1).long()
     cols = torch.stack([hapA[:, idx], hapB[:, idx]]) * inr.to(torch.uint8)
     return comm.all_reduce(cols.contiguous(), "sum", group)
@@ -279,23 +346,25 @@ def make_sharded_step(cfg, mesh: Mesh):
     of `cfg` (a `DenseConfig`: the byte step, kernel `meiose_planes`; a
     `PackedConfig`: the packed step, kernel `meiose_packed` + `cv_child`),
     bit-identical to `dense.step.make_step` / `dense.packed.make_step` on
-    the whole state when every rank's `gen` is seeded alike."""
+    the whole state when every rank's `gen` is seeded alike. Any (ind,
+    loci) whose blocks divide the rows and the word (byte step: locus)
+    axis is taken; the rest are refused as the JAX step refuses them.
+    `draws` (packed step: `pk.draw_generation`'s dict over the whole
+    generation, arrays or tensors) replaces the generator's, so tests can
+    feed it the JAX step's draws."""
     packed = isinstance(cfg, PackedConfig)
     if not packed and not isinstance(cfg, DenseConfig):
         raise TypeError("make_sharded_step takes a DenseConfig or a "
                         "PackedConfig")
     ind, loci = mesh.size("ind"), mesh.size("loci")
     i, j = mesh.coord("ind"), mesh.coord("loci")
-    if cfg.n % ind or cfg.m % loci:
-        raise ValueError(f"({cfg.n}, {cfg.m}) does not split over "
-                         f"(ind {ind}, loci {loci})")
+    name = "state['hap']" if packed else "state['hapA']"
+    shape = (cfg.n, 2, cfg.mw) if packed else (cfg.n, cfg.m)
+    refuse_split(name, shape, 0, ind)
+    refuse_split(name, shape, len(shape) - 1, loci)
     nloc, m_loc = cfg.n // ind, cfg.m // loci
-    pieces, length = _loci_pieces(cfg.n_chr, cfg.chr_len, loci, j)
-    if packed and length % 32:
-        raise ValueError(
-            f"a loci axis of {loci} cuts chromosomes of {cfg.chr_len} loci "
-            f"into pieces of {length}: the packed meiosis needs whole words")
     lo = j * m_loc
+    pieces = loci_pieces(cfg.n_chr, cfg.chr_len, lo, m_loc)
     rows = slice(i * nloc, (i + 1) * nloc)
     g_ind, log = mesh.group("ind"), mesh.traffic
 
@@ -316,8 +385,8 @@ def make_sharded_step(cfg, mesh: Mesh):
                 dense_step.phenotype_additive(ca, cb, ar, state["eff"]))
         return dense_step.draw_generation(gen, cfg, cfg.n, logits)
 
-    def step(state, gen: torch.Generator):
-        d = draw(state, gen)
+    def step(state, gen: torch.Generator, draws=None):
+        d = draw(state, gen) if draws is None else _to(draws, mesh.device)
         wants = [torch.unique(torch.cat([d["fathers"][r * nloc:(r + 1) * nloc],
                                          d["mothers"][r * nloc:(r + 1) * nloc]]))
                  for r in range(ind)]
@@ -326,27 +395,29 @@ def make_sharded_step(cfg, mesh: Mesh):
         par = exchange_rows(tables, wants, nloc, g_ind, log)
         fl, ml = (torch.searchsorted(wants[i], d[k][rows]).to(torch.int32)
                   for k in ("fathers", "mothers"))
-        plan = [_local_plan(d[x][rows], d[s][rows], pieces, cfg.chr_len,
-                            length, m_loc)
-                for x, s in (("xo_p", "st_p"), ("xo_m", "st_m"))]
-        args = (fl, ml, *plan[0], *plan[1])
+        plan = [d[k][rows] for k in ("xo_p", "st_p", "xo_m", "st_m")]
         if packed:
             mu = None if d["mu"] is None else d["mu"][rows]
-            child = meiose_packed(
-                par[0], *args, None if mu is None else
-                _local_loci(mu, lo, m_loc)[0], n_chr=len(pieces),
-                chr_len=length)
+            child = meiose_window(par[0], fl, ml, plan, mu, pieces,
+                                  cfg.chr_len, lo, m_loc)
             mine = dict(fathers=fl, mothers=ml, mu=mu,
                         **{k: d[k][rows] for k in ("xo_p", "st_p", "xo_m",
                                                    "st_m")})
             cv = pk.cv_children(par[1], mine, state["cv_idx"], cfg.chr_len)
             return {"hap": child, "cv": cv, "cv_idx": state["cv_idx"],
                     "eff": state["eff"], "clip": state["clip"] + d["clip"]}
-        children = list(meiose_planes(par[0], par[1], *args,
-                                      n_chr=len(pieces)))
+        children = [torch.empty((nloc, m_loc), dtype=torch.uint8,
+                                device=par[0].device) for _ in range(2)]
+        for pc in pieces:
+            meiose_planes_window(par[0], par[1], *children, pc.lo, fl, ml,
+                                 *piece_plan(plan[0], plan[1], pc,
+                                             cfg.chr_len),
+                                 *piece_plan(plan[2], plan[3], pc,
+                                             cfg.chr_len),
+                                 n_chr=pc.n_chr, chr_len=pc.length)
         if d["mut"] is not None:
             for g, (pos, valid) in enumerate(d["mut"]):
-                loc, inr = _local_loci(pos[rows], lo, m_loc)
+                loc, inr = local_loci(pos[rows], lo, m_loc)
                 dense_step.flip_loci(children[g], loc.clamp(max=m_loc - 1),
                                      valid[rows] & inr)
         return {"hapA": children[0], "hapB": children[1],

@@ -305,6 +305,62 @@ def test_cuda_meiose_planes_kernel(cuda, n_chr, chr_len, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mw, w0, n_chr, chr_len, vw", [
+    (24, 8, 2, 128, 4),  # 32 bytes in: 16-byte copies
+    (24, 2, 2, 128, 1),  # 8 bytes in: word copies
+    (24, 13, 1, 96, 1),  # a partial chromosome of 3 words, odd offset
+    (4096, 1024, 3, 32768, 4),  # whole chromosomes of 1,024 words
+])
+def test_cuda_meiose_packed_window(cuda, mw, w0, n_chr, chr_len, vw):
+    """The window entry writes its words of every child row, equal to its
+    plain version (the whole-plane plain function on the slices), with
+    and without mutations; the rest of the child planes is untouched and
+    the launch counts as the kernel's."""
+    rng = np.random.default_rng(w0 + mw)
+    N, n = 40, 21
+    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, mw), dtype=torch.int32,
+                        device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, 5)
+    mu = T(mutation_loci(rng, n, n_chr * chr_len, 4), device=cuda)
+    kw = dict(n_chr=n_chr, chr_len=chr_len)
+    for m in (mu, None):
+        out = torch.full((n, 2, mw), 7, dtype=torch.int32, device=cuda)
+        want = out.clone()
+        before = tpacked.meiose_packed.launches
+        got = tpacked.meiose_packed_window(hap, out, w0, *args, m, **kw)
+        tpacked.meiose_packed_window_plain(hap, want, w0, *args, m, **kw)
+        torch.cuda.synchronize()
+        assert got is out and torch.equal(out, want)
+        assert tpacked.meiose_packed_window.plan.vw == vw
+        assert tpacked.meiose_packed.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_all, l0, n_chr, chr_len", [
+    (640, 64, 2, 128),  # 16-byte aligned: vector path
+    (640, 37, 2, 128),  # unaligned offset: byte path
+    (600, 150, 1, 50),  # a partial chromosome of 50 loci
+])
+def test_cuda_meiose_planes_window(cuda, m_all, l0, n_chr, chr_len):
+    """The byte kernel's window entry on wider planes equals its plain
+    version; loci outside the window stay as they were."""
+    rng = np.random.default_rng(l0)
+    N, n = 30, 17
+    hapA = torch.randint(0, 2, (N, m_all), dtype=torch.uint8, device=cuda)
+    hapB = torch.randint(0, 2, (N, m_all), dtype=torch.uint8, device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, 4)
+    outs = [torch.full((n, m_all), 9, dtype=torch.uint8, device=cuda)
+            for _ in range(2)]
+    want = [o.clone() for o in outs]
+    kw = dict(n_chr=n_chr, chr_len=chr_len)
+    got = tplanes.meiose_planes_window(hapA, hapB, *outs, l0, *args, **kw)
+    tplanes.meiose_planes_window_plain(hapA, hapB, *want, l0, *args, **kw)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip(got, outs))
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_chr, chr_len, K", [(3, 8192, 5), (3, 104, 4)])
 def test_cuda_meiose_kernels_foreign_slot(cuda, n_chr, chr_len, K):
     """A slot of chromosome c at chromosome c-1's last column: the byte

@@ -451,11 +451,11 @@ def test_clip_counts_only_truncated_draws():
 
 # ----------------------------------------------------------- dense backend
 class JaxDenseRun:
-    """A JAX `DenseSimulation` run with every generation's draws, mating
-    plans and states kept (`states` population 1's, `pop_states` every
-    population's)."""
+    """A JAX `DenseSimulation` run (on `mesh` when given) with every
+    generation's draws, mating plans and states kept (`states` population
+    1's, `pop_states` every population's)."""
 
-    def __init__(self, argv):
+    def __init__(self, argv, mesh=None):
         self.mates, self.plans, self.muts, self.states = [], [], [], []
         self.pop_states = []
         sample, mcols = jbackend._sample_gamete_plan, jbackend._mutation_cols
@@ -480,7 +480,8 @@ class JaxDenseRun:
             mp.setattr(jbackend, "_sample_gamete_plan", sample_rec)
             mp.setattr(jbackend, "_mutation_cols", mcols_rec)
             mp.setattr(mating, "assort_mate", assort_rec)
-            sim = jbackend.DenseSimulation(jax_parse_args(argv), verbose=False)
+            sim = jbackend.DenseSimulation(jax_parse_args(argv),
+                                           verbose=False, mesh=mesh)
             sim.init_generation0()
             self._keep(sim)
             for gen in range(1, sim.tot_gen + 1):
@@ -672,13 +673,3 @@ def test_dense_cli_file_set(mini_scenario, tmp_path, monkeypatch):
     names = lambda d: sorted(x.name for x in d.iterdir())
     assert names(tmp_path / "torch") == names(tmp_path / "jax")
     assert "out.pop1.gen2.chr1.hap" in names(tmp_path / "torch")
-
-
-@pytest.mark.parametrize("extra, item", [
-    (["--mesh", "auto"], "1.14"),
-])
-def test_dense_refuses_outside_slice(mini_scenario, tmp_path, extra, item):
-    cfg = parse_args(_argv(mini_scenario, tmp_path / "out")
-                     + ["--backend", "dense"] + extra)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tbackend.DenseSimulation(cfg, device="cpu", verbose=False)

@@ -350,10 +350,16 @@ def test_mesh_without_ind_axis_refused(mini_scenario, tmp_path):
 
 
 def test_segment_backend_accepts_mesh_flag(mini_scenario, tmp_path):
-    """`check_slice` refuses `--mesh` only with `--backend dense`."""
-    cfg = parse_args(_argv(mini_scenario, tmp_path / "out", "--mesh",
-                           "ind=2"))
-    torch_engine.check_slice(cfg)
-    cfg.backend = "dense"
-    with pytest.raises(NotImplementedError, match="item 1.14"):
-        torch_engine.check_slice(cfg)
+    """Nothing refuses `--mesh`: the segment engine and the dense backend
+    both build on a mesh (here a one-rank (1, 1) grid, no group needed to
+    build), and hold it."""
+    from geneevolve_tpu_torch.dense.backend import DenseSimulation
+
+    mesh = TorchMesh(("ind", "loci"), (1, 1), (0, 0), {},
+                     torch.device("cpu"))
+    for backend, cls in (("segment", torch_engine.Simulation),
+                         ("dense", DenseSimulation)):
+        cfg = parse_args(_argv(mini_scenario, tmp_path / "out", "--mesh",
+                               "ind=1", "--backend", backend))
+        sim = cls(cfg, device="cpu", verbose=False, mesh=mesh)
+        assert sim.mesh is mesh and sim._ind == 1

@@ -13,8 +13,13 @@ its part of their results. Tolerances are 0 (bit identity) unless stated:
   `hap`, `cv` and `clip`;
 - `make_sharded_step` at (4, 2), (2, 1) and (1, 2) equals the one-rank
   step for the byte and packed configurations of `tests/test_dense.py:135`
-  and `tests/test_packed.py:81`, and with one chromosome split over two
-  loci ranks;
+  and `tests/test_packed.py:81`, with one chromosome split over two loci
+  ranks, and with three chromosomes cut into unequal pieces (packed: 6
+  words over 2 ranks; byte: 300 loci); fed the JAX step's draws at (4, 2)
+  over three chromosomes of 4 words (6 words a loci rank: a chromosome
+  cut in half), it equals the JAX `make_sharded_step` on 8 virtual
+  devices; word and locus counts that do not split over 'loci' are
+  refused in the JAX package's words;
 - the deme isolation test (`tests/test_packed.py:98`), the routed law
   (`tests/test_routed_step.py:67`) and the deme-migration law
   (`tests/test_statistics.py:246`) on the port's own generators.
@@ -63,6 +68,21 @@ ONE_CHR = {
                           mut_rate=0.5, ncv=16),
     "packed_one_chr": dict(n=32, m=2048, n_chr=1, selection=True,
                            mut_rate=0.5, ncv=16),
+}
+# three chromosomes over two loci ranks: each rank holds one whole
+# chromosome and half of the middle one (packed: 1.5 of 2 words)
+THREE_CHR = {
+    "dense_three_chr": dict(n=8, m=3 * 100, n_chr=3, selection=True,
+                            mut_rate=0.5, ncv=16),
+    "packed_three_chr": dict(n=8, m=3 * 64, n_chr=3, selection=True,
+                             mut_rate=0.5, ncv=16),
+}
+# fed the JAX step's draws at (4, 2): 12 words, 6 a loci rank
+SHARDED_FED = {
+    "three_chr": dict(n=16, m=3 * 128, n_chr=3, xo_cap=8, selection=True,
+                      mut_rate=0.5, mut_cap=4, ncv=16),
+    "three_chr_no_mutations": dict(n=16, m=3 * 128, n_chr=3, xo_cap=8,
+                                   ncv=16),
 }
 
 
@@ -138,6 +158,35 @@ def _routed_draws(cfg, key, ind, loci):
         for i in range(ind) for j in range(loci)}
 
 
+def _sharded_draws(cfg, state, key) -> dict:
+    """The JAX packed step's draws (`dense/packed.py:make_step`) from its
+    key schedule, over the whole generation."""
+    n = cfg.n
+    k_mate, k_pat, k_mat, k_mu1, k_mu2 = jax.random.split(key, 5)
+    km1, km2, _ = jax.random.split(k_mate, 3)
+    if cfg.selection:
+        bv = jpk.phenotype_from_cv(state["cv"], state["eff"])
+        z = (bv - jnp.mean(bv)) / (jnp.std(bv) + 1e-9)
+        fathers = jax.random.categorical(km1, z, shape=(n,))
+        mothers = jax.random.categorical(km2, z, shape=(n,))
+    else:
+        fathers = jax.random.randint(km1, (n,), 0, n)
+        mothers = jax.random.randint(km2, (n,), 0, n)
+    dl = cfg.as_dense()
+    xo_p, st_p, cp = _sample_gamete_plan(k_pat, dl, n)
+    xo_m, st_m, cm = _sample_gamete_plan(k_mat, dl, n)
+    clip, mu = int(cp) + int(cm), None
+    if cfg.mut_rate > 0:
+        mu_a, ca = jpk.mutation_positions(k_mu1, n, cfg)
+        mu_b, cb = jpk.mutation_positions(k_mu2, n, cfg)
+        mu = np.stack([np.asarray(mu_a), np.asarray(mu_b)], 1)
+        clip += int(ca) + int(cb)
+    return {k: (v if v is None or isinstance(v, int) else np.asarray(v))
+            for k, v in dict(fathers=fathers, mothers=mothers, xo_p=xo_p,
+                             st_p=st_p, xo_m=xo_m, st_m=st_m, mu=mu,
+                             clip=clip).items()}
+
+
 def _fetch_cases():
     rng = np.random.default_rng(0)
     tab = rng.integers(0, 1 << 20, size=(256, 3)).astype(np.int32)
@@ -166,7 +215,8 @@ def jax_cases(tmp_path_factory):
 def _jax_cases():
     """The inputs, the JAX draws and the JAX results of every check."""
     mesh = _jax_mesh()
-    cases = {"fetch": _fetch_cases(), "steps": {}, "sharded": SHARDED}
+    cases = {"fetch": _fetch_cases(), "steps": {}, "sharded": SHARDED,
+             "sharded_fed": {}}
     cases["jax_fetch"] = [_jax_fetch(mesh, *c) for c in cases["fetch"]]
     cfg = jpk.PackedConfig(**STEP_CFG)
     state = jpk.init_state(jax.random.key(3), cfg)
@@ -186,15 +236,25 @@ def _jax_cases():
         cases["steps"][name] = dict(kind=kind, cfg=STEP_CFG, **kw,
                                     state=_state_np(state), draws=draws,
                                     want=want)
+    for name, kw in SHARDED_FED.items():
+        cfg = jpk.PackedConfig(**kw)
+        state = jpk.init_state(jax.random.key(5), cfg)
+        key = jax.random.key(13)
+        want = jmesh.make_sharded_step(cfg, mesh)(
+            jmesh.shard_state(state, mesh), key)
+        cases["sharded_fed"][name] = dict(
+            cfg=kw, state=_state_np(state),
+            draws=_sharded_draws(cfg, state, key), want=_state_np(want))
     return cases
 
 
 @pytest.fixture(scope="module")
 def ranks8(jax_cases, tmp_path_factory):
     run = {k: v for k, v in jax_cases.items()
-           if k in ("fetch", "steps", "sharded")}
-    run["steps"] = {k: {kk: vv for kk, vv in v.items() if kk != "want"}
-                    for k, v in run["steps"].items()}
+           if k in ("fetch", "steps", "sharded", "sharded_fed")}
+    for part in ("steps", "sharded_fed"):
+        run[part] = {k: {kk: vv for kk, vv in v.items() if kk != "want"}
+                     for k, v in run[part].items()}
     return torch_dist.once(tmp_path_factory, "mesh_ranks8", lambda: (
         torch_dist.launch_by(time.monotonic() + RANKS8_S,
                              torch_dist.mesh_checks, 8, (run,))))
@@ -205,7 +265,7 @@ def ranks2(tmp_path_factory):
     return torch_dist.once(tmp_path_factory, "mesh_ranks2", lambda: (
         torch_dist.launch_by(time.monotonic() + RANKS2_S,
                              torch_dist.pair_checks, 2,
-                             ({**SHARDED, **ONE_CHR},))))
+                             ({**SHARDED, **ONE_CHR, **THREE_CHR},))))
 
 
 def test_ranks_take_grid_coordinates(ranks8):
@@ -256,14 +316,31 @@ def test_sharded_step_4x2_equals_one_rank(ranks8, name):
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
-@pytest.mark.parametrize("name", sorted({**SHARDED, **ONE_CHR}))
+@pytest.mark.parametrize("name", sorted({**SHARDED, **ONE_CHR, **THREE_CHR}))
 def test_sharded_step_2_ranks_equals_one_rank(ranks2, shape, name):
     for r in ranks2:
         assert all(r[(shape, name)].values()), (shape, name, r[(shape, name)])
 
 
-def test_sharded_step_refuses_unequal_pieces(ranks2):
-    assert "unequal pieces" in ranks2[0]["refused"]
+@pytest.mark.parametrize("name, size", [("packed", 3), ("dense", 99)])
+def test_sharded_step_refuses_splits_jax_refuses(ranks2, name, size):
+    """6 words over 2 loci ranks split (`test_sharded_step_2_ranks_...`),
+    3 do not; nor do 99 byte-step loci. JAX's words (the jit's sharding
+    refusal)."""
+    msg = ranks2[0][("refused", name)]
+    assert msg is not None
+    assert (f"should be divisible by 2, but it is equal to {size}"
+            in msg), msg
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED_FED))
+def test_sharded_step_fed_jax_draws_matches_jax(ranks8, jax_cases, name):
+    want = jax_cases["sharded_fed"][name]["want"]
+    for r in ranks8:
+        got = r["sharded_fed"][name]
+        np.testing.assert_array_equal(got["hap"], want["hap"])
+        np.testing.assert_array_equal(got["cv"], want["cv"])
+        assert int(got["clip"]) == int(want["clip"])
 
 
 def test_deme_step_isolates_shards(ranks8):

@@ -168,9 +168,9 @@ def routed_law(mesh) -> dict:
 
 def mesh_checks(rank: int, cases: dict) -> dict:
     """The 8-rank checks: on a (4, 2) mesh `routed_fetch`, the deme and
-    routed steps fed the JAX steps' draws, `make_sharded_step`, deme
-    isolation and the routed law; on an (8, 1) mesh the deme-migration
-    law."""
+    routed steps fed the JAX steps' draws, `make_sharded_step` (against
+    the one-rank step, and fed the JAX step's draws), deme isolation and
+    the routed law; on an (8, 1) mesh the deme-migration law."""
     mesh = pm.make_mesh((4, 2), "cpu")
     i, j = mesh.coords
     out = {"coords": (i, j)}
@@ -198,6 +198,8 @@ def mesh_checks(rank: int, cases: dict) -> dict:
         cfg = (pk.PackedConfig(**kw) if name.startswith("packed")
                else ds.DenseConfig(**kw))
         out[name] = sharded_vs_one_rank(mesh, cfg)
+    out["sharded_fed"] = {name: sharded_fed(mesh, c)
+                          for name, c in cases["sharded_fed"].items()}
     out["isolation"] = deme_isolation(mesh)
     out["routed_law"] = routed_law(mesh)
     out["traffic"] = mesh.traffic.summary()
@@ -208,8 +210,9 @@ def mesh_checks(rank: int, cases: dict) -> dict:
 
 def pair_checks(rank: int, cases: dict) -> dict:
     """The 2-rank checks: `make_sharded_step` at (2, 1) and (1, 2) (the
-    latter also one chromosome split over both loci ranks), and the
-    refusal of a split into unequal pieces."""
+    latter also one chromosome split over both loci ranks, and three
+    chromosomes cut into unequal pieces), and the refusals of word and
+    locus counts that do not split over 'loci'."""
     out = {}
     for shape in ((2, 1), (1, 2)):
         mesh = pm.make_mesh(shape, "cpu")
@@ -218,12 +221,24 @@ def pair_checks(rank: int, cases: dict) -> dict:
                    else ds.DenseConfig(**kw))
             out[(shape, name)] = sharded_vs_one_rank(mesh, cfg)
     mesh = pm.make_mesh((1, 2), "cpu")
-    try:
-        pm.make_sharded_step(pk.PackedConfig(n=8, m=3 * 64, n_chr=3), mesh)
-        out["refused"] = None
-    except ValueError as e:
-        out["refused"] = str(e)
+    for name, cfg in (("packed", pk.PackedConfig(n=8, m=3 * 32, n_chr=3)),
+                      ("dense", ds.DenseConfig(n=8, m=3 * 33, n_chr=3))):
+        try:
+            pm.make_sharded_step(cfg, mesh)
+            out[("refused", name)] = None
+        except ValueError as e:
+            out[("refused", name)] = str(e)
     return out
+
+
+def sharded_fed(mesh, case: dict) -> dict:
+    """`make_sharded_step` (packed) on this rank's shard of `case["state"]`
+    fed `case["draws"]`, the whole generation's: the full state after
+    it."""
+    cfg = pk.PackedConfig(**case["cfg"])
+    st = convert.packed_shard_from_numpy(case["state"], mesh)
+    return _out(pm.make_sharded_step(cfg, mesh)(st, None,
+                                                draws=case["draws"]), mesh)
 
 
 # ----------------------------------------------------------------- engine
@@ -289,6 +304,66 @@ def engine_runs(rank: int, shape, runs) -> list:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
+    return out
+
+
+# ----------------------------------------------------------- dense backend
+def _inject(sim, inject) -> None:
+    """Feed `sim` mating plans (`mates`, per (generation, population) in
+    call order), device draws (`plans`: (xo_p, st_p, xo_m, st_m, mu)) and
+    each generation's plane rows (`rows`) drawn elsewhere."""
+    n_pop = len(sim.pops)
+
+    def at(p, gen):
+        return (gen - 1) * n_pop + p.index
+
+    sim._mate = lambda p, gen, pop_size, g: inject["mates"][at(p, gen)]
+    sim._child_rows = lambda p, gen, n_child, par_rows: \
+        inject["rows"][at(p, gen)]
+    sim._plan = lambda p, gen, n_pad: tuple(
+        None if x is None else torch.from_numpy(np.array(x)).to(sim.device)
+        for x in inject["plans"][at(p, gen)])
+
+
+def dense_runs(rank: int, runs) -> list:
+    """`DenseSimulation` runs on meshes of CPU ranks, in order. Each run
+    is a dict: `shape` (ind, loci), `argv`, optionally `inject` (see
+    `_inject`) and `states` (keep population 1's whole planes, gathered
+    from every rank, after each generation). Returns each run's exchange
+    record and block shape, and on rank 0 the kept states. A run with
+    `roundtrip` (a whole dense state as numpy) instead carries it onto
+    the ranks and back (`convert.dense_shard_*`), returning this rank's
+    block shape and the state back."""
+    from geneevolve_tpu_torch.config import parse_args
+    from geneevolve_tpu_torch.dense.backend import DenseSimulation
+
+    out = []
+    for run in runs:
+        mesh = pm.make_mesh(run["shape"], "cpu")
+        if "roundtrip" in run:
+            st = convert.dense_shard_from_numpy(run["roundtrip"], mesh)
+            out.append({"block": tuple(st.hap.shape),
+                        "back": convert.dense_shard_to_numpy(st, mesh)})
+            continue
+        sim = DenseSimulation(parse_args(run["argv"]), mesh=mesh,
+                              verbose=False)
+        if run.get("inject") is not None:
+            _inject(sim, run["inject"])
+        states = []
+        if run.get("states"):
+            step = sim.step
+
+            def kept(gen, step=step, sim=sim):
+                step(gen)
+                st = sim.pops[0].state
+                states.append(dict(n=st.n, **sim._ckpt_genome_arrays(st)))
+
+            sim.step = kept
+        sim.run()
+        st = sim.pops[0].state
+        out.append({"traffic": mesh.traffic.summary(),
+                    "block": tuple(st.hap.shape),
+                    "states": states if rank == 0 else None})
     return out
 
 
