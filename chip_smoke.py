@@ -27,7 +27,12 @@ Phases, each of which raises on failure (exit code non-zero):
    gather also as one table, the count and the merge also at one
    chromosome; the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
    8 chromosomes) with and without mutations and in the split-plane
-   layout; the byte meiosis at n 4,096 x 1 Mi loci;
+   layout, and at its odd twin (`flagship_odd`: 8 chromosomes of 4,095
+   words, rows that are not whole 16-byte vectors); the byte meiosis at n
+   4,096 x 1 Mi loci and at 8 chromosomes of 131,071 loci (`m_odd`: rows
+   8 bytes off 16 every other row); each entry of kernels 4 and 5 prints
+   its launch plan (`shifted`: parent planes read at a shift, `edges`:
+   child rows cut into head, body and tail);
 2. parity: the segment slice on `cuda` and on `cpu` (plain versions) on a
    small scenario, the CUDA run fed the CPU run's mating and reproduce
    plans; ledgers, mutations and resident CVs identical every generation;
@@ -80,13 +85,20 @@ Phases, each of which raises on failure (exit code non-zero):
 4. dense parity: `--backend dense` with hap/VCF/PLINK output on `cuda`
    and on `cpu`, the CUDA run fed the CPU run's mating plans and draws:
    planes and CV matrices equal every generation, genotype files
-   byte-identical;
+   byte-identical; over 256 SNPs a chromosome (8 words) and over 200
+   (`dense_parity_odd`: padded to 224 loci, 7 words);
 5. dense slice: Table 3.1's shape with a 2,000-founder x 2,048-SNP panel
    per chromosome through `cli.main --backend dense`, with the same checks,
    one packed-meiosis launch per generation and the resident CV matrices
    equal to the planes' CVs at the end; then the packed meiosis and the CV
    row gather against their plain versions on the last generation's own
    inputs (22 chromosomes of 64 words, 4,400-byte CV rows), bit-exact;
+5a. `dense_odd31`: the dense slice over 2,000 SNPs a chromosome (padded
+   to 2,016 loci, 63 words: kernel 4 cuts every child row into head, body
+   and tail and reads the B planes, at +1,386 words, shifted), 3
+   generations with the same checks; its s/gen beside dense31's; then the
+   packed meiosis on its last generation's own inputs, bit-exact (the
+   `dense_odd` entry);
 5b. dense mutations: the dense slice again for 3 generations with a
    mutation map of rate 1 in every bin (~0.9 de novo mutations a gamete
    on the dense law, where the slice's own map gives 4.3e-4): the mean
@@ -100,7 +112,8 @@ Phases, each of which raises on failure (exit code non-zero):
    packed meiosis a generation and population;
 6. packed engine: `dense.packed.make_step` at the flagship shape, 1 warm-up
    and 5 timed generations, the resident CV matrix checked against the
-   planes at the end;
+   planes at the end; then the same at 8 chromosomes of 4,095 words
+   (`packed_engine_odd`), its ind.loci.gens/s beside the aligned step's;
 7. byte engine: `dense.step.make_step` against `dense.packed.make_step`
    at n 4,096 x 1 Mi loci, 2 generations from identically seeded
    generators, equal after unpacking;
@@ -206,6 +219,10 @@ SCENARIO = dict(n0=10_000, pop_size=30_000, gens=5, nchr=22, ncv=100)
 DENSE_SCENARIO = dict(n0=2_000, pop_size=30_000, gens=5, nchr=22, ncv=100,
                       snps=2_048, cvs_on_panel=True)
 DENSE_VARIANCES = ["--va", "0.5", "--ve", "0.5"]
+# the dense slice over 2,000 SNPs a chromosome: padded to 2,016 loci, 63
+# words, so its child rows take heads, tails and shifted parent planes
+DENSE_ODD_SNPS = 2_000
+DENSE_ODD_GENS = 3
 KERNELS = {  # name -> (source, TPU function it replaces)
     "cdf_bins": ("geneevolve_tpu_torch/csrc/cdf_bins.cu",
                  "geneevolve_tpu/ops/cdf_bins_pallas.py:119"),
@@ -229,6 +246,11 @@ PACKED_ENTRIES = {"no_mutations": "tools/kexp.py:178",
 FLAGSHIP = dict(n=16_384, m=1 << 20, n_chr=8, morgans_per_chr=1.0, xo_cap=8,
                 mut_rate=1.0, mut_cap=8, ncv=256, selection=True)
 BYTE_N = 4096  # byte-engine rows: 2 x 4 GiB of uint8 planes at 1 Mi loci
+# the flagship's odd twins: 8 chromosomes of 131,040 loci (4,095 words) for
+# the packed kernel and step, 8 of 131,071 loci (m % 16 = 8) for the byte
+# kernel
+FLAGSHIP_ODD = dict(FLAGSHIP, m=8 * 131_040)
+BYTE_ODD_M = 8 * 131_071
 # each path: the kernels it must launch; its counts are read after it runs
 SEGMENT = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
 PATHS = {
@@ -240,8 +262,10 @@ PATHS = {
     "segment_output": SEGMENT + ("paint",),
     "segment_profiled": SEGMENT,
     "dense_slice": ("meiose_packed", "gather_rows"),
+    "dense_odd": ("meiose_packed", "gather_rows"),
     "dense_mutations": ("meiose_packed", "gather_rows"),
     "packed_engine": ("meiose_packed", "gather_rows"),
+    "packed_engine_odd": ("meiose_packed", "gather_rows"),
     "byte_engine": ("meiose_planes", "meiose_packed"),
     "segment_device_mating": SEGMENT,
     "dense_device_mating": ("meiose_packed", "gather_rows"),
@@ -313,7 +337,9 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "dense_multipop": MULTIPOP_GENS,
              "segment_profiled": 1,
              "dense_slice": DENSE_SCENARIO["gens"],
+             "dense_odd": DENSE_ODD_GENS,
              "dense_mutations": DENSE_MUT_GENS, "packed_engine": 6,
+             "packed_engine_odd": 6,
              "byte_engine": 2, "segment_device_mating": SCENARIO["gens"],
              "dense_device_mating": DENSE_DM_GENS,
              "scenario31": SCENARIO_GENS, "scenario31_resume": 1,
@@ -724,9 +750,10 @@ def kernel_phase(dev) -> list:
 
 
 def _compare_packed(name: str, kern, plain, work: dict, wrapper) -> dict:
-    """`_compare` for an entry of the packed meiosis, with the kernel also
-    timed queued (at the dense slice's shape the wrapper's host time is a
-    large part of one call) and the launch plan the entry used."""
+    """`_compare` for an entry of the packed or the byte meiosis, with the
+    kernel also timed queued (at the dense slice's shape the wrapper's
+    host time is a large part of one call) and the launch plan the entry
+    used."""
     import dataclasses
 
     r = _compare(name, kern, plain, work, queued=True)
@@ -739,9 +766,9 @@ def _window_entries(hap, args, mu, cfg) -> list:
     """Kernel 4's window entry at the flagship's planes, as the sharded
     steps and the dense mesh launch it (in place, at a word offset, with
     the plan made local to the piece): four whole chromosomes, the second
-    half of one (16-byte copies) and a chromosome less its first word (an
-    odd word offset: word copies); each against its plain version, timed
-    and bounded as the whole-plane launch."""
+    half of one and a chromosome less its first word (an odd word offset:
+    heads and tails, 16-byte copies all the same); each against its plain
+    version, timed and bounded as the whole-plane launch."""
     import torch
 
     from geneevolve_tpu_torch.ops import meiose_packed as mp
@@ -775,10 +802,10 @@ def _window_entries(hap, args, mu, cfg) -> list:
 
 def _planes_window_entries(hapA, hapB, args, rows: int, cfg) -> list:
     """Kernel 5's window entry on the byte planes, as the sharded byte
-    step launches it: four whole chromosomes (16-byte accesses) and a
-    chromosome less its first 5 loci (an odd offset: byte accesses); each
-    against its plain version, its bound the whole launch's scaled to the
-    window's loci."""
+    step launches it: four whole chromosomes and a chromosome less its
+    first 5 loci (an odd offset: heads and tails, 16-byte accesses all the
+    same); each against its plain version, its bound the whole launch's
+    scaled to the window's loci."""
     import torch
 
     from geneevolve_tpu_torch.ops import meiose_planes as mpl
@@ -797,24 +824,82 @@ def _planes_window_entries(hapA, hapB, args, rows: int, cfg) -> list:
         local = (f, mo, *pm.piece_plan(xo_p, st_p, pc, L),
                  *pm.piece_plan(xo_m, st_m, pc, L))
         kw = dict(n_chr=pc.n_chr, chr_len=pc.length)
-        r = _compare(
+        r = _compare_packed(
             f"meiose_planes/{name}",
             lambda: mpl.meiose_planes_window(hapA, hapB, *outs[0], lo,
                                              *local, **kw),
             lambda: mpl.meiose_planes_window_plain(hapA, hapB, *outs[1], lo,
                                                    *local, **kw),
             _bound(rows * pc.m // cfg.m + _nbytes(*local)
-                   + 2 * BYTE_N * pc.m, 2 * BYTE_N * pc.m))
+                   + 2 * BYTE_N * pc.m, 2 * BYTE_N * pc.m),
+            mpl.meiose_planes_window)
         entries.append(dict(entry=name, replaces=KERNELS["meiose_planes"][1],
                             loci=pc.m, offset=lo, **r))
     return entries
 
 
+def _flagship_odd(dev, g, parents, plans) -> dict:
+    """Kernel 4 at the flagship's odd twin: n 16,384, 8 chromosomes of
+    131,040 loci (4,095 words: every child row a head or a tail), with
+    mutations, against its plain version; bounded as the flagship."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+    from geneevolve_tpu_torch.ops import meiose_packed as mp
+
+    cfg = packed.PackedConfig(**FLAGSHIP_ODD, couples=True)
+    n, kw = cfg.n, dict(n_chr=cfg.n_chr, chr_len=cfg.chr_len)
+    hap = torch.randint(-2**31, 2**31 - 1, (n, 2, cfg.mw), generator=g,
+                        device=dev, dtype=torch.int32)
+    args = (*parents(n, n), *plans(cfg.as_dense(), n))
+    mu = torch.stack([packed.mutation_positions(g, n, cfg)[0]
+                      for _ in range(2)], 1)
+    r = _compare_packed(
+        "meiose_packed/flagship_odd",
+        lambda: mp.meiose_packed(hap, *args, mu, **kw),
+        lambda: mp.meiose_packed_plain(hap, *args, mu, **kw),
+        _packed_work(_packed_need(n, args, **kw), args, mu, **kw),
+        mp.meiose_packed)
+    return dict(entry="flagship_odd", replaces=KERNELS["meiose_packed"][1],
+                shape=f"{n} x {cfg.n_chr} chromosomes of "
+                f"{cfg.chr_len // 32} words", **r)
+
+
+def _planes_m_odd(dev, g, parents, plans) -> dict:
+    """Kernel 5 at n 4,096 x 8 chromosomes of 131,071 loci (m % 16 = 8:
+    every other row 8 bytes off 16, so parent rows are shifted against
+    their children's), against its plain version; bounded as the
+    whole-plane entry."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import step
+    from geneevolve_tpu_torch.ops import meiose_planes as mpl
+
+    dcfg = step.DenseConfig(n=BYTE_N, m=BYTE_ODD_M, n_chr=FLAGSHIP["n_chr"],
+                            xo_cap=FLAGSHIP["xo_cap"])
+    hapA, hapB = (torch.randint(0, 2, (BYTE_N, dcfg.m), generator=g,
+                                device=dev, dtype=torch.uint8)
+                  for _ in range(2))
+    args = (*parents(BYTE_N, BYTE_N), *plans(dcfg, BYTE_N))
+    rows = _rows_read(hapA, *args[:2]) + _rows_read(hapB, *args[:2])
+    r = _compare_packed(
+        "meiose_planes/m_odd",
+        lambda: mpl.meiose_planes(hapA, hapB, *args, n_chr=dcfg.n_chr),
+        lambda: mpl.meiose_planes_plain(hapA, hapB, *args,
+                                        n_chr=dcfg.n_chr),
+        _bound(rows + _nbytes(*args) + 2 * BYTE_N * dcfg.m,
+               2 * BYTE_N * dcfg.m), mpl.meiose_planes)
+    return dict(entry="m_odd", replaces=KERNELS["meiose_planes"][1],
+                shape=f"{BYTE_N} x {dcfg.n_chr} chromosomes of "
+                f"{dcfg.m // dcfg.n_chr} loci", **r)
+
+
 def dense_kernel_phase(dev) -> list:
-    """The packed meiosis (three entries) at the flagship shape and the
-    byte meiosis at n 4,096 x 1 Mi loci, each against its plain version,
-    with plans from the port's own sampler (couple-sorted parents, as the
-    packed step draws them)."""
+    """The packed meiosis (three entries) at the flagship shape and at its
+    odd twin (`flagship_odd`: 8 chromosomes of 4,095 words), and the byte
+    meiosis at n 4,096 x 1 Mi loci and at 8 chromosomes of 131,071 loci
+    (`m_odd`), each against its plain version, with plans from the port's
+    own sampler (couple-sorted parents, as the packed step draws them)."""
     import torch
 
     from geneevolve_tpu_torch.dense import packed, step
@@ -868,8 +953,10 @@ def dense_kernel_phase(dev) -> list:
             lambda: mp.meiose_packed_split(hapA, hapB, *args, **kw),
             lambda: mp.meiose_packed_split_plain(hapA, hapB, *args, **kw),
             work(None), mp.meiose_packed_split)))
-    results.append(dict(name="meiose_packed", entries=entries, **main))
     del hapA, hapB
+    torch.cuda.empty_cache()
+    entries.append(_flagship_odd(dev, g, parents, plans))
+    results.append(dict(name="meiose_packed", entries=entries, **main))
     torch.cuda.empty_cache()
 
     dcfg = step.DenseConfig(n=BYTE_N, m=cfg.m, n_chr=cfg.n_chr,
@@ -890,6 +977,8 @@ def dense_kernel_phase(dev) -> list:
     results[-1]["entries"] = _planes_window_entries(hapA, hapB, args, rows,
                                                     cfg)
     del hapA, hapB
+    torch.cuda.empty_cache()
+    results[-1]["entries"].append(_planes_m_odd(dev, g, parents, plans))
     torch.cuda.empty_cache()
     for r in results:
         r.update(route="cuda", source=KERNELS[r["name"]][0],
@@ -2064,9 +2153,10 @@ def profile_phase(dev, work: Path, base: list) -> dict:
 
 
 def _dense_run(dev, work: Path, name: str, gens: int, base=None,
-               extra=(), mat_cor=0.0) -> dict:
-    """`--backend dense` at Table 3.1's shape with a real panel through
-    `slice_phase`, `gens` generations; the resident CV matrices equal the
+               extra=(), mat_cor=0.0, snps=None) -> dict:
+    """`--backend dense` at Table 3.1's shape with a real panel (`snps` a
+    chromosome, else the dense slice's) through `slice_phase`, `gens`
+    generations; the resident CV matrices equal the
     planes' CVs at the end. The last generation's packed-meiosis and
     CV-gather inputs are kept under `captured`, and each generation's de
     novo mutations (a count left on the card, and the gametes drawn) under
@@ -2096,6 +2186,8 @@ def _dense_run(dev, work: Path, name: str, gens: int, base=None,
         return cv_child(cv_par, parent, *rest)
 
     scenario = dict(DENSE_SCENARIO, gens=gens)
+    if snps is not None:
+        scenario["snps"] = snps
     extra = ["--backend", "dense", *DENSE_VARIANCES, *extra]
     if base is not None:
         (work / name).mkdir(parents=True, exist_ok=True)
@@ -2127,6 +2219,20 @@ def dense_slice(dev, work: Path) -> dict:
     """The dense slice: `_dense_run` over the scenario's own maps, 5
     generations; its captured inputs feed `dense_slice_kernels`."""
     return _dense_run(dev, work, "dense31", DENSE_SCENARIO["gens"])
+
+
+def dense_odd(dev, work: Path) -> dict:
+    """The dense slice over 2,000 SNPs a chromosome (`dense_odd31`): the
+    backend pads each chromosome to 2,016 loci, 63 words, so kernel 4
+    cuts every child row into head, body and tail and reads the B planes
+    (at +1,386 words) shifted; `_dense_run`'s checks, 3 generations."""
+    out = _dense_run(dev, work, "dense_odd31", DENSE_ODD_GENS,
+                     snps=DENSE_ODD_SNPS)
+    kw = out["captured"]["meiose_packed"][1]
+    if kw["chr_len"] // 32 % 4 == 0:
+        raise AssertionError(f"dense_odd31: {kw['chr_len']} loci a "
+                             "chromosome, a whole number of 16-byte vectors")
+    return out
 
 
 def dense_mutations(dev, work: Path, dense_argv: list) -> dict:
@@ -2194,10 +2300,12 @@ def dense_mutation_kernels(kernels: list, captured: dict) -> None:
           "children)")
 
 
-def dense_slice_kernels(kernels: list, captured: dict) -> None:
-    """The packed meiosis and the CV row gather against their plain
-    versions on the dense slice's last generation's own inputs, bit-exact;
-    each result is added to its kernel's `entries`."""
+def dense_slice_kernels(kernels: list, captured: dict, entry="dense_slice",
+                        names=("meiose_packed", "gather_rows")) -> None:
+    """The packed meiosis and the CV row gather (`names`) against their
+    plain versions on a dense run's last generation's own inputs,
+    bit-exact; each result is added to its kernel's `entries` as
+    `entry`."""
     from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_packed as mp
 
@@ -2223,22 +2331,24 @@ def dense_slice_kernels(kernels: list, captured: dict) -> None:
             f"{cv_par[0].numel() * cv_par.element_size()} bytes"),
     }
     by_name = {k["name"]: k for k in kernels}
-    for name, (kern, plain, work, library, shape) in cases.items():
+    for name in names:
+        kern, plain, work, library, shape = cases[name]
         if name == "meiose_packed":
-            r = _compare_packed(f"{name}/dense_slice", kern, plain, work,
+            r = _compare_packed(f"{name}/{entry}", kern, plain, work,
                                 mp.meiose_packed)
         else:
-            r = _compare(f"{name}/dense_slice", kern, plain, work, library)
+            r = _compare(f"{name}/{entry}", kern, plain, work, library)
         by_name[name].setdefault("entries", []).append(
-            dict(entry="dense_slice", shape=shape, **r))
+            dict(entry=entry, shape=shape, **r))
         print(f"   ({shape})")
 
 
-def dense_parity_phase(dev, work: Path) -> int:
-    """`--backend dense` on `dev` vs on the CPU, the device run fed the CPU
-    run's mating plans and draws: planes and CV matrices equal every
-    generation, genotype files byte-identical. Returns the files
-    compared."""
+def dense_parity_phase(dev, work: Path, snps=256,
+                       label="dense_parity") -> int:
+    """`--backend dense` on `dev` vs on the CPU over a panel of `snps` a
+    chromosome, the device run fed the CPU run's mating plans and draws:
+    planes and CV matrices equal every generation, genotype files
+    byte-identical. Returns the files compared."""
     import filecmp
 
     import torch
@@ -2246,9 +2356,9 @@ def dense_parity_phase(dev, work: Path) -> int:
     from geneevolve_tpu_torch.config import parse_args
     from geneevolve_tpu_torch.dense.backend import DenseSimulation
 
-    root = work / "dense_parity"
+    root = work / label
     argv = _scenario(root, n0=200, pop_size=300, gens=3, nchr=3, ncv=12,
-                     snps=256, seed=3)
+                     snps=snps, seed=3)
     argv += ["--backend", "dense", "--out_hap", "--out_vcf", "--out_plink",
              "--seed", "7"]
     sims = {}
@@ -2290,20 +2400,21 @@ def dense_parity_phase(dev, work: Path) -> int:
     for x in geno:
         if not filecmp.cmp(root / "cpu" / x, root / "dev" / x, shallow=False):
             raise AssertionError(f"dense parity: {x} differs")
-    print(f" dense parity: cuda == cpu for gens 0..{ref.tot_gen} (planes, "
-          f"CV matrices); {len(geno)} genotype files byte-identical")
+    print(f" {label}: cuda == cpu for gens 0..{ref.tot_gen} (planes, "
+          f"CV matrices; {sim.dps[0].cfg.m // 96} words a chromosome); "
+          f"{len(geno)} genotype files byte-identical")
     return len(geno)
 
 
-def packed_engine_phase(dev) -> dict:
-    """The packed step at the flagship shape: 1 warm-up and 5 timed
-    generations; the resident CV matrix equals the planes' CVs at the
-    end."""
+def packed_engine_phase(dev, shape=None) -> dict:
+    """The packed step at the flagship shape (or `shape`, its odd twin): 1
+    warm-up and 5 timed generations; the resident CV matrix equals the
+    planes' CVs at the end."""
     import torch
 
     from geneevolve_tpu_torch.dense import packed
 
-    cfg = packed.PackedConfig(**FLAGSHIP, couples=True)
+    cfg = packed.PackedConfig(**(shape or FLAGSHIP), couples=True)
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     state = packed.init_state_streamed(g, cfg)
@@ -2329,7 +2440,8 @@ def packed_engine_phase(dev) -> dict:
         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
         clip=int(state["clip"]),
     )
-    print(" packed engine: s/gen " + " ".join(f"{x:.4f}" for x in gen_s)
+    print(f" packed engine ({cfg.chr_len // 32} words a chromosome): s/gen "
+          + " ".join(f"{x:.4f}" for x in gen_s)
           + f", {out['ind_loci_gens_per_s']:.4g} ind.loci.gens/s, peak "
           f"{out['max_memory_allocated_mb']:.0f} MiB, clip {out['clip']}, "
           f"init {init_s:.2f} s")
@@ -3617,12 +3729,26 @@ def main() -> int:
         torch.cuda.empty_cache()
         res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)
+        # 200 SNPs a chromosome: 224 loci, 7 words
+        dense_parity_phase(dev, work, snps=200, label="dense_parity_odd")
         res["dense_slice"] = counted("dense_slice", wrappers,
                                      lambda: dense_slice(dev, work), launches)
         dense_argv = res["dense_slice"].pop("argv")
         dense_root = res["dense_slice"].pop("root")
         # after the counted run: these launches are comparisons
         dense_slice_kernels(kernels, res["dense_slice"].pop("captured"))
+        torch.cuda.empty_cache()
+        res["dense_odd"] = counted("dense_odd", wrappers,
+                                   lambda: dense_odd(dev, work), launches)
+        check_per_gen("dense_odd", DENSE_PER_GEN)
+        del res["dense_odd"]["argv"], res["dense_odd"]["root"]
+        print(" dense_odd31: s/gen " + " ".join(
+            f"{x:.3f}" for x in res["dense_odd"]["s_per_gen"])
+            + " (dense31 " + " ".join(
+                f"{x:.3f}" for x in res["dense_slice"]["s_per_gen"]) + ")")
+        # after the counted run: these launches are comparisons
+        dense_slice_kernels(kernels, res["dense_odd"].pop("captured"),
+                            "dense_odd", ("meiose_packed",))
         torch.cuda.empty_cache()
         res["mesh"] = mesh_phases(
             dev, work, wrappers, launches,
@@ -3687,6 +3813,17 @@ def main() -> int:
     if launches["packed_engine"]["meiose_packed"] != 6:
         raise AssertionError("packed engine: one meiosis launch per "
                              "generation expected")
+    torch.cuda.empty_cache()
+    res["packed_engine_odd"] = counted(
+        "packed_engine_odd", wrappers,
+        lambda: packed_engine_phase(dev, FLAGSHIP_ODD), launches)
+    if launches["packed_engine_odd"]["meiose_packed"] != 6:
+        raise AssertionError("packed engine (odd): one meiosis launch per "
+                             "generation expected")
+    print(" packed_engine_odd: "
+          f"{res['packed_engine_odd']['ind_loci_gens_per_s']:.4g} "
+          "ind.loci.gens/s at 4,095 words a chromosome, against "
+          f"{res['packed_engine']['ind_loci_gens_per_s']:.4g} at 4,096")
     torch.cuda.empty_cache()
     res["streamed"] = counted("streamed", wrappers,
                               lambda: streamed_phase(dev), launches)

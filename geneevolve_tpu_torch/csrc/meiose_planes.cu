@@ -14,21 +14,31 @@
 // chromosome k at chromosome k-1's last column.
 //
 // Bound: memory, 6 bytes per locus per child (two planes read per gamete,
-// one written). Design: one block per (child, chunk of 16,384 loci); the
-// block stages the child's real crossovers, bucketed by the chromosome of
-// their locus (a shared-memory counting sort), and starts in shared memory;
-// each thread takes 16 loci as one 16-byte load per plane and one store
-// (when m % 16 == 0 and the rows are 16-byte aligned; otherwise byte by
-// byte). The 16 phases come from one 16-bit mask built like the packed
-// kernel's word mask (~0 past a crossover, a shifted mask at it), and are
-// spread to bytes with a multiply. No m % 8192 restriction: the TPU block
-// size is not carried over.
+// one written). Design: one block per (child, chunk of 1,024 16-byte
+// pieces, 16,384 loci); the block stages the child's real crossovers,
+// bucketed by the chromosome of their locus (a shared-memory counting
+// sort), and starts in shared memory. Each child row is cut where its own
+// addresses cross 16 bytes: a head of at most 15 bytes, a body of 16-byte
+// pieces (one 16-byte store each) and a tail of at most 15 bytes; the
+// first block of a row writes its head, the last its tail, a thread a
+// byte. A thread moves body pieces tid, tid + 256, ... of its block: where
+// a parent row lies at the child row's 16-byte phase, one 16-byte load a
+// plane; at another phase (a row stride off 16 bytes, as whole planes of
+// m % 16 != 0 have, or a window at another offset than the child's), the
+// two aligned 16-byte loads that cover the piece (the second an L1 hit of
+// the neighbour's first), funnel-shifted into place. The launch plan
+// (ops/meiose_planes.py `launch_plan`) says whether any shift can be
+// non-zero and how many blocks a row takes. The 16 phases of a piece
+// come from one 16-bit mask built like the packed kernel's word mask (~0
+// past a crossover, a shifted mask at it), and are spread to bytes with a
+// multiply. No m % 8192 restriction: the TPU block size is not carried
+// over.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLociPerBlock = 16384;
+constexpr int kPiecesPerBlock = 1024;  // 16-byte pieces of a row a block
 
 // Bit j set: locus col0 + j takes chromatid B (j < nb; one chromosome's
 // crossovers when all nb loci lie in it, else looked up per locus).
@@ -69,6 +79,33 @@ __device__ __forceinline__ uint32_t phase_bits(int col0, int nb, int g,
   return bits;
 }
 
+// the 16-byte vector holding byte `b`, and b's place in it
+__device__ __forceinline__ const uint4* vec_of(const uint8_t* b) {
+  return reinterpret_cast<const uint4*>((uintptr_t)b & ~(uintptr_t)15);
+}
+__device__ __forceinline__ int shift_of(const uint8_t* b) {
+  return (int)((uintptr_t)b & 15);
+}
+
+// The 16 bytes that start `shift` bytes into the aligned vector v[0]:
+// v[0] itself at shift 0, else v[0] and v[1] funnel-shifted
+template <bool kShift>
+__device__ __forceinline__ uint4 load16(const uint4* v, int shift) {
+  const uint4 lo = v[0];
+  if (!kShift || shift == 0) return lo;
+  const uint4 hi = v[1];
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = shift >> 2;  // whole words
+  const uint32_t r = 8u * (shift & 3);  // and bits
+  uint32_t x[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c)
+    x[c] = q == 0 ? w[c] : (q == 1 ? w[c + 1] : (q == 2 ? w[c + 2] : w[c + 3]));
+  return make_uint4(
+      __funnelshift_r(x[0], x[1], r), __funnelshift_r(x[1], x[2], r),
+      __funnelshift_r(x[2], x[3], r), __funnelshift_r(x[3], x[4], r));
+}
+
 // 0xFF in byte i of the result where bit i of the 4-bit `nib` is set
 __device__ __forceinline__ uint32_t byte_mask(uint32_t nib) {
   return ((nib * 0x00204081u) & 0x01010101u) * 0xFFu;
@@ -79,7 +116,7 @@ __device__ __forceinline__ uint32_t select4(uint32_t a, uint32_t b,
   return a ^ (byte_mask(nib) & (a ^ b));
 }
 
-template <bool kVec>
+template <bool kShift>
 __global__ void __launch_bounds__(kThreads)
     meiose_planes_kernel(const uint8_t* __restrict__ hapA,
                          const uint8_t* __restrict__ hapB,
@@ -131,33 +168,41 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int l_lo = chunk * kLociPerBlock;
-  const int l_hi = min(m, l_lo + kLociPerBlock);
+  const int k_lo = chunk * kPiecesPerBlock;
   for (int g = 0; g < 2; ++g) {
     const int64_t par = (g ? mothers : fathers)[child];
     const uint8_t* pa = hapA + par * par_stride;
     const uint8_t* pb = hapB + par * par_stride;
     uint8_t* po = (g ? outB : outA) + child * out_stride;
-    for (int col0 = l_lo + 16 * threadIdx.x; col0 < l_hi;
-         col0 += 16 * kThreads) {
-      const int nb = min(16, l_hi - col0);
+    // the child row's cut: head bytes up to its first 16-byte boundary,
+    // then body pieces, then the tail
+    const int hd = min((int)((16 - ((uintptr_t)po & 15)) & 15), m);
+    const int nbody = (m - hd) >> 4;
+    const uint4* va = vec_of(pa + hd);
+    const uint4* vb = vec_of(pb + hd);
+    const int sa = kShift ? shift_of(pa + hd) : 0;
+    const int sb = kShift ? shift_of(pb + hd) : 0;
+    uint4* vo = reinterpret_cast<uint4*>(po + hd);
+    const int k_hi = min(nbody, k_lo + kPiecesPerBlock);
+    for (int k = k_lo + threadIdx.x; k < k_hi; k += kThreads) {
       const uint32_t bits =
-          phase_bits(col0, nb, g, n_chr, chr_len, xs, xend, xcnt, st);
-      if (kVec) {
-        const uint4 a = *reinterpret_cast<const uint4*>(pa + col0);
-        const uint4 b = *reinterpret_cast<const uint4*>(pb + col0);
-        uint4 o;
-        o.x = select4(a.x, b.x, bits & 0xF);
-        o.y = select4(a.y, b.y, (bits >> 4) & 0xF);
-        o.z = select4(a.z, b.z, (bits >> 8) & 0xF);
-        o.w = select4(a.w, b.w, (bits >> 12) & 0xF);
-        *reinterpret_cast<uint4*>(po + col0) = o;
-      } else {
-        for (int j = 0; j < nb; ++j) {
-          const uint8_t a = pa[col0 + j], b = pb[col0 + j];
-          po[col0 + j] = ((bits >> j) & 1u) ? b : a;
-        }
-      }
+          phase_bits(hd + 16 * k, 16, g, n_chr, chr_len, xs, xend, xcnt, st);
+      const uint4 a = load16<kShift>(va + k, sa);
+      const uint4 b = load16<kShift>(vb + k, sb);
+      uint4 o;
+      o.x = select4(a.x, b.x, bits & 0xF);
+      o.y = select4(a.y, b.y, (bits >> 4) & 0xF);
+      o.z = select4(a.z, b.z, (bits >> 8) & 0xF);
+      o.w = select4(a.w, b.w, (bits >> 12) & 0xF);
+      vo[k] = o;
+    }
+    const int n_head = chunk == 0 ? hd : 0;
+    const int n_tail = chunk == nchunks - 1 ? m - hd - 16 * nbody : 0;
+    for (int e = threadIdx.x; e < n_head + n_tail; e += kThreads) {
+      const int col = e < n_head ? e : m - n_tail + (e - n_head);
+      const uint32_t bit =
+          phase_bits(col, 1, g, n_chr, chr_len, xs, xend, xcnt, st);
+      po[col] = bit ? pb[col] : pa[col];
     }
   }
 }
@@ -168,21 +213,18 @@ __global__ void __launch_bounds__(kThreads)
 // par_stride bytes apart; outA/outB: locus 0 of child row 0, rows
 // out_stride bytes apart (a window of wider planes, or whole ones);
 // fathers/mothers (n,) int32; xo_p/xo_m (n, n_chr, K) int32 loci of the
-// window (pad = m); st_p/st_m (n, n_chr) int32.
+// window (pad = m); st_p/st_m (n, n_chr) int32. The launch plan (shifted,
+// nchunks blocks a child, smem) is the host's `launch_plan` for these
+// shapes, strides and pointer offsets.
 GE_API int ge_meiose_planes(const void* hapA, const void* hapB,
                             int64_t par_stride, void* outA, void* outB,
                             int64_t out_stride, const void* fathers,
                             const void* mothers, const void* xo_p,
                             const void* st_p, const void* xo_m,
                             const void* st_m, int64_t n, int m, int n_chr,
-                            int K, int chr_len, void* stream) {
+                            int K, int chr_len, int shifted, int nchunks,
+                            int smem, void* stream) {
   if (n == 0 || m == 0) return (int)cudaGetLastError();
-  const int nchunks = (m + kLociPerBlock - 1) / kLociPerBlock;
-  const size_t smem = sizeof(int32_t) * (2 * (size_t)n_chr * K + 6 * n_chr);
-  const uintptr_t align =
-      (uintptr_t)hapA | (uintptr_t)hapB | (uintptr_t)outA | (uintptr_t)outB;
-  const bool vec = align % 16 == 0 && m % 16 == 0 && par_stride % 16 == 0 &&
-                   out_stride % 16 == 0;
   const dim3 grid((unsigned)(n * nchunks));
   cudaStream_t s = (cudaStream_t)stream;
 #define GE_LAUNCH(V)                                                        \
@@ -192,7 +234,7 @@ GE_API int ge_meiose_planes(const void* hapA, const void* hapB,
       (const int32_t*)mothers,                                              \
       (const int32_t*)xo_p, (const int32_t*)st_p, (const int32_t*)xo_m,     \
       (const int32_t*)st_m, m, n_chr, K, chr_len, nchunks)
-  if (vec) {
+  if (shifted) {
     GE_LAUNCH(true);
   } else {
     GE_LAUNCH(false);

@@ -45,11 +45,11 @@ SIGNATURES = {
     ],
     "ge_meiose_packed": [
         _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _I, _I64,
-        _I, _I, _I, _I, _I, _I, _I, _I64, _I, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I, _P,
     ],
     "ge_meiose_planes": [
         _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
-        _I, _P,
+        _I, _I, _I, _I, _P,
     ],
     "ge_paint": [
         _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I,

@@ -14,8 +14,10 @@ stride, nothing copied): the sharded steps' and the dense mesh's pieces
 of a chromosome.
 
 The kernel cuts the work into tiles aligned to chromosomes, (child, gamete,
-chromosome, span of words); `launch_plan` sizes them from the shapes alone,
-so the CPU tests hold it to covering every child word exactly once.
+chromosome, span of words), and each child row into a head, a body of
+16-byte accesses and a tail at its own 16-byte boundaries; `launch_plan`
+sizes the tiles from the shapes, strides and pointer offsets alone, so the
+CPU tests hold it to covering every child word exactly once.
 """
 
 from __future__ import annotations
@@ -30,20 +32,30 @@ from geneevolve_tpu_torch.ops import _build
 
 MAX_SMEM = 227 * 1024  # shared memory a block may use (opted in above 48 KB)
 THREADS = 256  # threads a block
-PER_THREAD = 4  # accesses of each parent plane a thread moves, at most
-MIN_GROUP = 4  # threads a tile, at least: at most 8 tiles a warp
+PER_THREAD = 4  # body accesses of a tile a thread moves, at most
+MIN_GROUP = 4  # threads a tile, at least: at most 8 tiles a warp, and a
+#                tile's at most 6 head and tail words take one a thread
 ROWS = 8  # tiles a warp holds, at most (groups of 4 threads)
+# shifted, a warp's parent vectors of a plane: its accesses end to end,
+# each run of a tile (or of a tile's 32 lanes at one access of a thread)
+# followed by one vector
+REGION = PER_THREAD * 32 + 8
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     """How one launch cuts (n children x 2 gametes x n_chr chromosomes of
-    cw words) into tiles: a group of `group` threads owns a tile of
-    group x per_thread accesses of `vw` words (the last of a chromosome cut
-    short); thread t moves accesses t, t + group, ... (at most
-    `per_thread`)."""
+    cw words) into tiles. Each child row of a chromosome is cut where its
+    addresses cross 16 bytes: a head of at most 3 words, a body of 16-byte
+    accesses, a tail of at most 3 words. A group of `group` threads owns a
+    tile of group x per_thread body accesses (the last tile of a row cut
+    short; the first also takes the row's head, the last its tail); thread
+    t moves body accesses t, t + group, ... (at most `per_thread`)."""
 
-    vw: int  # words an access moves: 4 (16-byte copies) or 1
+    shifted: bool  # some parent plane at another 16-byte phase than its
+    #                child row: an access of it takes the vector after its
+    #                own too, staged by the next access where it can
+    edges: bool  # some child row starts or ends off a 16-byte boundary
     group: int  # threads a tile, a power of two in [MIN_GROUP, THREADS]
     per_thread: int
     splits: int  # tiles a (child, gamete, chromosome) row
@@ -52,37 +64,50 @@ class LaunchPlan:
     smem: int  # bytes of shared memory a block
 
 
+def word_offsets(*ptrs: int) -> tuple:
+    """Each pointer's 4-byte word within its 16 bytes (0..3)."""
+    return tuple(p // 4 % 4 for p in ptrs)
+
+
 @functools.lru_cache(maxsize=64)
 def launch_plan(n: int, mw: int, n_chr: int, chr_len: int, K: int, km: int,
                 par_stride: int, out_stride: int,
-                aligned: bool = True) -> LaunchPlan:
-    """The tiling of one launch, from the shapes and the planes' row strides
-    (words); `aligned`: every plane base pointer is 16-byte aligned. Raises
-    on a shape the kernel cannot take."""
+                offsets: tuple = (0, 0, 0, 0)) -> LaunchPlan:
+    """The tiling of one launch, from the shapes, the planes' row strides
+    (words) and `offsets`, the word within 16 bytes of the A, B, child-0
+    and child-1 plane base pointers (`word_offsets`). Every layout keeps
+    16-byte copies; raises on a shape the kernel cannot take."""
     _cfg(mw, n_chr, chr_len)
     if 32 * mw >= 2**31:
         raise ValueError("meiose_packed: loci (and the pad m) must fit int32")
     cw = chr_len // 32
-    vw = 4 if (aligned and cw % 4 == 0 and par_stride % 4 == 0
-               and out_stride % 4 == 0) else 1
-    acc = cw // vw
+    a, b, o0, o1 = (x % 4 for x in offsets)
+    # a plane's shift against its child row is a - o (mod 4) plus the
+    # rows' strides times their indices: zero everywhere only where all
+    # four bases share their phase and both strides are whole vectors
+    shifted = bool(par_stride % 4 or out_stride % 4 or len({a, b, o0, o1}) > 1)
+    edges = bool(cw % 4 or out_stride % 4 or o0 or o1)
+    acc = cw // 4  # body accesses of a row, at most
     need = -(-acc // PER_THREAD)
     group = min(THREADS, max(MIN_GROUP, 1 << max(need - 1, 0).bit_length()))
     per_thread = max(1, min(PER_THREAD, -(-acc // group)))
-    splits = -(-acc // (group * per_thread))  # 0 for empty rows
+    # rows of fewer than 4 words are all head and tail: one tile each
+    splits = -(-acc // (group * per_thread)) if acc else min(cw, 1)
     tiles = n * 2 * n_chr * splits
     # each warp keeps the plan of up to 8 tiles (starts, 32-slot masks of
     # the crossovers before and inside each tile and of the mutations
-    # inside it, the slots) and its lanes' parent words
+    # inside it, the slots) and its lanes' parent vectors of both planes
+    # (shifted, with one more vector after each run)
     nx, nm = ROWS * K, ROWS * km
     plan = ROWS + 2 * -(-nx // 32) + -(-nm // 32) + nx + nm
-    smem = 4 * THREADS // 32 * (-(-plan // 4) * 4 + 2 * PER_THREAD * 32 * vw)
+    vecs = REGION if shifted else PER_THREAD * 32
+    smem = 4 * THREADS // 32 * (-(-plan // 4) * 4 + 2 * vecs * 4)
     if smem > MAX_SMEM:
         raise ValueError("meiose_packed: plan too large for shared memory")
     if tiles + THREADS >= 2**31:
         raise ValueError("meiose_packed: too many tiles")
-    return LaunchPlan(vw=vw, group=group, per_thread=per_thread,
-                      splits=splits, tiles=tiles,
+    return LaunchPlan(shifted=shifted, edges=edges, group=group,
+                      per_thread=per_thread, splits=splits, tiles=tiles,
                       blocks=-(-tiles // (THREADS // group)), smem=smem)
 
 
@@ -112,8 +137,12 @@ def meiose_packed_plain(hap, fathers, mothers, xo_p, st_p, xo_m, st_m,
     return torch.stack(ab, 1)
 
 
-def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
+def _launch(planes, ptrs, par_stride, out_stride, fathers, mothers, xo_p,
             st_p, xo_m, st_m, mu, n_chr, chr_len, mw):
+    """One launch; `ptrs`: the A, B, child-0 and child-1 plane bases in
+    `planes` (the tensors holding them), reckoned from their data
+    pointers rather than sliced, to keep the host's share of a call
+    small."""
     dev = planes[0].device
     ts = [*planes, fathers, mothers, xo_p, st_p, xo_m, st_m]
     if mu is not None:
@@ -131,9 +160,8 @@ def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
             or st_m.shape != st_p.shape
             or (mu is not None and mu.shape != (n, 2, km))):
         raise ValueError("meiose_packed: shape mismatch")
-    ptrs = (*(t.data_ptr() for t in planes), *(t.data_ptr() for t in outs))
     plan = launch_plan(n, mw, n_chr, chr_len, K, km, par_stride, out_stride,
-                       all(p % 16 == 0 for p in ptrs))
+                       word_offsets(*ptrs))
     fathers, mothers, xo_p, st_p, xo_m, st_m = (
         t.contiguous() for t in (fathers, mothers, xo_p, st_p, xo_m, st_m)
     )
@@ -143,8 +171,9 @@ def _launch(planes, outs, par_stride, out_stride, fathers, mothers, xo_p,
         fathers.data_ptr(), mothers.data_ptr(), xo_p.data_ptr(),
         st_p.data_ptr(), xo_m.data_ptr(), st_m.data_ptr(),
         None if mu is None else mu.data_ptr(), km, n, n_chr, K,
-        chr_len // 32, plan.vw, plan.group.bit_length() - 1, plan.per_thread,
-        plan.splits, plan.blocks, plan.smem,
+        chr_len // 32, int(plan.edges), int(plan.shifted),
+        plan.group.bit_length() - 1,
+        plan.per_thread, plan.splits, plan.blocks, plan.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(code, "meiose_packed")
@@ -175,9 +204,10 @@ def meiose_packed(
     mw = hap.shape[2]
     out = torch.empty((fathers.shape[0], 2, mw), dtype=torch.int32,
                       device=hap.device)
+    a, o = hap.data_ptr(), out.data_ptr()
     meiose_packed.plan = _launch(
-        (hap, hap[:, 1]), (out, out[:, 1]), 2 * mw, 2 * mw, fathers, mothers,
-        xo_p, st_p, xo_m, st_m, mu, n_chr, chr_len, mw)
+        (hap, out), (a, a + 4 * mw, o, o + 4 * mw), 2 * mw, 2 * mw, fathers,
+        mothers, xo_p, st_p, xo_m, st_m, mu, n_chr, chr_len, mw)
     meiose_packed.launches += 1
     return out
 
@@ -209,8 +239,8 @@ def meiose_packed_window(
     """`out` with words [w0, w0 + n_chr * chr_len / 32) of every child
     row written: `meiose_packed` of that window of the parents' words, its
     n_chr chromosomes of chr_len loci each. The kernel reads and writes
-    the planes in place, one launch; 16-byte copies only where the
-    window's offset keeps them aligned."""
+    the planes in place, one launch, with 16-byte copies at any word
+    offset."""
     if hap.device.type == "cpu":
         return meiose_packed_window_plain(
             hap, out, w0, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
@@ -225,11 +255,12 @@ def meiose_packed_window(
     if w0 < 0 or w0 + w > min(hap.shape[2], out.shape[2]):
         raise ValueError(f"meiose_packed_window: words [{w0}, {w0 + w}) "
                          "lie outside the planes")
+    a = hap.data_ptr() + 4 * w0
+    o = out.data_ptr() + 4 * w0
     meiose_packed_window.plan = _launch(
-        (hap[:, 0, w0:w0 + w], hap[:, 1, w0:w0 + w]),
-        (out[:, 0, w0:w0 + w], out[:, 1, w0:w0 + w]), hap.stride(0),
-        out.stride(0), fathers, mothers, xo_p, st_p, xo_m, st_m, mu, n_chr,
-        chr_len, w)
+        (hap, out), (a, a + 4 * hap.shape[2], o, o + 4 * out.shape[2]),
+        hap.stride(0), out.stride(0), fathers, mothers, xo_p, st_p, xo_m,
+        st_m, mu, n_chr, chr_len, w)
     meiose_packed.launches += 1  # the kernel's count, through any entry
     meiose_packed_window.launches += 1
     return out
@@ -251,8 +282,9 @@ def meiose_packed_split(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m,
     outA = torch.empty((n, mw), dtype=torch.int32, device=hapA.device)
     outB = torch.empty_like(outA)
     meiose_packed_split.plan = _launch(
-        (hapA, hapB), (outA, outB), mw, mw, fathers, mothers, xo_p, st_p,
-        xo_m, st_m, None, n_chr, chr_len, mw)
+        (hapA, hapB, outA, outB),
+        tuple(t.data_ptr() for t in (hapA, hapB, outA, outB)), mw, mw,
+        fathers, mothers, xo_p, st_p, xo_m, st_m, None, n_chr, chr_len, mw)
     meiose_packed_split.launches += 1
     return outA, outB
 

@@ -6,9 +6,18 @@ meiosis_pallas.py `meiose_planes_pallas`). The plain version is
 crossover counting in the chromosome its locus lies in whatever slot row
 holds it. A CPU tensor goes to the plain version; a CUDA tensor to the
 kernel.
+
+The kernel cuts each child row at its own 16-byte boundaries into a head,
+a body of 16-byte pieces and a tail, whatever the window's offset, the
+row strides or m % 16; `launch_plan` picks the path and the blocks from
+the shapes, strides and pointer offsets alone, so the CPU tests hold it to
+covering every child locus exactly once.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -16,6 +25,56 @@ from geneevolve_tpu_torch.dense import step as dense_step
 from geneevolve_tpu_torch.ops import _build
 
 MAX_SMEM = 48 * 1024  # bytes of staged plan per block (no opt-in needed)
+THREADS = 256  # threads a block
+PIECES = 1024  # 16-byte pieces of a child row a block moves (16,384 loci)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch cuts (n children x 2 gametes x m loci): each child
+    row at its own 16-byte boundaries into a head of at most 15 bytes, a
+    body of 16-byte pieces and a tail of at most 15 bytes; block (child,
+    c) moves body pieces [c PIECES, (c + 1) PIECES), thread x of it pieces
+    x, x + THREADS, ...; block c = 0 also writes the heads, the last block
+    of a child the tails, a thread a byte."""
+
+    shifted: bool  # some parent row at another 16-byte phase than its
+    #                child row: two 16-byte loads a piece, funnel-shifted
+    edges: bool  # some child row starts or ends off a 16-byte boundary
+    chunks: int  # blocks a child
+    blocks: int
+    smem: int  # bytes of staged plan a block
+
+
+def byte_offsets(*ptrs: int) -> tuple:
+    """Each pointer's byte within its 16 bytes (0..15)."""
+    return tuple(p % 16 for p in ptrs)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(n: int, m: int, n_chr: int, K: int, par_stride: int,
+                out_stride: int, offsets: tuple = (0, 0, 0, 0)) -> LaunchPlan:
+    """The blocks of one launch over m loci of n children, from the
+    planes' row strides (bytes) and `offsets`, the byte within 16 of the
+    hapA, hapB, outA and outB pointers at the window's first locus
+    (`byte_offsets`). Every layout keeps 16-byte accesses; raises on a
+    shape the kernel cannot take."""
+    a, b, oa, ob = (x % 16 for x in offsets)
+    # a parent row's shift against its child row is its offset less the
+    # child's plus the rows' strides times their indices: zero everywhere
+    # only where all four share their phase and both strides are whole
+    # vectors
+    shifted = bool(par_stride % 16 or out_stride % 16
+                   or len({a, b, oa, ob}) > 1)
+    edges = bool(m % 16 or out_stride % 16 or oa or ob)
+    chunks = max(1, -(-(m // 16) // PIECES)) if m else 0
+    smem = 4 * (2 * n_chr * K + 6 * n_chr)
+    if smem > MAX_SMEM:
+        raise ValueError("meiose_planes: plan too large for shared memory")
+    if n * chunks >= 2**31:
+        raise ValueError("meiose_planes: too many blocks")
+    return LaunchPlan(shifted=shifted, edges=edges, chunks=chunks,
+                      blocks=n * chunks, smem=smem)
 
 
 def meiose_planes_plain(hapA, hapB, fathers, mothers, xo_p, st_p, xo_m, st_m,
@@ -63,20 +122,22 @@ def _launch(hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
         raise ValueError("meiose_planes: plane rows must be contiguous")
     if outA.stride(0) != outB.stride(0) or hapA.stride(0) != hapB.stride(0):
         raise ValueError("meiose_planes: both planes need one row stride")
-    if 4 * (2 * n_chr * K + 6 * n_chr) > MAX_SMEM:
-        raise ValueError("meiose_planes: plan too large for shared memory")
-    if n * ((m + 16383) // 16384) >= 2**31:
-        raise ValueError("meiose_planes: too many blocks")
+    # the window's first locus of each plane (rows hold uint8 loci), reckoned
+    # rather than sliced
+    ptrs = [t.data_ptr() + l0 for t in (hapA, hapB, outA, outB)]
+    plan = launch_plan(n, m, n_chr, K, hapA.stride(0), outA.stride(0),
+                       byte_offsets(*ptrs))
     fathers, mothers, xo_p, st_p, xo_m, st_m = (
         t.contiguous() for t in (fathers, mothers, xo_p, st_p, xo_m, st_m))
     code = _build.lib().ge_meiose_planes(
-        hapA[:, l0:].data_ptr(), hapB[:, l0:].data_ptr(), hapA.stride(0),
-        outA[:, l0:].data_ptr(), outB[:, l0:].data_ptr(), outA.stride(0),
+        *ptrs[:2], hapA.stride(0), *ptrs[2:], outA.stride(0),
         fathers.data_ptr(), mothers.data_ptr(), xo_p.data_ptr(),
         st_p.data_ptr(), xo_m.data_ptr(), st_m.data_ptr(), n, m, n_chr, K,
-        chr_len, torch.cuda.current_stream(dev).cuda_stream,
+        chr_len, int(plan.shifted), plan.chunks, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(code, "meiose_planes")
+    return plan
 
 
 def meiose_planes(
@@ -103,8 +164,8 @@ def meiose_planes(
     outA = torch.empty((fathers.shape[0], m), dtype=torch.uint8,
                        device=hapA.device)
     outB = torch.empty_like(outA)
-    _launch(hapA, hapB, outA, outB, 0, fathers, mothers, xo_p, st_p, xo_m,
-            st_m, n_chr, m // n_chr)
+    meiose_planes.plan = _launch(hapA, hapB, outA, outB, 0, fathers, mothers,
+                                 xo_p, st_p, xo_m, st_m, n_chr, m // n_chr)
     meiose_planes.launches += 1
     return outA, outB
 
@@ -128,14 +189,15 @@ def meiose_planes_window(
     """(outA, outB) with loci [l0, l0 + n_chr * chr_len) of every child row
     written: `meiose_planes` of that window of the parents' loci, its n_chr
     chromosomes of chr_len loci each, read and written in place (the
-    planes' row strides passed to the kernel, nothing copied); 16-byte
-    accesses only where the window keeps them aligned."""
+    planes' row strides passed to the kernel, nothing copied), with
+    16-byte accesses at any offset."""
     if hapA.device.type == "cpu":
         return meiose_planes_window_plain(
             hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
             st_m, n_chr=n_chr, chr_len=chr_len)
-    _launch(hapA, hapB, outA, outB, l0, fathers, mothers, xo_p, st_p, xo_m,
-            st_m, n_chr, chr_len)
+    meiose_planes_window.plan = _launch(hapA, hapB, outA, outB, l0, fathers,
+                                        mothers, xo_p, st_p, xo_m, st_m,
+                                        n_chr, chr_len)
     meiose_planes.launches += 1  # the kernel's count, through any entry
     meiose_planes_window.launches += 1
     return outA, outB
@@ -145,3 +207,5 @@ def meiose_planes_window(
 # the window entry, `meiose_planes_window`'s through the window entry
 meiose_planes.launches = 0
 meiose_planes_window.launches = 0
+# the last LaunchPlan of each entry
+meiose_planes.plan = meiose_planes_window.plan = None

@@ -261,10 +261,10 @@ def test_cuda_meiose_packed_tile_edges(cuda, n_chr, chr_len, K):
     N, n, cw, m = 20, 9, chr_len // 32, n_chr * chr_len
     plan = tpacked.launch_plan(n, m // 32, n_chr, chr_len, K, 4, m // 16,
                                m // 16)
-    tile = plan.vw * plan.group * plan.per_thread  # words
-    step = plan.vw * plan.group  # words between a thread's accesses
+    tile = 4 * plan.group * plan.per_thread  # words (16-byte accesses)
+    step = 4 * plan.group  # words between a thread's accesses
     edges = np.array(sorted({w for s in range(0, cw, tile) for w in (
-        s, s + plan.vw - 1, s + plan.vw, s + step - 1, s + step,
+        s, s + 3, s + 4, s + step - 1, s + step,
         min(s + tile, cw) - 1) if w < cw}))
     xo = np.full((2, n, n_chr, K), m, dtype=np.int32)
     for g, i, c in np.ndindex(2, n, n_chr):
@@ -305,17 +305,21 @@ def test_cuda_meiose_planes_kernel(cuda, n_chr, chr_len, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mw, w0, n_chr, chr_len, vw", [
-    (24, 8, 2, 128, 4),  # 32 bytes in: 16-byte copies
-    (24, 2, 2, 128, 1),  # 8 bytes in: word copies
-    (24, 13, 1, 96, 1),  # a partial chromosome of 3 words, odd offset
-    (4096, 1024, 3, 32768, 4),  # whole chromosomes of 1,024 words
+@pytest.mark.parametrize("mw, w0, n_chr, chr_len, shifted, edges", [
+    (24, 8, 2, 128, False, False),  # 32 bytes in: the aligned plan
+    (24, 2, 2, 128, False, True),  # 8 bytes in: heads and tails
+    (24, 13, 1, 96, False, True),  # a partial chromosome of 3 words at an
+    #                                odd offset
+    (4096, 1024, 3, 32768, False, False),  # whole chromosomes of 1,024
+    (27, 5, 2, 256, True, True),  # B, and child B, at +27 words
 ])
-def test_cuda_meiose_packed_window(cuda, mw, w0, n_chr, chr_len, vw):
+def test_cuda_meiose_packed_window(cuda, mw, w0, n_chr, chr_len, shifted,
+                                   edges):
     """The window entry writes its words of every child row, equal to its
     plain version (the whole-plane plain function on the slices), with
     and without mutations; the rest of the child planes is untouched and
-    the launch counts as the kernel's."""
+    the launch counts as the kernel's. Every offset keeps 16-byte
+    accesses: the plan cuts heads and tails, or shifts a plane."""
     rng = np.random.default_rng(w0 + mw)
     N, n = 40, 21
     hap = torch.randint(-2**31, 2**31 - 1, (N, 2, mw), dtype=torch.int32,
@@ -331,19 +335,82 @@ def test_cuda_meiose_packed_window(cuda, mw, w0, n_chr, chr_len, vw):
         tpacked.meiose_packed_window_plain(hap, want, w0, *args, m, **kw)
         torch.cuda.synchronize()
         assert got is out and torch.equal(out, want)
-        assert tpacked.meiose_packed_window.plan.vw == vw
+        plan = tpacked.meiose_packed_window.plan
+        assert (plan.shifted, plan.edges) == (shifted, edges)
         assert tpacked.meiose_packed.launches == before + 1
 
 
+def _edge_gametes(rng, cuda, N, n, n_chr, cw, K, Km):
+    """`_gametes` with crossovers and mutations on each chromosome's first
+    and last three words (a child row's head and tail at any alignment)
+    beside random ones."""
+    chr_len = 32 * cw
+    m = n_chr * chr_len
+    f, mo, xo_p, st_p, xo_m, st_m = (
+        x.cpu().numpy() for x in _gametes(rng, cuda, N, n, n_chr, chr_len, K))
+    edge = np.r_[0:min(3, cw), max(cw - 3, 0):cw]
+    for xo in (xo_p, xo_m):
+        k = rng.integers(1, 3, size=(n, n_chr))
+        for i, c in np.ndindex(n, n_chr):
+            w = rng.choice(edge, k[i, c])
+            xo[i, c, K - k[i, c]:] = (c * chr_len + 32 * w
+                                      + rng.integers(0, 32, k[i, c]))
+    mu = mutation_loci(rng, n, m, Km)
+    c = rng.integers(0, n_chr, size=(n, 2, 2))
+    mu[:, :, :2] = (c * chr_len + 32 * rng.choice(edge, (n, 2, 2))
+                    + rng.integers(0, 32, (n, 2, 2)))
+    return [T(x, device=cuda) for x in (f, mo, xo_p, st_p, xo_m, st_m)], \
+        T(mu, device=cuda)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m_all, l0, n_chr, chr_len", [
-    (640, 64, 2, 128),  # 16-byte aligned: vector path
-    (640, 37, 2, 128),  # unaligned offset: byte path
-    (600, 150, 1, 50),  # a partial chromosome of 50 loci
+@pytest.mark.parametrize("cw", [64, 65, 66, 67, 5])  # chr_len / 32 % 4
+@pytest.mark.parametrize("w0", [0, 1, 2, 3])  # the window's word offset
+@pytest.mark.parametrize("pad", [0, 1, 2, 3])  # words past the window: M % 4
+def test_cuda_meiose_packed_any_alignment(cuda, cw, w0, pad):
+    """Kernel 4 at every word alignment: windows of 3 chromosomes of cw
+    words at word w0 of (N, 2, M) planes (B, and child B, at +M words),
+    crossovers and mutations in every head and tail word; with w0 == 0
+    and no pad the whole-plane entries too (mw = M), also on planes whose
+    base pointer lies one word past 16 bytes. Each equals its plain
+    version bit for bit."""
+    rng = np.random.default_rng(1000 * cw + 10 * w0 + pad)
+    N, n, n_chr, K, Km = 30, 19, 3, 6, 5
+    mw = n_chr * cw
+    M = w0 + mw + pad
+    hap = torch.randint(-2**31, 2**31 - 1, (N, 2, M), dtype=torch.int32,
+                        device=cuda)
+    args, mu = _edge_gametes(rng, cuda, N, n, n_chr, cw, K, Km)
+    kw = dict(n_chr=n_chr, chr_len=32 * cw)
+    for m in (mu, None):
+        out = torch.full((n, 2, M), 7, dtype=torch.int32, device=cuda)
+        want = out.clone()
+        tpacked.meiose_packed_window(hap, out, w0, *args, m, **kw)
+        tpacked.meiose_packed_window_plain(hap, want, w0, *args, m, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    if w0 == 0 and pad == 0:
+        _check_packed_entries(hap, args, mu, kw)
+        flat = torch.randint(-2**31, 2**31 - 1, (2 * N * mw + 1,),
+                             dtype=torch.int32, device=cuda)
+        off = flat[1:].view(N, 2, mw)  # one word past 16 bytes
+        assert off.is_contiguous() and off.data_ptr() % 16 == 4
+        _check_packed_entries(off, args, mu, kw)
+        assert tpacked.meiose_packed.plan.shifted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m_all, l0, n_chr, chr_len, shifted", [
+    (640, 64, 2, 128, False),  # 16-byte aligned
+    (640, 37, 2, 128, False),  # an odd offset: heads and tails
+    (600, 150, 1, 50, True),  # a partial chromosome of 50 loci; rows 600
+    #                           bytes apart, 8 off 16
 ])
-def test_cuda_meiose_planes_window(cuda, m_all, l0, n_chr, chr_len):
+def test_cuda_meiose_planes_window(cuda, m_all, l0, n_chr, chr_len,
+                                   shifted):
     """The byte kernel's window entry on wider planes equals its plain
-    version; loci outside the window stay as they were."""
+    version; loci outside the window stay as they were; every offset
+    keeps 16-byte accesses."""
     rng = np.random.default_rng(l0)
     N, n = 30, 17
     hapA = torch.randint(0, 2, (N, m_all), dtype=torch.uint8, device=cuda)
@@ -358,6 +425,59 @@ def test_cuda_meiose_planes_window(cuda, m_all, l0, n_chr, chr_len):
     torch.cuda.synchronize()
     assert all(g is o for g, o in zip(got, outs))
     assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    plan = tplanes.meiose_planes_window.plan
+    assert (plan.shifted, plan.edges) == (shifted, l0 % 16 != 0 or shifted)
+
+
+def _edge_loci(rng, xo, chr_len, span=20):
+    """`xo` with a crossover of every row's chromosomes in its first and
+    last `span` loci (a child row's head and tail at any offset)."""
+    xo = xo.copy()
+    n, n_chr, K = xo.shape
+    for c in range(n_chr):
+        xo[:, c, 0] = c * chr_len + rng.integers(0, span, n)
+        xo[:, c, 1] = (c + 1) * chr_len - 1 - rng.integers(0, span, n)
+    return xo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l0", range(1, 16))  # the window's byte offset
+@pytest.mark.parametrize("n_chr, chr_len, pad", [
+    (2, 99, 0),  # m % 16 = 6
+    (2, 8197, 3),  # m % 16 = 10, two blocks a row
+])
+def test_cuda_meiose_planes_any_offset(cuda, l0, n_chr, chr_len, pad):
+    """Kernel 5 at byte offsets 1-15 of (N, M) planes, m % 16 != 0,
+    crossovers in every row's head and tail: the window entry, and the
+    whole-plane entry on planes whose base lies l0 bytes past 16 (rows m
+    bytes apart), each equal to its plain version bit for bit."""
+    rng = np.random.default_rng(100 * l0 + chr_len)
+    N, n, K = 24, 13, 4
+    m = n_chr * chr_len
+    M = l0 + m + pad
+    hapA = torch.randint(0, 256, (N, M), dtype=torch.uint8, device=cuda)
+    hapB = torch.randint(0, 256, (N, M), dtype=torch.uint8, device=cuda)
+    args = _gametes(rng, cuda, N, n, n_chr, chr_len, K)
+    for i in (2, 4):
+        args[i] = T(_edge_loci(rng, args[i].cpu().numpy(), chr_len),
+                    device=cuda)
+    outs = [torch.full((n, M), 9, dtype=torch.uint8, device=cuda)
+            for _ in range(2)]
+    want = [o.clone() for o in outs]
+    kw = dict(n_chr=n_chr, chr_len=chr_len)
+    tplanes.meiose_planes_window(hapA, hapB, *outs, l0, *args, **kw)
+    tplanes.meiose_planes_window_plain(hapA, hapB, *want, l0, *args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    flat = torch.randint(0, 256, (2, N * m + l0), dtype=torch.uint8,
+                         device=cuda)
+    a, b = (x[l0:].view(N, m) for x in flat)
+    assert a.data_ptr() % 16 == l0
+    got = tplanes.meiose_planes(a, b, *args, n_chr=n_chr)
+    want = tplanes.meiose_planes_plain(a, b, *args, n_chr=n_chr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tplanes.meiose_planes.plan.shifted
 
 
 @pytest.mark.cuda

@@ -149,6 +149,36 @@ def test_meiose_packed_plain_exact(packed_case, with_mu):
     np.testing.assert_array_equal(_u32(got), np.asarray(pal))
 
 
+@pytest.mark.parametrize("n_chr, chr_len", [(3, 224), (2, 2016)])
+def test_meiose_packed_plain_exact_odd_words(n_chr, chr_len):
+    """Chromosomes of a word count that is not a multiple of 4 (7 and 63
+    words, as a panel padded to 32 loci gives them; mw % 4 = 1 and 2): the
+    plain version, with and without mutations, equals the JAX XLA
+    word-mask path bit for bit."""
+    rng = np.random.default_rng(chr_len)
+    N, n, K, Km = 30, 17, 5, 6
+    m = n_chr * chr_len
+    hap = rng.integers(0, 2**32, size=(N, 2, m // 32),
+                       dtype=np.uint64).astype(np.uint32)
+    par = [rng.integers(0, N, size=n).astype(np.int32) for _ in range(2)]
+    plans = [_plan(rng, n, n_chr, chr_len, K) for _ in range(2)]
+    mu = _mutations(rng, n, m, Km)
+    cfg = jpk.PackedConfig(n=n, m=m, n_chr=n_chr)
+    for m_ in (mu, None):
+        got = tmp.meiose_packed(
+            T(hap.view(np.int32)), *(T(x) for x in par),
+            *(T(x) for pl in plans for x in pl),
+            None if m_ is None else T(m_), n_chr=n_chr, chr_len=chr_len)
+        ref = [jpk.meiose_packed_xla(jnp.asarray(hap), jnp.asarray(p),
+                                     jnp.asarray(xo), jnp.asarray(st), cfg)
+               for p, (xo, st) in zip(par, plans)]
+        if m_ is not None:
+            ref = [jpk.apply_mutations_packed(r, jnp.asarray(m_[:, g]))
+                   for g, r in enumerate(ref)]
+        np.testing.assert_array_equal(
+            _u32(got), np.stack([np.asarray(r) for r in ref], 1))
+
+
 def _kexp():
     spec = importlib.util.spec_from_file_location("kexp",
                                                   REPO / "tools" / "kexp.py")
