@@ -41,10 +41,18 @@ Phases, each of which raises on failure (exit code non-zero):
    a mutation map of ~1 de novo mutation per gamete per chromosome) through
    `geneevolve_tpu_torch.cli.main`, with the probe/real-pass slot
    tripwire, the outputs' shape and law, s/gen, the stage split, peak
-   device memory and the stacked kernels' launches a generation (3 bins,
-   4 gathers, 1 count, 1 merge); then those kernels against their plain
-   versions on the last generation's own inputs (the merge in both modes),
-   bit-exact; then the paint kernel at full width on the slice's final
+   device memory (the run's, each generation's and each generation's
+   parts: before the real pass, the real pass, the rest) beside the memory
+   reckoning's need, and the stacked kernels' launches a generation (3
+   bins, 1 count; in place, a group of 2 chromosomes at a time: 11
+   merges, 44 gathers); then those kernels against their plain versions
+   on the last generation's own inputs (its parents' planes copied to the
+   host before it, outside its timing), bit-exact: every launch that read
+   the parents (the count, the 11 merges, each equal to the children the
+   run wrote over the parents, and the 44 gathers; `_recheck`) and the 3
+   bins launches, timed: the bins, the last group's gathers, the count,
+   the merge of the last group and of every chromosome (both modes); then
+   the paint kernel at full width on the slice's final
    ledgers and mutations (29,978 x 2 chromatid rows, S 49) over a
    synthetic 20,000-haplotype x 14,588-locus panel a chromosome (Table
    3.1's 320,926 SNPs over 22 chromosomes, some positions before the
@@ -55,11 +63,12 @@ Phases, each of which raises on failure (exit code non-zero):
    the kernel's paths painted, and a need bound that counts only the
    ledger and mutation slots before each row's first BIG);
 3b. gather path: the same slice under GE_NO_RESIDENT_CV=1 (A/D painted
-   from the ledger, 1 paint, 2 gathers, 3 bins, 1 count and 1 merge
+   from the ledger, 1 paint, 22 gathers, 3 bins, 1 count and 11 merge
    launches a generation), its `.info` and `.summary` byte-identical to the
    resident run's, s/gen, stage split and peak memory beside it; then the
    paint kernel at that path's shape (22 chromosomes x 100 CVs) on its
-   last generation's own inputs, bit-exact;
+   last generation's own inputs, bit-exact, and every launch of that
+   generation that read the parents, as the slice's;
 3c. two populations (`multipop31`): the slice's shape twice (each
    10,000 founders, pop_size 30,000, 22 x 100 CVs, the slice's mutation
    map; population 2 from `tools/mkscenario.py` with the same seed, then
@@ -70,13 +79,38 @@ Phases, each of which raises on failure (exit code non-zero):
    population (3 bins, 2 gathers, 1 count, 1 merge, 2 paints), each
    population's final ledger holding the other's founder haps, P means
    apart (gamma), the tripwire, the checkpoint's size and save seconds;
-   then the count, the merge (int32 haps) and both paints against their
-   plain versions on its last generation's own inputs, bit-exact; then a
+   then every launch of its last generation that read the parents (both
+   populations; the last count and merge timed, int32 haps) and both
+   paints against their plain versions on their own inputs, bit-exact;
+   then a
    fresh `Simulation` resumed from its generation-2 checkpoint, its
    generation-3 `.info`/`.summary` byte-identical to the straight run's
    (load seconds); before it, a two-population cuda-vs-cpu parity at the
    parity phase's size (planes identical every generation, after
    migration too);
+3b'. capacity grow (`grow31`): the slice's files for 3 generations with
+   the ledger capacity S cut to 12 after loading, so that a generation
+   pads the ledgers into new planes (`[capacity grow]`) before its
+   in-place real pass: that generation's peak beside the others', the
+   tripwire, launches as its capacity log says; its last generation's
+   launches that read the parents re-checked as the slice's;
+3c'. the biobank-n memory regime (after the two-population phases):
+   `table31_300k`, Table 3.1's top row (pop_size 300,000) over the
+   slice's scenario files, 3 generations, in place with the per-group
+   plan (3 bins twice, 1 count, 1 merge and 4 gathers a group of 2
+   chromosomes); `table31_300k_fresh`, the same under
+   GE_NO_INPLACE_REPRO=1 GE_PLAN_PER_GROUP=0 (one stacked launch of each
+   a kind), its `.info`/`.summary` byte-identical to `table31_300k`'s and
+   its peak above it; `biobank_1m` (pop_size 1e6), with the largest
+   population each path admits by the reckoning. Each prints s/gen, the
+   stage split, its peaks beside the reckoned need and the reference's
+   1,121.8 s/gen at 300,000; then every launch of the last generation
+   that read the parents (each group's count, merge and gathers, or the
+   fresh planes' stacked ones) at its full shape on its own inputs (the
+   parents' planes copied to the host before that generation) against
+   its plain version (in chunks of 2^20 chromosome and child rows), each
+   merge equal to every row of the children the run wrote, the last of
+   each and the bins of the last draw timed;
 3d. segment output parity: a small segment scenario with `--out_hap
    --out_vcf --out_plink --out_interval --debug --file_output_generations`,
    then `--out_plink01`, then a `--file_ref_vcf` panel on both backends,
@@ -132,6 +166,8 @@ Phases, each of which raises on failure (exit code non-zero):
    generation 2 on each generation's realized couple correlation of
    mating values within 0.05 of 0.3, no vetoed couple with a child; s/gen
    and its `mate` stage beside the resident slice's host `mate` stage;
+   its last generation's launches that read the parents re-checked as the
+   slice's;
 11. device mating parity: `assort_mate_device` at 30,000 individuals on
    the card and on the CPU from the same draws (drawn on the CPU and
    moved), under the "p" law, the "f" law and MM 0.2 with the veto on:
@@ -164,7 +200,8 @@ Phases, each of which raises on failure (exit code non-zero):
    slice through the CLI's `--mesh ind=1` joined to a one-rank NCCL group
    as under torchrun (`.info`/`.summary` byte-identical to table31's, its
    launches a generation as `SEGMENT_PER_GEN`, s/gen and exchange beside
-   it); `packed_mesh1` on the same group: the flagship through
+   it; its last generation's launches that read the parents re-checked as
+   the slice's); `packed_mesh1` on the same group: the flagship through
    `make_sharded_step` bit-identical to `dense.packed.make_step`, one
    generation each of `make_deme_step` (ring migration) and
    `make_routed_step` (overflow 0), and the byte step (n 4,096) through
@@ -200,6 +237,8 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -272,6 +311,10 @@ PATHS = {
     "scenario31": ("meiose_packed", "gather_rows"),
     "scenario31_resume": ("meiose_packed", "gather_rows"),
     "streamed": ("meiose_packed",),
+    "grow31": SEGMENT,
+    "table31_300k": SEGMENT,
+    "table31_300k_fresh": SEGMENT,
+    "biobank_1m": SEGMENT,
     "segment_mesh1": SEGMENT,
     "packed_mesh1": ("meiose_packed", "gather_rows", "meiose_planes"),
     "segment_mesh2": SEGMENT,
@@ -284,24 +327,54 @@ HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
              "meiose_packed": "dense_slice", "meiose_planes": "byte_engine",
              "paint": "segment_gather"}
-# launches a generation of the segment slice's stacked kernels: one bins
-# launch per kind of draw (father's and mother's crossovers, mutations), one
-# gather per parent and table (CV rows, mutation rows), one count (the
-# probe) and one merge (the real pass) over every chromosome and parent
-SEGMENT_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
-                   "meiose_merge": 1}
+# launches a generation of the segment slice's stacked kernels on fresh
+# planes: one bins launch per kind of draw (father's and mother's
+# crossovers, mutations), one gather per parent and table (CV rows,
+# mutation rows), one count (the probe) and one merge (the real pass) over
+# every chromosome and parent
+SEGMENT_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
+                         "meiose_merge": 1}
+# in place (every constant-size generation on one 'ind' rank): the real
+# pass a group of 2 chromosomes at a time, one merge and 4 gathers a group
+GROUPS = 22 // 2
+SEGMENT_PER_GEN = dict(SEGMENT_FRESH_PER_GEN, gather_rows=4 * GROUPS,
+                       meiose_merge=GROUPS)
+# past 1.5e9 bytes of plan (300,000 and 1e6 here) the probe draws and
+# counts a group at a time, and the real pass draws each group's plan
+# again: 3 bins launches a group twice, one count a group
+PER_GROUP_PER_GEN = dict(SEGMENT_PER_GEN, cdf_bins=2 * 3 * GROUPS,
+                         merge_count=GROUPS)
 # the gather path: no CV-row gathers; one paint a phenotype (one here) and
 # generation, and one more for generation 0's A/D
-GATHER_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
-                  "meiose_merge": 1, "paint": 1}
+GATHER_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
+                        "meiose_merge": 1, "paint": 1}
+GATHER_PER_GEN = dict(GATHER_FRESH_PER_GEN, gather_rows=2 * GROUPS,
+                      meiose_merge=GROUPS)
 # two populations (gather path), a generation and population: the gather
 # path's launches with two paints a phenotype (alleles, then roots over the
 # root panel with an empty mutation plane); one packed meiosis (dense)
 MULTIPOP = 2
 MULTIPOP_GENS = 3
-MULTIPOP_PER_GEN = {k: MULTIPOP * v for k, v in dict(
-    GATHER_PER_GEN, paint=2).items()}
+# (in place only where a generation's children fit the rows the
+# migration left: `_launches_from_log`); several 'ind' ranks keep fresh
+# planes
+MULTIPOP_FRESH_PER_GEN = {k: MULTIPOP * v for k, v in dict(
+    GATHER_FRESH_PER_GEN, paint=2).items()}
 DENSE_MULTIPOP_PER_GEN = {"meiose_packed": MULTIPOP}
+# the biobank-n phases: Table 3.1's top row (pop_size 300,000, in place
+# and on fresh planes) and 1e6, over the slice's scenario files, 3
+# generations each; the kernels re-checked at full shape on the last
+# generation's own inputs (its parents' planes copied to the host before
+# it)
+BIOBANK_GENS = 3
+BIOBANK = {"table31_300k": 300_000, "table31_300k_fresh": 300_000,
+           "biobank_1m": 1_000_000}
+# the reference's own s/gen at 300,000 (BASELINE.md:11-23)
+REFERENCE_300K_S = 1121.8
+# the capacity-grow run: the slice's files with S cut to 12 after loading
+# (a generation's gametes need up to ~15 slots), 3 generations
+GROW_GENS = 3
+GROW_S_CAP = 12
 # the dense engines a generation: one packed meiosis, one CV-row gather a
 # gamete (the packed step's `cv_child`, the dense backend's)
 DENSE_PER_GEN = {"meiose_packed": 1, "gather_rows": 2}
@@ -343,7 +416,9 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
              "byte_engine": 2, "segment_device_mating": SCENARIO["gens"],
              "dense_device_mating": DENSE_DM_GENS,
              "scenario31": SCENARIO_GENS, "scenario31_resume": 1,
-             "streamed": 1 + STREAMED_TIMED}
+             "streamed": 1 + STREAMED_TIMED,
+             "grow31": GROW_GENS,
+             **{k: BIOBANK_GENS for k in BIOBANK}}
 # the mesh paths: generations of the two-rank segment runs, and the rows of
 # the two-rank packed steps (the flagship's 16,384 cut to 4,096: two ranks
 # share one card and stage their exchanges through host memory)
@@ -1113,10 +1188,14 @@ def _popinfo(root: Path, scenario: dict, gens: int, mat_cor=0.0) -> Path:
 
 
 def slice_phase(dev, work: Path, name: str, scenario: dict,
-                extra=(), base=None) -> dict:
+                extra=(), base=None, before_step=None) -> dict:
     """A Table 3.1-shaped scenario through the CLI, with its checks. `base`:
     the scenario argv of an earlier phase to run again (else the scenario
-    is written under `work / name`); outputs go to `work / name / out.*`."""
+    is written under `work / name`); outputs go to `work / name / out.*`.
+    `before_step(sim, gen)` runs before each generation, outside its
+    timing. Besides s/gen and the run's peak device memory, each
+    generation's peak and the peaks of its parts (`_peaks`), and the
+    memory reckoning's need (`core/memory.reckon`, `mem_plan`)."""
     import numpy as np
     import torch
 
@@ -1128,9 +1207,10 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
     base = base or _scenario(root, **scenario, seed=1)
     argv = base + ["--seed", "12345", "--prefix", str(root / "out"),
                    "--stage_sync", *extra]
-    seen, gen_s, gen0 = [], [], {}
+    seen, gen_s, gen0, parts = [], [], {}, []
     run, step = engine.Simulation.run, engine.Simulation.step
     init = engine.Simulation.init_generation0
+    peak = [0]
 
     def run_rec(self):
         seen.append(self)
@@ -1141,14 +1221,21 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
         gen0.update({k: w.launches for k, w in _wrappers().items()})
 
     def step_rec(self, gen):
+        if before_step is not None:
+            before_step(self, gen)
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        step(self, gen)
+        with _peaks(parts):
+            step(self, gen)
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
+        peak[0] = max(peak[0], parts[-1]["gen"])
 
     engine.Simulation.run, engine.Simulation.step = run_rec, step_rec
     engine.Simulation.init_generation0 = init_rec
     try:
+        gc.collect()  # no cyclic garbage of an earlier phase in the peaks
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = cli.main(argv, device=str(dev))
@@ -1177,16 +1264,71 @@ def slice_phase(dev, work: Path, name: str, scenario: dict,
             or not ((h2 > 0) & (h2 <= 1)).all():
         raise AssertionError(f"{name}: summary var_A {var_a}, h2 {h2}")
     split = {k: round(v, 4) for k, v in sim.timer.totals.items()}
+    mib = 2**20
+    plan = getattr(sim, "mem_plan", None)  # the segment engine's
     out = dict(
         wall_s=wall, s_per_gen=gen_s, stage_split_s=split,
-        max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+        max_memory_allocated_mb=max(
+            peak[0], torch.cuda.max_memory_allocated()) / mib,
+        peaks_per_gen_mb=[{k: v / mib for k, v in x.items()}
+                          for x in parts],
         sim=sim, argv=base, root=root, gen0_launches=gen0,
+        reckoned=None if plan is None else dict(
+            need_mb=plan.need / mib, resident_cv=plan.resident_cv,
+            in_place=plan.in_place, per_group=plan.per_group,
+            gather_chunk=plan.gather_chunk),
     )
     print(f" {name}: s/gen " + " ".join(f"{x:.3f}" for x in gen_s))
     print(f" {name}: stage split (s, all gens) {json.dumps(split)}")
     print(f" {name}: max_memory_allocated "
-          f"{out['max_memory_allocated_mb']:.1f} MiB, wall {wall:.1f} s")
+          f"{out['max_memory_allocated_mb']:.1f} MiB, wall {wall:.1f} s; "
+          "a generation's peak (probe / real pass / the rest) "
+          + ", ".join(f"{x['probe']:.0f}/{x['real']:.0f}/{x['rest']:.0f}"
+                      for x in out["peaks_per_gen_mb"]) + " MiB")
+    if plan is not None:
+        print(f" {name}: reckoned need {plan.need / mib:.1f} MiB "
+              f"(resident {plan.resident_cv}, in place {plan.in_place}, "
+              f"per-group plan {plan.per_group}, gathers of "
+              f"{plan.gather_chunk} chromosomes) beside the measured "
+              f"{out['max_memory_allocated_mb']:.1f} MiB")
     return out
+
+
+@contextlib.contextmanager
+def _peaks(parts: list):
+    """Within it (one generation), the peak device memory of the part
+    before the real pass (mating, the probe), of the real pass and of the
+    rest (A/D, phenotypes, migration), appended to `parts` as a dict in
+    bytes with the generation's (`gen`); allocator statistics, no sync."""
+    import torch
+
+    from geneevolve_tpu_torch.core import engine
+
+    got = {"probe": 0, "real": 0}
+    saved = {k: getattr(engine.Simulation, k)
+             for k in ("_real_pass", "_real_pass_in_place")}
+
+    def wrap(fn):
+        def rec(*a, **k):
+            got["probe"] = max(got["probe"], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            r = fn(*a, **k)
+            got["real"] = max(got["real"], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return r
+        return rec
+
+    for k, fn in saved.items():
+        setattr(engine.Simulation, k, wrap(fn))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(engine.Simulation, k, fn)
+    torch.cuda.synchronize()
+    rest = torch.cuda.max_memory_allocated()
+    parts.append(dict(got, rest=rest, gen=max(got["probe"], got["real"],
+                                              rest)))
 
 
 def _checksum(u):
@@ -1196,69 +1338,293 @@ def _checksum(u):
     return u.view(torch.int32).sum(dtype=torch.int64)
 
 
+# ----------------------------------------- launches that read the parents
+PLANES = ("seg_st", "seg_hap", "mut", "cv")
+# the kernels that read the parents' planes, which a real pass in place
+# overwrites with the children
+PARENT_KERNELS = ("merge_count", "meiose_merge", "gather_rows")
+# (chromosome, child) pairs a call of a plain version takes in a re-check
+PLAIN_PAIRS = 1 << 20
+
+
+def _parents_copy(sim) -> dict:
+    """Every population's genome planes copied to the host: (population,
+    plane) -> (the plane's card address, the copy)."""
+    out = {}
+    for p in sim.pops:
+        for k in PLANES:
+            t = getattr(p.state, k)
+            if t is None or t.numel() == 0:
+                continue
+            if not t.is_contiguous():
+                raise AssertionError(f"pop {p.index + 1}: {k} is not "
+                                     "contiguous")
+            out[p.index, k] = (t.data_ptr(), t.to("cpu", copy=True))
+    return out
+
+
+def _desc(t) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), t.dtype)
+
+
+class _ParentLaunches:
+    """Records the launches of a run's last generation (`last_gen`) that
+    read the parents' planes, so that each can be made again after the run
+    on its real inputs (`_recheck`), though a real pass in place writes the
+    children over them. `before_step` (`slice_phase`'s hook, outside the
+    timing) copies every parent plane to the host before that generation;
+    within the context the hooks keep, with no copy and no reference to a
+    plane or a plan, each launch's plane addresses and shapes, the
+    children's parents (which the generation holds anyway) and an exact
+    checksum of its crossovers and starts (a reduction on the card, no
+    sync), and each population's `_plan` arguments."""
+
+    def __init__(self, last_gen: int):
+        self.last, self.on = last_gen, False
+        self.sim = self.copy = None
+        self.launches, self.plans = [], {}
+
+    def before_step(self, sim, gen):
+        self.on = gen == self.last
+        if self.on:
+            self.sim, self.copy = sim, _parents_copy(sim)
+
+    def __enter__(self):
+        from geneevolve_tpu_torch.core import engine
+
+        self.saved = {k: getattr(engine, k) for k in (
+            "merge_count", "meiose_merge", "gather_rows_stacked")}
+        self.saved_plan = engine.Simulation._plan
+        count, merge = engine.merge_count, engine.meiose_merge
+        gather, plan = engine.gather_rows_stacked, engine.Simulation._plan
+
+        def sums(*ts):
+            return [_checksum(t) for t in ts]
+
+        def count_rec(seg_st, parents, xo_f, xo_m, sh):
+            if self.on:
+                self.launches.append(("merge_count", [_desc(seg_st)],
+                                      parents, sums(xo_f, xo_m, sh), ()))
+            return count(seg_st, parents, xo_f, xo_m, sh)
+
+        def merge_rec(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap,
+                      merge_ibd):
+            if self.on:
+                self.launches.append((
+                    "meiose_merge", [_desc(seg_st), _desc(seg_hap)], parents,
+                    sums(xo_f, xo_m, sh), (cap, merge_ibd)))
+            return merge(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap,
+                         merge_ibd)
+
+        def gather_rec(table, idx):
+            if self.on:
+                self.launches.append(("gather_rows", [_desc(table)], idx,
+                                      None, ()))
+            return gather(table, idx)
+
+        def plan_rec(sim, p, gen, n_pad, c0=0, c1=None):
+            if self.on:
+                self.plans[p.index] = (p, gen, n_pad)
+            return plan(sim, p, gen, n_pad, c0, c1)
+
+        engine.merge_count, engine.meiose_merge = count_rec, merge_rec
+        engine.gather_rows_stacked = gather_rec
+        engine.Simulation._plan = plan_rec
+        return self
+
+    def __exit__(self, *exc):
+        from geneevolve_tpu_torch.core import engine
+
+        for k, fn in self.saved.items():
+            setattr(engine, k, fn)
+        engine.Simulation._plan = self.saved_plan
+        # the hooks it wrapped may hold their caller's state: no cycle
+        self.on, self.saved, self.saved_plan = False, None, None
+
+
+def _plain_chunked(plain, args, axes):
+    """`plain(*args)` over chunks of at most `PLAIN_PAIRS` (chromosome,
+    child) pairs, put together: the tensors of one call (an output's
+    chromosome and child rows depend only on their own inputs) in bounded
+    memory. `axes[i]`: argument i's chromosome and child axes, None where
+    it has none; every output has them at 0 and 1."""
+    import torch
+
+    nchr = next(a.shape[c] for a, (c, _) in zip(args, axes) if c is not None)
+    nc = next(a.shape[r] for a, (_, r) in zip(args, axes) if r is not None)
+    cc = max(1, min(nchr, PLAIN_PAIRS // nc))
+    rc = min(nc, max(1, PLAIN_PAIRS // cc))
+    if cc == nchr and rc == nc:
+        return plain(*args)
+
+    def part(c0, r0):
+        sub = []
+        for a, (ca, ra) in zip(args, axes):
+            if ca is not None:
+                a = a.narrow(ca, c0, min(cc, nchr - c0))
+            if ra is not None:
+                a = a.narrow(ra, r0, min(rc, nc - r0))
+            sub.append(a.contiguous() if (ca, ra) != (None, None) else a)
+        out = plain(*sub)
+        return out if isinstance(out, tuple) else (out,)
+
+    outs = []
+    for c0 in range(0, nchr, cc):
+        parts = [part(c0, r0) for r0 in range(0, nc, rc)]
+        outs.append(tuple(torch.cat(x, 1) for x in zip(*parts)))
+    out = tuple(torch.cat(x, 0) for x in zip(*outs))
+    return out if len(out) > 1 else out[0]
+
+
+GATHER_AXES = ((0, None), (None, 0))
+COUNT_AXES = ((0, None), (None, 1), (0, 1), (0, 1), (0, 1))
+MERGE_AXES = ((0, None), (0, None), (None, 1), (0, 1), (0, 1), (0, 1),
+              (None, None), (None, None))
+
+
+def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
+    """Every launch `rec` recorded, made again (comparison launches, after
+    the counted run) on its real inputs at its full shape: the parents'
+    planes from the host copy, back on the card; the crossovers and starts
+    drawn again by the generation's `_plan` (a fresh generator a
+    chromosome: a chromosome range's rows of the whole plan), held to the
+    launch's checksums. Each equals its plain version (`_plain_chunked`)
+    bit for bit. `children`: the run had one population and no migration,
+    so each merge must also equal the children the run wrote (its final
+    planes), every row. Returns `checked` (launches a kernel), `planes`
+    (the copy on the card) and `last` (the last launch of each kernel, of
+    the gathers the last 4, as [(kernel, plain version in chunks,
+    arguments, (population, c0, c1))])."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import materialize as mat
+    from geneevolve_tpu_torch.ops import meiose_merge as mm
+    from geneevolve_tpu_torch.ops import merge_count as mc
+
+    sim = rec.sim
+    if sim is None or not rec.launches:
+        raise AssertionError(f"{path}: no launch of the last generation "
+                             "recorded")
+    planes = {key: (ptr, host.to(sim.device))
+              for key, (ptr, host) in rec.copy.items()}
+    final = sim.pops[0].state if children else None
+
+    def locate(desc):
+        ptr, shape, dtype = desc
+        for (pop, k), (start, c) in planes.items():
+            off = ptr - start
+            if not 0 <= off < c.numel() * c.element_size():
+                continue
+            per_chr = c[0].numel() * c.element_size()
+            c0 = off // per_chr
+            if off % per_chr or c.dtype != dtype or tuple(
+                    c.shape[1:]) != shape[1:] or c0 + shape[0] > c.shape[0]:
+                raise AssertionError(f"{path}: a launch reads {k} of pop "
+                                     f"{pop + 1} in a way the copy misses")
+            return pop, c0, c[c0:c0 + shape[0]]
+        raise AssertionError(f"{path}: a launch reads a plane that was not "
+                             "a parent plane before the last generation")
+
+    drawn = {}
+
+    def plan_of(pop, c0, c1):
+        if (pop, c0, c1) not in drawn:
+            drawn.clear()  # one range's plan at a time
+            p, gen, n_pad = rec.plans[pop]
+            drawn[pop, c0, c1] = sim._plan(p, gen, n_pad, c0, c1)[:3]
+        return drawn[pop, c0, c1]
+
+    checked = dict.fromkeys(PARENT_KERNELS, 0)
+    last = {k: [] for k in PARENT_KERNELS}
+    for kind, descs, parents, sums, extra in rec.launches:
+        pop, c0, view = locate(descs[0])
+        c1 = c0 + view.shape[0]
+        if kind == "gather_rows":
+            kern, plain, axes = (mat.gather_rows_stacked,
+                                 mat.gather_rows_stacked_plain, GATHER_AXES)
+            args = (view, parents)
+        else:
+            xo_f, xo_m, sh = plan_of(pop, c0, c1)
+            if [int(_checksum(x)) for x in (xo_f, xo_m, sh)] != [
+                    int(s) for s in sums]:
+                raise AssertionError(
+                    f"{path}: the crossovers and starts drawn again differ "
+                    f"from the {kind} launch's (pop {pop + 1}, chromosomes "
+                    f"{c0}-{c1 - 1})")
+            if kind == "merge_count":
+                kern, plain, axes = (mc.merge_count, mc.merge_count_plain,
+                                     COUNT_AXES)
+                args = (view, parents, xo_f, xo_m, sh)
+            else:
+                kern, plain, axes = (mm.meiose_merge, mm.meiose_merge_plain,
+                                     MERGE_AXES)
+                args = (view, locate(descs[1])[2], parents, xo_f, xo_m, sh,
+                        *extra)
+        got = kern(*args)
+        err = _max_abs_err(got, _plain_chunked(plain, args, axes))
+        if err:
+            raise AssertionError(f"{path}: {kind} (pop {pop + 1}, "
+                                 f"chromosomes {c0}-{c1 - 1}) differs from "
+                                 f"its plain version by {err}")
+        if kind == "meiose_merge" and final is not None and not (
+                torch.equal(got[0], final.seg_st[c0:c1])
+                and torch.equal(got[1], final.seg_hap[c0:c1])):
+            raise AssertionError(f"{path}: the children the run wrote "
+                                 f"differ from the merge (chromosomes "
+                                 f"{c0}-{c1 - 1})")
+        del got
+        checked[kind] += 1
+        keep = 4 if kind == "gather_rows" else 1
+        last[kind] = (last[kind] + [(
+            kern, lambda a=args, f=plain, x=axes: _plain_chunked(f, a, x),
+            args, (pop, c0, c1))])[-keep:]
+    print(f" {path}: {json.dumps(checked)} launches of the last generation "
+          "== plain on their own inputs"
+          + ("; every merge == the children the run wrote" if children
+             else ""))
+    return dict(checked=checked, planes=planes, last=last)
+
+
 def segment_slice(dev, work: Path) -> dict:
     """The segment engine's slice, and its probe/real-pass tripwire. Kept
-    under `captured` for `segment_slice_kernels`: the last generation's
-    gather inputs (the parents' planes, live anyway), its count's and
-    merge's parent ledgers and parent rows (references), and its plan's
-    arguments with a checksum of each of its stacked probe tensors and of
-    the crossovers and starts the count and the merge took (one reduction
-    on the card each, no copy and no host sync inside the timed run), so
-    that the plan is drawn again after the run."""
+    under `captured` for `segment_slice_kernels`: the launches of the last
+    generation that read the parents (`_ParentLaunches`: a host copy of
+    the parents' planes taken before that generation, outside its timing,
+    since its real pass writes the children over them), and its plan's
+    arguments with a checksum of each of its stacked probe tensors (one
+    reduction on the card each, no copy and no host sync inside the timed
+    run), so that the plan is drawn again after the run."""
     from geneevolve_tpu_torch.core import engine, segments
 
-    captured = {"cdf_bins": [], "gather_rows": [], "merge_count": [],
-                "meiose_merge": [], "plan": None}
-    bins, gather = segments.cdf_bins, engine.gather_rows_stacked
-    count, merge = engine.merge_count, engine.meiose_merge
-    plan = engine.Simulation._plan
-    last = {k: v * (SCENARIO["gens"] - 1) for k, v in SEGMENT_PER_GEN.items()}
-    seen = {k: 0 for k in SEGMENT_PER_GEN}
+    captured = {"cdf_bins": [], "plan": None}
+    bins, plan = segments.cdf_bins, engine.Simulation._plan
+    last = SEGMENT_PER_GEN["cdf_bins"] * (SCENARIO["gens"] - 1)
+    seen = [0]
 
-    def last_gen(name):
-        seen[name] += 1
-        return seen[name] > last[name]  # the last generation's launches
-
-    def plan_rec(self, p, gen, n_pad):
+    def plan_rec(self, p, gen, n_pad, c0=0, c1=None):
         captured["plan"] = (self, p, gen, n_pad)
-        return plan(self, p, gen, n_pad)
+        return plan(self, p, gen, n_pad, c0, c1)
 
     def bins_rec(u, cum):
-        if last_gen("cdf_bins"):
+        seen[0] += 1
+        if seen[0] > last:  # the last generation's launches
             captured["cdf_bins"].append(_checksum(u))
         return bins(u, cum)
 
-    def gather_rec(table, idx):
-        if last_gen("gather_rows"):
-            captured["gather_rows"].append((table, idx))
-        return gather(table, idx)
-
-    def count_rec(seg_st, parents, xo_f, xo_m, sh):
-        if last_gen("merge_count"):
-            captured["merge_count"].append((seg_st, parents, [
-                _checksum(x) for x in (xo_f, xo_m, sh)]))
-        return count(seg_st, parents, xo_f, xo_m, sh)
-
-    def merge_rec(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap, merge_ibd):
-        if last_gen("meiose_merge"):
-            captured["meiose_merge"].append((seg_st, seg_hap, parents, cap,
-                                             merge_ibd, [_checksum(x) for x
-                                                         in (xo_f, xo_m, sh)]))
-        return merge(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap, merge_ibd)
-
-    segments.cdf_bins, engine.gather_rows_stacked = bins_rec, gather_rec
-    engine.merge_count, engine.meiose_merge = count_rec, merge_rec
-    engine.Simulation._plan = plan_rec
+    segments.cdf_bins, engine.Simulation._plan = bins_rec, plan_rec
     try:
-        out = slice_phase(dev, work, "table31", SCENARIO)
+        with _ParentLaunches(SCENARIO["gens"]) as rec:
+            out = slice_phase(dev, work, "table31", SCENARIO,
+                              before_step=rec.before_step)
     finally:
-        segments.cdf_bins, engine.gather_rows_stacked = bins, gather
-        engine.merge_count, engine.meiose_merge = count, merge
-        engine.Simulation._plan = plan
+        segments.cdf_bins, engine.Simulation._plan = bins, plan
+    captured["parents"] = rec
     out["captured"] = captured
     sim = out.pop("sim")
     st, log = sim.pops[0].state, sim.capacity_log
-    # the final ledgers and mutations, for the full-width paint check
+    if sim.mem_plan is None or not sim.mem_plan.in_place:
+        raise AssertionError("table31: not in place")
+    # the final ledgers and mutations: the full-width paint check
     out["final"] = (st.seg_st, st.seg_hap, st.mut, st.n,
                     [sim.pops[0].rmaps[c].chr_end for c in sim.chrs])
     if len(log) != SCENARIO["gens"] or any(
@@ -1270,32 +1636,34 @@ def segment_slice(dev, work: Path) -> dict:
     return out
 
 
-def segment_slice_kernels(kernels: list, captured: dict) -> None:
+def segment_slice_kernels(kernels: list, captured: dict) -> dict:
     """The stacked kernels against their plain versions on the segment
-    slice's last generation's own inputs (its 3 bins, 4 gather, 1 count and
-    1 merge launches; the merge in both modes), bit-exact; each result is
-    added to its kernel's `entries`. The plan is drawn again by the last
-    generation's `_plan` (a fresh generator per chromosome, seeded from the
-    generation): its probes, crossovers and starts must match the run's
-    checksums."""
+    slice's last generation's own inputs, bit-exact: every launch that
+    read the parents (`_recheck`: the count, the 11 merges, each equal to
+    the children the run wrote over the parents, and the 44 gathers), and
+    its 3 bins launches; timed into the kernels' `entries`: the bins, the
+    last group's 4 gathers, the count, the merge of the last group and, at
+    the stacked shape of the probe, over every chromosome (both modes).
+    The plan is drawn again by the last generation's `_plan` (a fresh
+    generator per chromosome, seeded from the generation): its probes must
+    match the run's checksums."""
     import torch
 
     from geneevolve_tpu_torch.core import segments
     from geneevolve_tpu_torch.ops import cdf_bins as cb
-    from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_merge as mm
-    from geneevolve_tpu_torch.ops import merge_count as mc
 
     by_name = {k["name"]: k for k in kernels}
-    names = {"cdf_bins": ("crossovers_father", "crossovers_mother",
-                          "mutations"),
-             "gather_rows": ("cv_rows_father", "mutation_rows_father",
-                             "cv_rows_mother", "mutation_rows_mother"),
-             "merge_count": ("probe",), "meiose_merge": ("real_pass",)}
-    if any(len(captured[k]) != len(v) for k, v in names.items()):
-        raise AssertionError(
-            "segment slice: last generation's launches "
-            f"{ {k: len(captured[k]) for k in names} }")
+    names = ("crossovers_father", "crossovers_mother", "mutations")
+    if len(captured["cdf_bins"]) != len(names):
+        raise AssertionError("segment slice: last generation's bins "
+                             f"launches {len(captured['cdf_bins'])}")
+    res = _recheck("table31", captured["parents"], children=True)
+    want = dict(merge_count=1, meiose_merge=GROUPS,
+                gather_rows=SEGMENT_PER_GEN["gather_rows"])
+    if res["checked"] != want:
+        raise AssertionError(f"table31: last generation's launches "
+                             f"{res['checked']}, {want} expected")
     sim, p, gen, n_pad = captured["plan"]
     probes, bins = [], segments.cdf_bins
 
@@ -1313,12 +1681,7 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
             int(c) for c in captured["cdf_bins"]]:
         raise AssertionError("segment slice: the last generation's probes, "
                              "drawn again, differ from the run's")
-    sums = [int(_checksum(x)) for x in (xo_f, xo_m, sh)]
-    for k in ("merge_count", "meiose_merge"):
-        if [int(c) for c in captured[k][0][-1]] != sums:
-            raise AssertionError(f"segment slice: the crossovers and starts "
-                                 f"drawn again differ from the {k} run's")
-    for (u, cum), what in zip(probes, names["cdf_bins"]):
+    for (u, cum), what in zip(probes, names):
         shape = f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs"
         r = _compare(f"cdf_bins/segment_slice/{what}",
                      lambda: cb.cdf_bins(u, cum),
@@ -1328,43 +1691,66 @@ def segment_slice_kernels(kernels: list, captured: dict) -> None:
                          out_int32=True)})
         by_name["cdf_bins"].setdefault("entries", []).append(
             dict(entry=f"segment_slice/{what}", shape=shape, **r))
-    for (table, idx), what in zip(captured["gather_rows"],
-                                  names["gather_rows"]):
-        shape = (f"{idx.shape[0]} rows of {tuple(table.shape)} "
-                 f"{table.dtype}")
-        r = _compare(f"gather_rows/segment_slice/{what}",
-                     lambda: mat.gather_rows_stacked(table, idx),
-                     lambda: mat.gather_rows_stacked_plain(table, idx),
-                     _gather_work(table, idx, 1),
-                     _gather_library(table, idx, 1))
-        by_name["gather_rows"].setdefault("entries", []).append(
-            dict(entry=f"segment_slice/{what}", shape=shape, **r))
-    seg_st, parents, _ = captured["merge_count"][0]
-    count = (seg_st, parents, xo_f, xo_m, sh)
+    _parent_entries(by_name, "segment_slice", res["last"], gathers=(
+        "cv_rows_father", "mutation_rows_father", "cv_rows_mother",
+        "mutation_rows_mother"), merge="real_pass_group", count="probe")
+    # the merge over every chromosome at once, as on fresh planes
+    (_, _, args, _), = res["last"]["meiose_merge"]
+    planes = {k: res["planes"][0, k][1] for k in ("seg_st", "seg_hap")}
+    merge = (planes["seg_st"], planes["seg_hap"], args[2], xo_f, xo_m, sh)
+    cap, merge_ibd = args[6], args[7]
     shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
-             f"parents of {tuple(seg_st.shape)} ledgers, K {xo_f.shape[2]}")
-    r = _compare("merge_count/segment_slice/probe",
-                 lambda: mc.merge_count(*count),
-                 lambda: mc.merge_count_plain(*count), _count_work(*count))
-    by_name["merge_count"].setdefault("entries", []).append(
-        dict(entry="segment_slice/probe", shape=shape, **r))
-    seg_st, seg_hap, parents, cap, merge_ibd, _ = captured["meiose_merge"][0]
-    merge = (seg_st, seg_hap, parents, xo_f, xo_m, sh)
-    shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
-             f"parents of {tuple(seg_st.shape)} {seg_hap.dtype} ledgers, "
-             f"K {xo_f.shape[2]}, cap {cap}")
+             f"parents of {tuple(merge[0].shape)} {merge[1].dtype} "
+             f"ledgers, K {xo_f.shape[2]}, cap {cap}")
     r = _compare("meiose_merge/segment_slice/real_pass",
                  lambda: mm.meiose_merge(*merge, cap, merge_ibd),
                  lambda: mm.meiose_merge_plain(*merge, cap, merge_ibd),
                  _merge_work(*merge, cap))
-    if _max_abs_err(mm.meiose_merge(*merge, cap, not merge_ibd),
-                    mm.meiose_merge_plain(*merge, cap, not merge_ibd)) != 0:
-        raise AssertionError("meiose_merge differs from its plain version "
-                             f"on the slice's ledgers, merge_ibd "
-                             f"{not merge_ibd}")
     by_name["meiose_merge"].setdefault("entries", []).append(
-        dict(entry="segment_slice/real_pass", shape=shape,
-             other_mode_exact=True, **r))
+        dict(entry="segment_slice/real_pass", shape=shape, **r))
+    for m in (merge, args[:6]):
+        if _max_abs_err(mm.meiose_merge(*m, cap, not merge_ibd),
+                        mm.meiose_merge_plain(*m, cap, not merge_ibd)) != 0:
+            raise AssertionError("meiose_merge differs from its plain "
+                                 "version on the slice's ledgers, merge_ibd "
+                                 f"{not merge_ibd}")
+    for e in by_name["meiose_merge"]["entries"][-2:]:
+        e["other_mode_exact"] = True
+    return res["checked"]
+
+
+def _parent_entries(by_name: dict, tag: str, last: dict, gathers=(),
+                    merge=None, count=None, children_equal=False) -> None:
+    """Timed entries (`_compare`, the plain version in `_plain_chunked`'s
+    chunks) for the last launches `_recheck` kept: the last
+    `len(gathers)` gathers under those names, the last merge and the last
+    count under `merge` and `count` (None: none)."""
+    for (kern, plain, (table, idx), (pop, c0, c1)), what in zip(
+            last["gather_rows"][-len(gathers):] if gathers else [], gathers):
+        shape = (f"{idx.shape[0]} rows of {tuple(table.shape)} "
+                 f"{table.dtype} (pop {pop + 1}, chromosomes {c0}-{c1 - 1})")
+        r = _compare(f"gather_rows/{tag}/{what}", lambda: kern(table, idx),
+                     plain, _gather_work(table, idx, 1),
+                     _gather_library(table, idx, 1))
+        by_name["gather_rows"].setdefault("entries", []).append(
+            dict(entry=f"{tag}/{what}", shape=shape, **r))
+    for k, what, work in (("merge_count", count, _count_work),
+                          ("meiose_merge", merge, _merge_work)):
+        if what is None:
+            continue
+        (kern, plain, args, (pop, c0, c1)), = last[k]
+        seg_st, xo_f = args[0], args[3 if k == "meiose_merge" else 2]
+        shape = (f"{c1 - c0} chromosomes ({c0}-{c1 - 1}) x {xo_f.shape[1]} "
+                 f"children x 2 parents of {tuple(seg_st.shape)} ledgers, K "
+                 f"{xo_f.shape[2]}"
+                 + (f", {args[1].dtype} haps, cap {args[6]}"
+                    if k == "meiose_merge" else ""))
+        r = _compare(f"{k}/{tag}/{what}", lambda: kern(*args), plain,
+                     work(*args[:7]))
+        extra = dict(run_children_equal=True) if (
+            children_equal and k == "meiose_merge") else {}
+        by_name[k].setdefault("entries", []).append(
+            dict(entry=f"{tag}/{what}", shape=shape, **extra, **r))
 
 
 def _paint_work(seg_st, seg_hap, mut, founder, pos) -> dict:
@@ -1492,13 +1878,16 @@ def segment_gather(dev, work: Path, base: list, resident_root: Path) -> dict:
     A/D painted from the ledger. Its `.info` and `.summary` must equal the
     resident run's byte for byte (the same draws, and the painted alleles
     are the resident ones). The last generation's paint inputs are kept
-    under `captured`."""
+    under `captured`, its launches that read the parents under `parents`
+    (`_ParentLaunches`)."""
     import filecmp
     import os
 
     os.environ["GE_NO_RESIDENT_CV"] = "1"
     try:
-        out = slice_phase(dev, work, "gather31", SCENARIO, base=base)
+        with _ParentLaunches(SCENARIO["gens"]) as rec:
+            out = slice_phase(dev, work, "gather31", SCENARIO, base=base,
+                              before_step=rec.before_step)
     finally:
         del os.environ["GE_NO_RESIDENT_CV"]
     sim = out.pop("sim")
@@ -1517,6 +1906,54 @@ def segment_gather(dev, work: Path, base: list, resident_root: Path) -> dict:
           "byte-identical to the resident run's")
     out["captured"] = (st.seg_st, st.seg_hap, st.mut, sim._cv_panels[0],
                        sim.cv_bp_all[:, :sim.ncv_pad].contiguous())
+    out["parents"] = rec
+    return out
+
+
+def segment_grow(dev, work: Path, slice_argv: list) -> dict:
+    """The slice for `GROW_GENS` generations with the ledger capacity S cut
+    to `GROW_S_CAP` after loading, so that a generation outgrows it: that
+    generation (`[capacity grow]`) pads the ledgers into new planes beside
+    the old before writing its children in place, and its peak is printed
+    beside the other generations'. The slice's checks and the tripwire
+    hold; the launches expected follow from the capacity log. The last
+    generation's launches that read the parents are kept under `parents`
+    (`_ParentLaunches`)."""
+    from geneevolve_tpu_torch.core import engine
+
+    scenario = dict(SCENARIO, gens=GROW_GENS)
+    root = work / "grow31"
+    root.mkdir(parents=True, exist_ok=True)
+    base = _with(slice_argv, "--file_gen_info",
+                 str(_popinfo(root, scenario, GROW_GENS)))
+    load = engine.Simulation._load
+
+    def load_rec(self):
+        load(self)
+        self.s_cap = GROW_S_CAP
+
+    engine.Simulation._load = load_rec
+    try:
+        with _ParentLaunches(GROW_GENS) as rec:
+            out = slice_phase(dev, work, "grow31", scenario, base=base,
+                              before_step=rec.before_step)
+    finally:
+        engine.Simulation._load = load
+    sim = out.pop("sim")
+    log = sim.capacity_log
+    grown = [c["gen"] for c in log if c["s_cap"] > GROW_S_CAP]
+    if not grown or any(c["seg_need"] != c["seg_used"] for c in log):
+        raise AssertionError(f"grow31: no capacity grow, or the tripwire: "
+                             f"{log}")
+    g = grown[0]
+    peaks = [x["gen"] for x in out["peaks_per_gen_mb"]]
+    out.update(parents=rec, grow_gen=g, grow_peak_mb=peaks[g - 1], s_caps=[
+        c["s_cap"] for c in log], want_launches=_launches_from_log(log,
+                                                                   False))
+    print(f" grow31: S grew from {GROW_S_CAP} to {log[g - 1]['s_cap']} at "
+          f"generation {g}; its peak {peaks[g - 1]:.1f} MiB, the other "
+          "generations' " + ", ".join(f"{x:.1f}" for i, x in enumerate(peaks)
+                                      if i != g - 1) + " MiB")
     return out
 
 
@@ -1627,15 +2064,33 @@ def _check_multipop(name: str, sim, root: Path, scenario: dict) -> dict:
     return dict(mean_P=means, sd_P=sds)
 
 
+def _launches_from_log(log: list, gather_path: bool) -> dict:
+    """The stacked kernels' launches a run's reproduce passes make, from
+    its capacity log (whether each (generation, population) ran in place
+    and drew its plan a group at a time): whole plan, 3 bins and 1 count;
+    per group, twice 3 bins and 1 count a group; fresh planes, 1 merge
+    and a gather a parent and table; in place, those a group."""
+    tables = 1 if gather_path else 2
+    out = {"cdf_bins": 0, "merge_count": 0, "gather_rows": 0,
+           "meiose_merge": 0}
+    for c in log:
+        groups = GROUPS if c["in_place"] else 1
+        out["cdf_bins"] += 2 * 3 * GROUPS if c["per_group"] else 3
+        out["merge_count"] += GROUPS if c["per_group"] else 1
+        out["meiose_merge"] += groups
+        out["gather_rows"] += 2 * tables * groups
+    return out
+
+
 def segment_multipop(dev, work: Path, slice_argv: list) -> dict:
     """Two populations at the slice's full width (each 10,000 founders,
     pop_size 30,000, 22 chromosomes x 100 CVs, the slice's mutation map), 3
     generations, migration and gamma, `--checkpoint_every 2`: the gather
     path with int32 haps (H 40,000). Checks each population's outputs, the
     other population's founder haps in each final ledger, gamma, and the
-    capacity tripwire; times the checkpoint saves. Keeps the last
-    generation's count, merge and paint inputs (references, no copy) under
-    `captured`."""
+    capacity tripwire; times the checkpoint saves. Keeps under `captured`
+    the last generation's launches that read the parents
+    (`_ParentLaunches`) and its last two paints' inputs (references)."""
     import torch
 
     from geneevolve_tpu_torch.core import checkpoint, engine
@@ -1644,16 +2099,7 @@ def segment_multipop(dev, work: Path, slice_argv: list) -> dict:
     base = _two_populations(work / "multipop31", slice_argv, scenario,
                             MULTIPOP_GENS)
     captured, saves = {"paint": []}, []
-    count, merge, paint = engine.merge_count, engine.meiose_merge, engine.paint
-    save = checkpoint.save
-
-    def count_rec(*a):
-        captured["merge_count"] = a
-        return count(*a)
-
-    def merge_rec(*a):
-        captured["meiose_merge"] = a
-        return merge(*a)
+    paint, save = engine.paint, checkpoint.save
 
     def paint_rec(*a):
         captured["paint"] = (captured["paint"] + [a])[-2:]
@@ -1666,13 +2112,13 @@ def segment_multipop(dev, work: Path, slice_argv: list) -> dict:
         saves.append(dict(gen=gen, s=time.perf_counter() - t0,
                           mb=Path(path).stat().st_size / 2**20))
 
-    engine.merge_count, engine.meiose_merge = count_rec, merge_rec
     engine.paint, checkpoint.save = paint_rec, save_rec
     try:
-        out = slice_phase(dev, work, "multipop31", scenario,
-                          ["--checkpoint_every", "2"], base=base)
+        with _ParentLaunches(MULTIPOP_GENS) as rec:
+            out = slice_phase(dev, work, "multipop31", scenario,
+                              ["--checkpoint_every", "2"], base=base,
+                              before_step=rec.before_step)
     finally:
-        engine.merge_count, engine.meiose_merge = count, merge
         engine.paint, checkpoint.save = paint, save
     sim = out.pop("sim")
     H = 2 * sum(p.n_founders for p in sim.pops)
@@ -1706,8 +2152,18 @@ def segment_multipop(dev, work: Path, slice_argv: list) -> dict:
     print(f" multipop31: migration stage "
           f"{sim.timer.totals.get('migration', 0.0):.4f} s over "
           f"{MULTIPOP_GENS} generations")
+    captured["parents"] = rec
+    captured["want_checked"] = {k: v for k, v in _launches_from_log(
+        [c for c in log if c["gen"] == MULTIPOP_GENS], True).items()
+        if k in PARENT_KERNELS}
     out["captured"] = captured
     out["ckpt"] = str(out["root"] / "out.ckpt.npz")
+    # with migration a generation keeps its rows (and runs in place) only
+    # when its children fit the rows the migration left
+    out["want_launches"] = dict(_launches_from_log(log, True),
+                                paint=2 * len(log) + GEN0_LAUNCHES[
+                                    "segment_multipop"]["paint"])
+    out["in_place"] = [c["in_place"] for c in log]
     return out
 
 
@@ -1757,40 +2213,34 @@ def segment_multipop_resume(dev, straight: dict) -> dict:
     print(f" multipop31 resume: {len(names)} files byte-identical to the "
           f"straight run's; checkpoint {mb:.1f} MiB loaded in "
           f"{loads[0]:.2f} s; resumed run {wall:.1f} s")
-    return dict(load_s=loads[0], checkpoint_mb=mb, wall_s=wall)
+    log = sim.capacity_log
+    return dict(load_s=loads[0], checkpoint_mb=mb, wall_s=wall,
+                want_launches=dict(_launches_from_log(log, True),
+                                   paint=2 * len(log)),
+                in_place=[c["in_place"] for c in log])
 
 
-def multipop_kernels(kernels: list, captured: dict) -> None:
-    """On `segment_multipop`'s last generation's own inputs: the count and
-    the merge with int32 haps, and both paints of the A/D (alleles; roots
-    over the root panel with M = 0), each bit-exact to its plain version;
-    added to the kernels' `entries`."""
+def multipop_kernels(kernels: list, captured: dict) -> dict:
+    """On `segment_multipop`'s last generation: every launch that read
+    the parents (both populations' counts, merges and gathers) made again
+    on its own inputs (`_recheck`; the parents' planes from the host copy
+    taken before that generation), bit-exact, the last count and merge
+    (int32 haps) timed; and both paints of the A/D (alleles; roots over
+    the root panel with M = 0) against their plain versions; added to the
+    kernels' `entries`."""
     import torch
 
-    from geneevolve_tpu_torch.ops import meiose_merge as mm
-    from geneevolve_tpu_torch.ops import merge_count as mc
-
     by_name = {k["name"]: k for k in kernels}
-    count = captured["merge_count"]
-    seg_st, parents, xo_f = count[0], count[1], count[2]
-    shape = (f"{xo_f.shape[0]} chromosomes x {xo_f.shape[1]} children x 2 "
-             f"parents of {tuple(seg_st.shape)} ledgers, K {xo_f.shape[2]}")
-    r = _compare("merge_count/multipop/int32", lambda: mc.merge_count(*count),
-                 lambda: mc.merge_count_plain(*count), _count_work(*count))
-    by_name["merge_count"].setdefault("entries", []).append(
-        dict(entry="segment_multipop/int32_haps", shape=shape, **r))
-    merge = captured["meiose_merge"]
-    seg_hap, cap, merge_ibd = merge[1], merge[6], merge[7]
-    if seg_hap.dtype != torch.int32 and 2 * MULTIPOP * SCENARIO["n0"] > 32000:
-        raise AssertionError(f"multipop: {seg_hap.dtype} haps")
-    shape += f", {seg_hap.dtype} haps, cap {cap}"
-    r = _compare("meiose_merge/multipop/int32",
-                 lambda: mm.meiose_merge(*merge),
-                 lambda: mm.meiose_merge_plain(*merge),
-                 _merge_work(*merge[:7]))
-    by_name["meiose_merge"].setdefault("entries", []).append(
-        dict(entry="segment_multipop/int32_haps", shape=shape,
-             merge_ibd=merge_ibd, **r))
+    res = _recheck("multipop31", captured["parents"])
+    if res["checked"] != captured["want_checked"]:
+        raise AssertionError(f"multipop31: last generation's launches "
+                             f"{res['checked']}, "
+                             f"{captured['want_checked']} expected")
+    (_, _, merge, _), = res["last"]["meiose_merge"]
+    if merge[1].dtype != torch.int32 and 2 * MULTIPOP * SCENARIO["n0"] > 32000:
+        raise AssertionError(f"multipop: {merge[1].dtype} haps")
+    _parent_entries(by_name, "segment_multipop", res["last"],
+                    merge="int32_haps", count="int32_haps")
     for args, what in zip(captured["paint"], ("alleles", "roots_m0")):
         st, _hp, mu, founder, pos = args
         shape = (f"{st.shape[0]} chromosomes x {st.shape[1]} rows x 2 x "
@@ -1804,6 +2254,194 @@ def multipop_kernels(kernels: list, captured: dict) -> None:
             int(captured["paint"][1][3].max()) != MULTIPOP - 1:
         raise AssertionError("multipop: the root paint is not over an "
                              "M = 0 plane and a root panel")
+    return res["checked"]
+
+
+# ------------------------------------------------------------ biobank n
+def _largest_n(sim, free: int) -> dict:
+    """The largest population each path admits at this run's shape and
+    capacities by `memory.reckon`, with `free` bytes free: resident or
+    gather path, in place or on fresh planes."""
+    import dataclasses
+
+    import numpy as np
+
+    from geneevolve_tpu_torch.core import memory
+
+    base = sim._sizes()
+
+    def admits(n, resident, in_place):
+        rows = n + 4 * int(np.sqrt(n)) + 16
+        plan = memory.reckon(dataclasses.replace(base, pop_rows=(rows,)),
+                             free, memory.Switches(in_place=in_place),
+                             resident)
+        return plan.resident_cv == resident and plan.need <= free
+
+    out = {}
+    for resident, in_place in itertools.product((True, False), repeat=2):
+        lo, hi = 1, 1 << 30
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if admits(mid, resident, in_place) else (lo,
+                                                                      mid)
+        out[f"{'resident' if resident else 'gather'}_"
+            f"{'in_place' if in_place else 'fresh'}"] = lo
+    return out
+
+
+def biobank_phase(dev, work: Path, name: str, slice_argv: list,
+                  fresh: bool = False) -> dict:
+    """`name` of `BIOBANK` over the slice's scenario files (10,000
+    founders, 22 chromosomes x 100 CVs, the slice's mutation map), 3
+    generations through the CLI with `--stage_sync`: in place with the
+    per-group plan (300,000 is past the JAX package's 1.5e9 bytes of plan),
+    or, `fresh`, under GE_NO_INPLACE_REPRO=1 GE_PLAN_PER_GROUP=0. Keeps
+    the last generation's launches that read the parents
+    (`_ParentLaunches`: its parents' planes copied to the host before it,
+    outside its timing) under `parents` for `biobank_kernels`."""
+    import os
+
+    import torch
+
+    n = BIOBANK[name]
+    scenario = dict(SCENARIO, pop_size=n, gens=BIOBANK_GENS)
+    root = work / name
+    root.mkdir(parents=True, exist_ok=True)
+    base = _with(slice_argv, "--file_gen_info",
+                 str(_popinfo(root, scenario, BIOBANK_GENS)))
+    env = ({"GE_NO_INPLACE_REPRO": "1", "GE_PLAN_PER_GROUP": "0"} if fresh
+           else {})
+    saved = {k: os.environ.get(k) for k in env}
+    free = torch.cuda.mem_get_info(dev)[0]
+    os.environ.update(env)
+    try:
+        with _ParentLaunches(BIOBANK_GENS) as rec:
+            out = slice_phase(dev, work, name, scenario, base=base,
+                              before_step=rec.before_step)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sim = out.pop("sim")
+    plan = sim.mem_plan
+    if (plan.in_place, plan.per_group, plan.resident_cv) != (
+            not fresh, not fresh, True):
+        raise AssertionError(f"{name}: memory plan {plan}")
+    if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
+        raise AssertionError(f"{name}: tripwire {sim.capacity_log}")
+    out.update(parents=rec, free_before_mb=free / 2**20)
+    if name == "biobank_1m":
+        out["largest_n"] = _largest_n(sim, free)
+        print(f" {name}: the largest population each path admits at this "
+              f"shape by the reckoning, {free / 2**30:.1f} GiB free: "
+              + json.dumps(out["largest_n"]))
+    per_gen = statistics.median(out["s_per_gen"])
+    print(f" {name}: {per_gen:.3f} s/gen (median of {BIOBANK_GENS}) on the "
+          f"card; the reference's CPU binary at 300,000: "
+          f"{REFERENCE_300K_S} s/gen (BASELINE.md)")
+    return out
+
+
+def biobank_kernels(kernels: list, name: str, rec, per_gen: dict) -> dict:
+    """Every launch of `name`'s last generation that read the parents,
+    made again on its real inputs at its full shape (`_recheck`): in place
+    each group's count, merge and 4 gathers; on fresh planes the count,
+    the merge and the gathers over every chromosome; each equal to its
+    plain version (in `_plain_chunked`'s chunks past 2^20 chromosome and
+    child rows), each merge equal to every row of the children the run
+    wrote. Timed into the kernels' `entries`: the last merge, the last
+    count, the last 2 gathers and the bins of the last launch's draw."""
+    import torch
+
+    from geneevolve_tpu_torch.core import segments
+    from geneevolve_tpu_torch.ops import cdf_bins as cb
+
+    res = _recheck(name, rec, children=True)
+    want = {k: per_gen[k] for k in PARENT_KERNELS}
+    if res["checked"] != want:
+        raise AssertionError(f"{name}: last generation's launches "
+                             f"{res['checked']}, {want} expected")
+    by_name = {k["name"]: k for k in kernels}
+    _parent_entries(by_name, name, res["last"],
+                    gathers=("cv_rows_mother", "mutation_rows_mother"),
+                    merge="real_pass", count="probe", children_equal=True)
+    (_, _, _, (pop, c0, c1)), = res["last"]["meiose_merge"]
+    sim = rec.sim
+    p, gen, n_pad = rec.plans[pop]
+    probes, bins = [], segments.cdf_bins
+
+    def bins_rec(u, cum):
+        probes.append((u, cum))
+        return bins(u, cum)
+
+    del res
+    segments.cdf_bins = bins_rec
+    try:
+        sim._plan(p, gen, n_pad, c0, c1)
+    finally:
+        segments.cdf_bins = bins
+    u, cum = probes[0]
+    r = _compare(f"cdf_bins/{name}/crossovers_father",
+                 lambda: cb.cdf_bins(u, cum),
+                 lambda: cb.cdf_bins_plain(u, cum), _bins_work(u, cum),
+                 {"searchsorted": lambda: torch.searchsorted(
+                     cum, u.view(cum.shape[0], -1), right=True,
+                     out_int32=True)})
+    by_name["cdf_bins"].setdefault("entries", []).append(
+        dict(entry=f"{name}/crossovers_father",
+             shape=f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs "
+             f"(chromosomes {c0}-{c1 - 1}, every child)", **r))
+    return want
+
+
+def biobank_phases(dev, work: Path, slice_argv: list, wrappers: dict,
+                   launches: dict, kernels: list) -> dict:
+    """`table31_300k`, `table31_300k_fresh` (files byte-identical to
+    `table31_300k`'s, a larger peak) and `biobank_1m`, each counted, its
+    kernels re-checked at full shape after it, its files deleted after."""
+    import shutil
+
+    import torch
+
+    res = {}
+    for name in BIOBANK:
+        torch.cuda.empty_cache()
+        res[name] = counted(name, wrappers, lambda: biobank_phase(
+            dev, work, name, slice_argv, fresh=name.endswith("_fresh")),
+            launches)
+        per_gen = (SEGMENT_FRESH_PER_GEN if name.endswith("_fresh")
+                   else PER_GROUP_PER_GEN)
+        _expect(name, launches[name],
+                {k: v * BIOBANK_GENS for k, v in per_gen.items()})
+        out = res[name]
+        out["parent_launches_checked"] = biobank_kernels(
+            kernels, name, out.pop("parents"), per_gen)
+        torch.cuda.empty_cache()
+        for k in ("argv", "gen0_launches"):
+            out.pop(k)
+        if name == "table31_300k_fresh":
+            a = res["table31_300k"]
+            _same_files(name, a["root"], out["root"],
+                        _info_files(1, BIOBANK_GENS) + ["out.pop1.summary"])
+            if not a["max_memory_allocated_mb"] < \
+                    out["max_memory_allocated_mb"]:
+                raise AssertionError(
+                    f"{name}: in place peaks at "
+                    f"{a['max_memory_allocated_mb']:.1f} MiB, fresh planes "
+                    f"at {out['max_memory_allocated_mb']:.1f}")
+            print(f" table31_300k: .info/.summary byte-identical in place "
+                  f"and on fresh planes; peak "
+                  f"{a['max_memory_allocated_mb']:.1f} MiB in place against "
+                  f"{out['max_memory_allocated_mb']:.1f}; s/gen "
+                  + " ".join(f"{x:.3f}" for x in a["s_per_gen"]) + " against "
+                  + " ".join(f"{x:.3f}" for x in out["s_per_gen"]))
+            for x in (a, out):
+                shutil.rmtree(x.pop("root"))
+    shutil.rmtree(res["biobank_1m"].pop("root"))
+    torch.cuda.empty_cache()
+    return res
 
 
 def multipop_parity_phase(dev, work: Path) -> int:
@@ -2514,15 +3152,18 @@ def segment_device_mating(dev, work: Path, base: list) -> dict:
     timed run) and checked after it: from generation 2 on (the founders'
     mating values are all 0) the couples' realized correlation lies within
     `MAT_COR_TOL` of the target (~6 standard errors at ~15,000 couples),
-    and no vetoed couple has a child."""
+    and no vetoed couple has a child. The last generation's launches that
+    read the parents are kept under `parents` (`_ParentLaunches`)."""
     name = "dm31"
     root = work / name
     root.mkdir(parents=True, exist_ok=True)
     base = _with(base, "--file_gen_info",
                  str(_popinfo(root, SCENARIO, SCENARIO["gens"], MAT_COR)))
-    with _device_mate_recorded([]) as plans:
+    with _device_mate_recorded([]) as plans, \
+            _ParentLaunches(SCENARIO["gens"]) as rec:
         out = slice_phase(dev, work, name, SCENARIO, base=base,
-                          extra=["--device_mating", "--avoid_inbreeding"])
+                          extra=["--device_mating", "--avoid_inbreeding"],
+                          before_step=rec.before_step)
     sim = out.pop("sim")
     if len(plans) != SCENARIO["gens"]:
         raise AssertionError(f"{name}: {len(plans)} device pairings")
@@ -2542,7 +3183,7 @@ def segment_device_mating(dev, work: Path, base: list) -> dict:
                              f"{MAT_COR} +- {MAT_COR_TOL}")
     if sum(vetoed[1:]) == 0:
         raise AssertionError(f"{name}: the veto never bit")
-    out.update(couple_cor=cors, vetoed_couples=vetoed,
+    out.update(parents=rec, couple_cor=cors, vetoed_couples=vetoed,
                couples=[len(p[1].father_pos) for p in plans],
                device_mate_s=[p[3] for p in plans])
     print(f" {name}: couple correlation of mating values (gens 2..) "
@@ -3011,7 +3652,9 @@ def _check_calls(path: str, calls: dict) -> dict:
     """Each kernel's last call on `path` made again (comparison launches,
     after the counted run) against its plain version on the same inputs,
     bit-exact, each writing into its own copy of the outputs an entry
-    writes in place; returns each call key's max_abs_err."""
+    writes in place; returns each call key's max_abs_err. (A segment run
+    in place overwrites the planes the count, the merge and the gathers
+    read: `_ParentLaunches` and `_recheck` hold those.)"""
     out = {}
     for name, (fn, plain, a, k, outs) in sorted(calls.items()):
         def fresh():
@@ -3144,16 +3787,20 @@ def segment_mesh1(dev, work: Path, slice_argv: list, table31: dict) -> dict:
     """The segment slice through the CLI's `--mesh ind=1`, joined to a
     one-rank NCCL group as under torchrun (the environment names it):
     `.info`/`.summary` byte-identical to table31's, s/gen beside it. The
-    kernels' last calls are kept under `calls`."""
+    last calls of the kernels that do not read the parents are kept under
+    `calls`, the last generation's launches that do under `parents`
+    (`_ParentLaunches`: a real pass in place overwrites them)."""
     import os
 
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                       WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
     calls, gen_s, traffic, seen, ex = {}, [], [], [], []
-    with _last_calls(_targets("segment"), calls), \
-            _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
+    targets = [t for t in _targets("segment") if t[2] not in PARENT_KERNELS]
+    with _last_calls(targets, calls), _ParentLaunches(SCENARIO["gens"]) as \
+            rec, _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
         out = slice_phase(dev, work, "segment_mesh1", SCENARIO,
-                          ["--mesh", "ind=1"], base=slice_argv)
+                          ["--mesh", "ind=1"], base=slice_argv,
+                          before_step=rec.before_step)
     sim = out.pop("sim")
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if sim.mesh is None or sim.mesh.backend != backend or \
@@ -3164,6 +3811,7 @@ def segment_mesh1(dev, work: Path, slice_argv: list, table31: dict) -> dict:
     if any(c["seg_need"] != c["seg_used"] for c in sim.capacity_log):
         raise AssertionError(f"segment_mesh1: tripwire {sim.capacity_log}")
     out.update(_per_gen_traffic(traffic), files_identical=n, calls=calls,
+               parents=rec,
                **_exchange_peak(ex, out["max_memory_allocated_mb"]))
     print(f" segment_mesh1: {n} files byte-identical to table31's; s/gen "
           + " ".join(f"{x:.3f}" for x in out["s_per_gen"]) + " (table31 "
@@ -3511,6 +4159,9 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
             {k: v * SCENARIO["gens"] for k, v in SEGMENT_PER_GEN.items()})
     res["segment_mesh1"]["plain_checks"] = _check_calls(
         "segment_mesh1", res["segment_mesh1"].pop("calls"))
+    res["segment_mesh1"]["parent_launches_checked"] = _recheck(
+        "segment_mesh1", res["segment_mesh1"].pop("parents"),
+        children=True)["checked"]
     for k in ("argv", "root", "sim"):
         res["segment_mesh1"].pop(k, None)
     torch.cuda.empty_cache()
@@ -3558,11 +4209,12 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
                           timeout_s=MESH_TIMEOUT_S, pg_timeout_s=300)
     spawn_s = time.perf_counter() - t0
     want = {
+        # two 'ind' ranks: fresh planes
         "segment_mesh2": {k: v * MESH_GENS for k, v in
-                          SEGMENT_PER_GEN.items()},
+                          SEGMENT_FRESH_PER_GEN.items()},
         "multipop_mesh2": {k: v * MESH_GENS + GEN0_LAUNCHES[
             "segment_multipop"].get(k, 0)
-            for k, v in MULTIPOP_PER_GEN.items()},
+            for k, v in MULTIPOP_FRESH_PER_GEN.items()},
         # 2 layouts x 3 generations, 1 window launch each (whole
         # chromosomes at both layouts: 22 split as 11 + 11)
         "dense_mesh2": {k: 2 * v * MESH_GENS
@@ -3686,8 +4338,11 @@ def main() -> int:
         slice_argv, slice_root = (res["slice"].pop(k) for k in ("argv",
                                                                  "root"))
         # after the counted run: these launches are comparisons
-        segment_slice_kernels(kernels, res["slice"].pop("captured"))
-        kernels.append(paint_full_width(dev, res["slice"].pop("final")))
+        final = res["slice"].pop("final")
+        res["slice"]["parent_launches_checked"] = segment_slice_kernels(
+            kernels, res["slice"].pop("captured"))
+        kernels.append(paint_full_width(dev, final))
+        del final
         torch.cuda.empty_cache()
         res["gather"] = counted(
             "segment_gather", wrappers,
@@ -3696,12 +4351,28 @@ def main() -> int:
         check_per_gen("segment_gather", GATHER_PER_GEN)
         del res["gather"]["argv"], res["gather"]["root"]
         gather_paint_kernel(kernels, res["gather"].pop("captured"))
+        res["gather"]["parent_launches_checked"] = _recheck(
+            "gather31", res["gather"].pop("parents"), children=True)[
+                "checked"]
+        torch.cuda.empty_cache()
+        res["grow"] = counted("grow31", wrappers,
+                              lambda: segment_grow(dev, work, slice_argv),
+                              launches)
+        _expect("grow31", launches["grow31"],
+                res["grow"].pop("want_launches"))
+        for k in ("argv", "root"):
+            res["grow"].pop(k)
+        res["grow"]["parent_launches_checked"] = _recheck(
+            "grow31", res["grow"].pop("parents"), children=True)["checked"]
         torch.cuda.empty_cache()
         res["device_mating"] = counted(
             "segment_device_mating", wrappers,
             lambda: segment_device_mating(dev, work, slice_argv), launches)
         check_per_gen("segment_device_mating", SEGMENT_PER_GEN)
         del res["device_mating"]["argv"], res["device_mating"]["root"]
+        res["device_mating"]["parent_launches_checked"] = _recheck(
+            "dm31", res["device_mating"].pop("parents"), children=True)[
+                "checked"]
         print(" segment_device_mating: mate stage "
               f"{res['device_mating']['stage_split_s']['mate']} s on the "
               f"card against table31's {res['slice']['stage_split_s']['mate']}"
@@ -3712,21 +4383,26 @@ def main() -> int:
         res["multipop"] = counted(
             "segment_multipop", wrappers,
             lambda: segment_multipop(dev, work, slice_argv), launches)
-        check_per_gen("segment_multipop", MULTIPOP_PER_GEN)
+        _expect("segment_multipop", launches["segment_multipop"],
+                res["multipop"].pop("want_launches"))
         straight = {k: res["multipop"].pop(k) for k in ("argv", "root",
                                                         "ckpt")}
         # after the counted run: these launches are comparisons
-        multipop_kernels(kernels, res["multipop"].pop("captured"))
+        res["multipop"]["parent_launches_checked"] = multipop_kernels(
+            kernels, res["multipop"].pop("captured"))
         torch.cuda.empty_cache()
         res["multipop_resume"] = counted(
             "segment_multipop_resume", wrappers,
             lambda: segment_multipop_resume(dev, straight), launches)
-        check_per_gen("segment_multipop_resume", MULTIPOP_PER_GEN)
+        _expect("segment_multipop_resume",
+                launches["segment_multipop_resume"],
+                res["multipop_resume"].pop("want_launches"))
         multipop_argv = straight["argv"]
         if multipop_argv[-2] != "--gamma":
             raise AssertionError("multipop31's argv ends in --gamma")
         torch.cuda.empty_cache()
-        torch.cuda.empty_cache()
+        res["biobank"] = biobank_phases(dev, work, slice_argv, wrappers,
+                                        launches, kernels)
         res["output_parity_files"] = segment_output_parity(dev, work)
         dense_parity_phase(dev, work)
         # 200 SNPs a chromosome: 224 loci, 7 words

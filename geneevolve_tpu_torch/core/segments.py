@@ -12,7 +12,7 @@ device, serve CPU tensors and the tests, and are the oracles of the CUDA
 kernels in `ops/` (merge, count, paint). Where the JAX package ranked candidates
 with O(L^2) compare-reduces to suit XLA, the torch versions sort stably —
 the same (value, candidate index) order, so the same result. Counterparts:
-`_active_at_T` -> `_active_at`, `_seg_lookup_T` -> `hap_at`,
+`_active_at_T` -> `active_at`, `_seg_lookup_T` -> `hap_at`,
 `rank_compact_T` -> `rank_compact`, and `merge3_T` -> `rank_compact` over
 the concatenated candidates [X; A; B] inside `meiose`.
 """
@@ -271,13 +271,24 @@ def _place(gen, counts, bins, bp, width, inclusive_bins, bp0, bp_step):
     return torch.where(live, pos.to(POS), BIG)
 
 
-def _active_at(xo: torch.Tensor, start_hap: torch.Tensor,
-               q: torch.Tensor) -> torch.Tensor:
+def active_at(xo: torch.Tensor, start_hap: torch.Tensor,
+              q: torch.Tensor) -> torch.Tensor:
     """(nc, Q) parent chromatid copied at each query: (start + #{xo <= q})
     % 2. Order-independent in the crossovers; BIG padding never counts
-    against a valid q."""
-    cnt = (xo[:, None, :] <= q[:, :, None]).sum(-1)
+    against a valid q. The count is a sorted search of each crossover row
+    (the (nc, Q, K) compare's sum would be cast to an int64 copy first)."""
+    xs = torch.sort(xo, dim=1).values
+    cnt = torch.searchsorted(xs, q.contiguous(), right=True)
     return (start_hap[:, None].long() + cnt) % 2
+
+
+def member(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(nc, Q) bool: is q[i, j] one of rows[i] (nc, M)? A sorted search of
+    each row, without the (nc, M, Q) compare."""
+    xs = torch.sort(rows, dim=1).values
+    i = torch.searchsorted(xs, q, right=False)
+    got = xs.gather(1, i.clamp(max=xs.shape[1] - 1))
+    return (i < xs.shape[1]) & (got == q)
 
 
 def rank_compact(cand, valid, cap, *vals):
@@ -322,9 +333,9 @@ def meiose(
     A, B = par_st[:, 0], par_st[:, 1]
     hA, hB = par_hap[:, 0].long(), par_hap[:, 1].long()
     X = torch.cat([A[:, :1], xo], 1)
-    actX = _active_at(xo, start_hap, X)
-    actA = _active_at(xo, start_hap, A)
-    actB = _active_at(xo, start_hap, B)
+    actX = active_at(xo, start_hap, X)
+    actA = active_at(xo, start_hap, A)
+    actB = active_at(xo, start_hap, B)
     not_first = torch.arange(S, device=par_st.device)[None, :] > 0
     vX = torch.cat(
         [torch.ones((nc, 1), dtype=torch.bool, device=xo.device), xo < BIG], 1
@@ -355,8 +366,8 @@ def count_merge_valid(par_st, xo, start_hap) -> torch.Tensor:
     S = par_st.shape[-1]
     A, B = par_st[:, 0], par_st[:, 1]
     not_first = torch.arange(S, device=par_st.device)[None, :] > 0
-    vA = (A < BIG) & (_active_at(xo, start_hap, A) == 0) & not_first
-    vB = (B < BIG) & (_active_at(xo, start_hap, B) == 1) & not_first
+    vA = (A < BIG) & (active_at(xo, start_hap, A) == 0) & not_first
+    vB = (B < BIG) & (active_at(xo, start_hap, B) == 1) & not_first
     return (1 + (xo < BIG).sum(1) + vA.sum(1) + vB.sum(1)).to(torch.int32)
 
 
@@ -366,9 +377,9 @@ def inherit_mutations(par_mut, xo, start_hap, new_mut, capacity):
     position once (the reference flips on membership, not count). Returns
     ((nc, capacity) ascending BIG-padded positions, n_valid uncapped)."""
     m0, m1 = par_mut[:, 0], par_mut[:, 1]
-    k0 = torch.where((m0 < BIG) & (_active_at(xo, start_hap, m0) == 0),
+    k0 = torch.where((m0 < BIG) & (active_at(xo, start_hap, m0) == 0),
                      m0, BIG)
-    k1 = torch.where((m1 < BIG) & (_active_at(xo, start_hap, m1) == 1),
+    k1 = torch.where((m1 < BIG) & (active_at(xo, start_hap, m1) == 1),
                      m1, BIG)
     s = torch.sort(torch.cat([k0, k1, new_mut.to(POS)], 1), dim=1).values
     dup = torch.cat(
@@ -381,6 +392,24 @@ def inherit_mutations(par_mut, xo, start_hap, new_mut, capacity):
         s = torch.cat([s, s.new_full((s.shape[0], capacity - s.shape[1]),
                                      BIG)], 1)
     return s[:, :capacity].contiguous(), n_valid
+
+
+def in_row_chunks(fn, chunk: int, rows: tuple, *fixed):
+    """`fn(*rows, *fixed)` over chunks of `chunk` rows (axis 0 of each
+    tensor of `rows`; None passes through), the outputs (a tensor or a
+    tuple of them) concatenated on axis 0. Equal to one call for any `fn`
+    whose output row i reads only row i of `rows`, as
+    `inherit_mutations` and the engine's `_gamete_cv` do; it bounds
+    their transients at biobank row counts (the JAX `_make_per_chr`'s
+    chunks)."""
+    n = next(x.shape[0] for x in rows if x is not None)
+    if n <= chunk:
+        return fn(*rows, *fixed)
+    parts = [fn(*(None if x is None else x[lo:lo + chunk] for x in rows),
+                *fixed) for lo in range(0, n, chunk)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def hap_at(seg_st: torch.Tensor, seg_hap: torch.Tensor,

@@ -143,6 +143,44 @@ def test_cuda_stacked_count_and_merge_kernels(cuda, nchr, n, S, K, live,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c0, g", [(2, 2), (3, 2), (4, 1)])
+def test_cuda_group_view_and_copy_back(cuda, c0, g):
+    """The in-place real pass's launches (`Simulation._real_pass_in_place`)
+    on a group view of the stacked planes at an offset c0 > 0: the merge,
+    the count and the stacked row gathers equal those chromosomes of the
+    whole-stack launch, and copying the group's children into its slab
+    leaves every other chromosome's planes untouched."""
+    rng = np.random.default_rng(40 + c0)
+    nchr, n, S, K = 5, 90, 49, 23
+    a = [T(x, device=cuda) for x in stacked(rng, nchr, n, S, K, 14)]
+    st, hap, parents, xo_f, xo_m, sh = a
+    cv = T(rng.integers(0, 2, size=(nchr, n, 2, 200)).astype(np.uint8),
+           device=cuda)
+    mut = T(rng.integers(0, 1 << 20, size=(nchr, n, 2, 27)).astype(
+        np.int32), device=cuda)
+    cs = slice(c0, c0 + g)
+    grp = [st[cs], hap[cs], parents, xo_f[cs], xo_m[cs], sh[cs]]
+    whole = tmerge.meiose_merge(*a, S)
+    kids = tmerge.meiose_merge(*grp, S)
+    for k, w in zip(kids, whole):
+        assert torch.equal(k, w[cs])
+    assert torch.equal(tcount.merge_count(st[cs], *grp[2:]),
+                       tcount.merge_count(st, *a[2:])[cs])
+    for table in (cv, mut):
+        for idx in parents:
+            assert torch.equal(tmat.gather_rows_stacked(table[cs], idx),
+                               tmat.gather_rows_stacked(table, idx)[cs])
+    before = [x.clone() for x in (st, hap)]
+    for dst, src in zip((st, hap), kids[:2]):
+        dst[cs].copy_(src)
+    torch.cuda.synchronize()
+    for x, b, k in zip((st, hap), before, kids[:2]):
+        assert torch.equal(x[cs], k)
+        keep = [i for i in range(nchr) if not c0 <= i < c0 + g]
+        assert torch.equal(x[keep], b[keep])
+
+
+@pytest.mark.cuda
 def test_cuda_merge_refuses_rows_past_shared_memory(cuda):
     """One gamete's rows above a block's 227 KB: the wrapper raises."""
     rng = np.random.default_rng(5)

@@ -56,7 +56,9 @@ def _mutation_map(path: Path) -> Path:
 
 
 def _planes(st):
-    return {k: np.asarray(getattr(st, k)) for k in PLANES}
+    """Copies of a state's planes: the port writes a constant-size
+    generation's children over its parents' planes."""
+    return {k: np.array(getattr(st, k)) for k in PLANES}
 
 
 def _host(st):
@@ -115,16 +117,17 @@ class JaxRun:
 
 def _inject(tsim, run: JaxRun):
     """Feed the port the JAX run's mating plans and reproduce plans, those
-    of each (generation, population)."""
+    of each (generation, population); a chromosome range's plan is those
+    chromosomes' rows of it (the per-group plan)."""
     def at(p, gen):
         return (gen - 1) * run.n_pop + p.index
 
     tsim._mate = lambda p, gen, pop_size, g: run.mates[at(p, gen)]
 
-    def plan(p, gen, n_pad):
+    def plan(p, gen, n_pad, c0=0, c1=None):
         drawn = run.plans[at(p, gen)]
         assert drawn[0].shape[1] == n_pad  # same plane-row policy
-        return tuple(torch.from_numpy(np.array(x)) for x in drawn)
+        return tuple(torch.from_numpy(np.array(x[c0:c1])) for x in drawn)
 
     tsim._plan = plan
 
