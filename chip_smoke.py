@@ -2,8 +2,12 @@
 """Drive the PyTorch/CUDA port (`geneevolve_tpu_torch`) once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py biobank_1m_mesh2
 
-Phases, each of which raises on failure (exit code non-zero):
+The second form runs `biobank_1m` on one card and then at `--mesh ind=2`
+on two gloo ranks sharing it (`biobank_mesh2_main`), and nothing else.
+Phases of the first, each of which raises on failure (exit code
+non-zero):
 
 0. build: compile every kernel in `geneevolve_tpu_torch/csrc/` with nvcc
    for sm_90a, one nvcc per source, all at once (seconds printed);
@@ -102,7 +106,8 @@ Phases, each of which raises on failure (exit code non-zero):
    GE_NO_INPLACE_REPRO=1 GE_PLAN_PER_GROUP=0 (one stacked launch of each
    a kind), its `.info`/`.summary` byte-identical to `table31_300k`'s and
    its peak above it; `biobank_1m` (pop_size 1e6), with the largest
-   population each path admits by the reckoning. Each prints s/gen, the
+   population each path admits by the reckoning on 1, 2 and 4 'ind'
+   ranks. Each prints s/gen, the
    stage split, its peaks beside the reckoned need and the reference's
    1,121.8 s/gen at 300,000; then every launch of the last generation
    that read the parents (each group's count, merge and gathers, or the
@@ -209,8 +214,16 @@ Phases, each of which raises on failure (exit code non-zero):
    then `multipop31` without `--gamma` unsharded, and two ranks sharing
    the card over gloo (`parallel.launch`, `backend="gloo"`), each counting
    its own launches: `segment_mesh2` (the slice, 3 generations, files
-   byte-identical to table31's first 3), `multipop_mesh2` (files
-   byte-identical to the unsharded run's) and `packed_mesh2` (the three
+   byte-identical to table31's first 3, in place on both ranks as on one
+   card: a group's parent rows fetched at a time; its peak a rank below
+   table31's), `multipop_mesh2` (files byte-identical to the unsharded
+   run's; launches as its capacity log says), `table31_300k_mesh2`
+   (`table31_300k`'s files, kept for it, 3 generations; files
+   byte-identical, launches as `PER_GROUP_PER_GEN`), each segment run with
+   every rank's peaks before, in and after each real pass beside its
+   reckoned need, which the peak must not pass, and the last
+   generation's last launches of the stacked kernels held to their plain
+   versions on their own inputs (`_MeshLaunches`), and `packed_mesh2` (the three
    steps at n 4,096 x 1 Mi loci at (ind, loci) = (2, 1) and (1, 2), and
    the sharded step at (1, 2) over 7 chromosomes of 131,072 loci, each
    rank holding 3.5 of them: kernel 4's window entry once a piece,
@@ -319,6 +332,7 @@ PATHS = {
     "packed_mesh1": ("meiose_packed", "gather_rows", "meiose_planes"),
     "segment_mesh2": SEGMENT,
     "multipop_mesh2": SEGMENT + ("paint",),
+    "table31_300k_mesh2": SEGMENT,
     "packed_mesh2": ("meiose_packed", "gather_rows"),
     "dense_mesh1": ("meiose_packed", "gather_rows"),
     "dense_mesh2": ("meiose_packed", "gather_rows"),
@@ -356,10 +370,7 @@ GATHER_PER_GEN = dict(GATHER_FRESH_PER_GEN, gather_rows=2 * GROUPS,
 MULTIPOP = 2
 MULTIPOP_GENS = 3
 # (in place only where a generation's children fit the rows the
-# migration left: `_launches_from_log`); several 'ind' ranks keep fresh
-# planes
-MULTIPOP_FRESH_PER_GEN = {k: MULTIPOP * v for k, v in dict(
-    GATHER_FRESH_PER_GEN, paint=2).items()}
+# migration left: `_launches_from_log`)
 DENSE_MULTIPOP_PER_GEN = {"meiose_packed": MULTIPOP}
 # the biobank-n phases: Table 3.1's top row (pop_size 300,000, in place
 # and on fresh planes) and 1e6, over the slice's scenario files, 3
@@ -425,6 +436,17 @@ PATH_GENS = {"segment_slice": SCENARIO["gens"],
 MESH_GENS = 3
 MESH_N = 4096
 MESH_TIMEOUT_S = 600
+# `table31_300k` on the two ranks (3 generations): its own share of the
+# launch's time limit
+BIG_MESH_TIMEOUT_S = 300
+# host memory `biobank_1m_mesh2` asks to be available (GiB): the two
+# ranks' pinned staging of a group's exchange (~2 GB each) beside the
+# one-card run's host state
+BIOBANK_MESH_HOST_GIB = 40
+# `segment_mesh2`'s peak a rank when every generation fetched the whole
+# generation's parent rows onto fresh planes (this smoke before the
+# mesh ran in place, PERF.md §5; H100 80GB HBM3, 700 W)
+SEGMENT_MESH2_FRESH_MB = 1529.0
 # the sharded step over chromosomes a loci axis of 2 cuts in half: 7 of
 # the flagship's 131,072-locus chromosomes, 3.5 a rank (two window
 # launches of kernel 4 a rank: 3 whole chromosomes, half of one)
@@ -2260,8 +2282,9 @@ def multipop_kernels(kernels: list, captured: dict) -> dict:
 # ------------------------------------------------------------ biobank n
 def _largest_n(sim, free: int) -> dict:
     """The largest population each path admits at this run's shape and
-    capacities by `memory.reckon`, with `free` bytes free: resident or
-    gather path, in place or on fresh planes."""
+    capacities by `memory.reckon`, with `free` bytes free a card: resident
+    or gather path, in place or on fresh planes, on 1, 2 and 4 'ind'
+    ranks (a card each)."""
     import dataclasses
 
     import numpy as np
@@ -2270,22 +2293,26 @@ def _largest_n(sim, free: int) -> dict:
 
     base = sim._sizes()
 
-    def admits(n, resident, in_place):
+    def admits(n, ind, resident, in_place):
         rows = n + 4 * int(np.sqrt(n)) + 16
-        plan = memory.reckon(dataclasses.replace(base, pop_rows=(rows,)),
+        plan = memory.reckon(dataclasses.replace(base, pop_rows=(rows,),
+                                                 ind=ind),
                              free, memory.Switches(in_place=in_place),
                              resident)
         return plan.resident_cv == resident and plan.need <= free
 
     out = {}
-    for resident, in_place in itertools.product((True, False), repeat=2):
-        lo, hi = 1, 1 << 30
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            lo, hi = (mid, hi) if admits(mid, resident, in_place) else (lo,
-                                                                      mid)
-        out[f"{'resident' if resident else 'gather'}_"
-            f"{'in_place' if in_place else 'fresh'}"] = lo
+    for ind in (1, 2, 4):
+        got = out[f"ind{ind}"] = {}
+        for resident, in_place in itertools.product((True, False),
+                                                    repeat=2):
+            lo, hi = 1, 1 << 30
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = ((mid, hi) if admits(mid, ind, resident, in_place)
+                          else (lo, mid))
+            got[f"{'resident' if resident else 'gather'}_"
+                f"{'in_place' if in_place else 'fresh'}"] = lo
     return out
 
 
@@ -2335,8 +2362,8 @@ def biobank_phase(dev, work: Path, name: str, slice_argv: list,
     if name == "biobank_1m":
         out["largest_n"] = _largest_n(sim, free)
         print(f" {name}: the largest population each path admits at this "
-              f"shape by the reckoning, {free / 2**30:.1f} GiB free: "
-              + json.dumps(out["largest_n"]))
+              f"shape by the reckoning, {free / 2**30:.1f} GiB free a card, "
+              "on 1, 2 and 4 'ind' ranks: " + json.dumps(out["largest_n"]))
     per_gen = statistics.median(out["s_per_gen"])
     print(f" {name}: {per_gen:.3f} s/gen (median of {BIOBANK_GENS}) on the "
           f"card; the reference's CPU binary at 300,000: "
@@ -2400,7 +2427,8 @@ def biobank_phases(dev, work: Path, slice_argv: list, wrappers: dict,
                    launches: dict, kernels: list) -> dict:
     """`table31_300k`, `table31_300k_fresh` (files byte-identical to
     `table31_300k`'s, a larger peak) and `biobank_1m`, each counted, its
-    kernels re-checked at full shape after it, its files deleted after."""
+    kernels re-checked at full shape after it, its files deleted after
+    (`table31_300k`'s, and its argv, kept for `table31_300k_mesh2`)."""
     import shutil
 
     import torch
@@ -2419,8 +2447,9 @@ def biobank_phases(dev, work: Path, slice_argv: list, wrappers: dict,
         out["parent_launches_checked"] = biobank_kernels(
             kernels, name, out.pop("parents"), per_gen)
         torch.cuda.empty_cache()
-        for k in ("argv", "gen0_launches"):
-            out.pop(k)
+        out.pop("gen0_launches")
+        if name != "table31_300k":  # its files and argv: the mesh run's
+            out.pop("argv")
         if name == "table31_300k_fresh":
             a = res["table31_300k"]
             _same_files(name, a["root"], out["root"],
@@ -2437,8 +2466,7 @@ def biobank_phases(dev, work: Path, slice_argv: list, wrappers: dict,
                   f"{out['max_memory_allocated_mb']:.1f}; s/gen "
                   + " ".join(f"{x:.3f}" for x in a["s_per_gen"]) + " against "
                   + " ".join(f"{x:.3f}" for x in out["s_per_gen"]))
-            for x in (a, out):
-                shutil.rmtree(x.pop("root"))
+            shutil.rmtree(out.pop("root"))
     shutil.rmtree(res["biobank_1m"].pop("root"))
     torch.cuda.empty_cache()
     return res
@@ -3677,10 +3705,16 @@ def _expect(path: str, counts: dict, want: dict) -> None:
 
 
 @contextlib.contextmanager
-def _gens_timed(gen_s: list, traffic: list, seen: list):
+def _gens_timed(gen_s: list, traffic: list, seen: list, parts=None,
+                before_step=None):
     """Within it, each `Simulation.step` is timed to a device sync, the
     run's `Simulation` kept in `seen` and its mesh's cumulative exchange
-    record read after each generation into `traffic`."""
+    record read after each generation into `traffic`. With `parts`, each
+    generation's peaks (`_peaks`: before, in and after the real pass) are
+    appended to it, with the peak since the last generation began under
+    `held` (the allocator's peak is reset before each generation);
+    `before_step(sim, gen)` runs before each generation, outside its
+    timing."""
     import torch
 
     from geneevolve_tpu_torch.core import engine
@@ -3692,10 +3726,18 @@ def _gens_timed(gen_s: list, traffic: list, seen: list):
         return run(self)
 
     def step_rec(self, gen):
+        if before_step is not None:
+            before_step(self, gen)
+        if parts is not None:
+            held = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        step(self, gen)
+        with _peaks(parts) if parts is not None else contextlib.nullcontext():
+            step(self, gen)
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
+        if parts is not None:
+            parts[-1]["held"] = held
         if self.mesh is not None:
             traffic.append(self.mesh.traffic.summary())
 
@@ -3710,8 +3752,9 @@ def _gens_timed(gen_s: list, traffic: list, seen: list):
 def _exchange_peaks(rec: list):
     """Within it, each `exchange_rows` call of the engine appends (MiB
     allocated at its entry, the device's peak MiB at its end, whether the
-    peak rose inside it) to `rec`: whether the parents' fetch sets a
-    rank's peak memory."""
+    peak rose inside it) to `rec`: whether a fetch of the parents' rows
+    (a group's in place, every chromosome's on fresh planes) or a
+    migration's exchange sets a rank's peak memory."""
     import torch
 
     from geneevolve_tpu_torch.core import engine
@@ -3989,15 +4032,26 @@ def packed_mesh1(dev, inp: dict) -> dict:
     return out
 
 
-def _mesh_cli(dev, root: Path, argv: list, shape=(2, 1)) -> dict:
+def _mesh_cli(dev, root: Path, argv: list, shape=(2, 1),
+              segment=False) -> dict:
     """`cli.main` with `--mesh` of `shape` in a rank of the two-rank group
     (it joins the group); s/gen, exchange per generation, the block of
-    the planes a rank holds and the tripwire."""
+    the planes a rank holds and the tripwire. `segment`: also each
+    generation's peaks before, in and after the real pass, the run's peak
+    (`run_peak_mb`), the reckoned need (`Simulation.mem_plan`), which
+    generations ran in place, and the last generation's last launches of
+    the stacked kernels under `launches_rec` (`_MeshLaunches`)."""
+    import torch
+
     from geneevolve_tpu_torch import cli
 
     root.mkdir(parents=True, exist_ok=True)
     gen_s, traffic, seen, ex = [], [], [], []
-    with _gens_timed(gen_s, traffic, seen), _exchange_peaks(ex):
+    parts = [] if segment else None
+    rec = _MeshLaunches() if segment else contextlib.nullcontext()
+    with rec, _gens_timed(gen_s, traffic, seen, parts,
+                          rec.before_step if segment else None), \
+            _exchange_peaks(ex):
         rc = cli.main(argv + ["--seed", "12345", "--prefix",
                               str(root / "out"), "--stage_sync", "--mesh",
                               f"ind={shape[0]},loci={shape[1]}"],
@@ -4016,6 +4070,218 @@ def _mesh_cli(dev, root: Path, argv: list, shape=(2, 1)) -> dict:
                exchange_calls_rec=ex, **_per_gen_traffic(traffic))
     if hasattr(sim.pops[0].state, "hap"):
         out["block_shape"] = list(sim.pops[0].state.hap.shape)
+    if segment:
+        mib = 2**20
+        out.update(
+            peaks_per_gen_mb=[{k: v / mib for k, v in x.items()}
+                              for x in parts],
+            run_peak_mb=max(torch.cuda.max_memory_allocated(),
+                            *(max(x.values()) for x in parts)) / mib,
+            need_mb=sim.mem_plan.need / mib,
+            in_place=[c["in_place"] for c in sim.capacity_log],
+            per_group=[c["per_group"] for c in sim.capacity_log],
+            idle_counts=rec.idle, launches_rec=rec)
+    return out
+
+
+def _in_place_within_need(name: str, o: dict) -> None:
+    """Every generation of a one-population segment rank ran in place, and
+    its peak did not pass its reckoned need."""
+    if not (all(o["in_place"]) and o["max_memory_allocated_mb"]
+            <= o["need_mb"]):
+        raise AssertionError(
+            f"{name}: in place {o['in_place']}, peak "
+            f"{o['max_memory_allocated_mb']:.1f} MiB against the reckoned "
+            f"{o['need_mb']:.1f}")
+
+
+def _mesh_want(want: dict, out: dict) -> dict:
+    """A segment rank's launches expected: `want`, less the counts it made
+    without a launch (`_MeshLaunches.idle`)."""
+    return dict(want, merge_count=want["merge_count"]
+                - out.get("idle_counts", 0))
+
+
+class _MeshLaunches:
+    """Records, on a rank of a segment run under a mesh, the last launch
+    of each stacked segment kernel in the last generation's last
+    population, so that `_check_mesh_launches` can make it again after the
+    run on its own inputs, without holding a plane or a plan inside the
+    timed run: for the bins, the arguments of the last `_plan` call and a
+    checksum of each probe tensor it drew (a reduction on the card, no
+    sync; the plan is drawn again after the run); for the count, its
+    chromosome range, the address of the parents' block it read and the
+    `_owned_gametes` it counted (small index tensors; its operands rebuilt
+    after the run by the engine's `_count_columns`); for the merge and the
+    gathers, references to the last group's arguments (that group's
+    fetched parent rows, which nothing overwrites). `idle` counts the
+    probe's counts the rank made without a launch, holding no parent of
+    any child (generation 1's founders lie on rank 0). `before_step` copies
+    the parents' planes to the host before the last generation on rank 0,
+    outside its timing: the count read this rank's block of them, which a
+    real pass in place overwrites."""
+
+    def __init__(self):
+        self.on = self.last_group = False
+        self.sim, self.copy, self.calls = None, {}, {}
+        self.plan = self.count = self.owned = None
+        self.bins: list = []
+        self.idle = 0
+
+    def before_step(self, sim, gen):
+        if gen == sim.tot_gen:
+            self.sim = sim
+            if sim.is_root:  # rank 0 checks the launches
+                self.copy = _parents_copy(sim)
+
+    def __enter__(self):
+        from geneevolve_tpu_torch.core import engine, segments
+        from geneevolve_tpu_torch.ops import materialize as mat
+        from geneevolve_tpu_torch.ops import meiose_merge as mm
+
+        sim_cls = engine.Simulation
+        self.saved = [(engine, k, getattr(engine, k)) for k in (
+            "merge_count", "meiose_merge", "gather_rows_stacked")] + [
+            (segments, "cdf_bins", segments.cdf_bins)] + [
+            (sim_cls, k, getattr(sim_cls, k)) for k in (
+                "_reproduce", "_reproduce_group", "_plan",
+                "_owned_gametes", "_probe_counts")]
+        fns = {k: fn for _, k, fn in self.saved}
+
+        def reproduce(sim, p, gen, plan):
+            self.on = gen == sim.tot_gen and p.index == sim.n_pop - 1
+            try:
+                return fns["_reproduce"](sim, p, gen, plan)
+            finally:
+                self.on = False
+
+        def group(sim, st, parents, draws, c0=0):
+            self.last_group = self.on and \
+                c0 + st.seg_st.shape[0] == len(sim.chrs)
+            try:
+                return fns["_reproduce_group"](sim, st, parents, draws, c0)
+            finally:
+                self.last_group = False
+
+        def plan(sim, p, gen, n_pad, c0=0, c1=None):
+            if self.on:
+                self.plan, self.bins = (p, gen, n_pad, c0, c1), []
+            return fns["_plan"](sim, p, gen, n_pad, c0, c1)
+
+        def owned(sim, parents, rows):
+            out = fns["_owned_gametes"](sim, parents, rows)
+            if self.on:
+                self.owned = (parents, out)
+            return out
+
+        def probe(sim, seg_st, mut, parents, plan, owned=None):
+            self.idle += owned == ()
+            return fns["_probe_counts"](sim, seg_st, mut, parents, plan,
+                                        owned)
+
+        def bins(u, cum):
+            if self.on:
+                self.bins.append(_checksum(u))
+            return fns["cdf_bins"](u, cum)
+
+        def count(seg_st, *a):
+            if self.on:
+                c0 = seg_st.storage_offset() // seg_st.stride(0)
+                self.count = (_desc(seg_st), self.plan[:3], c0,
+                              c0 + seg_st.shape[0])
+            return fns["merge_count"](seg_st, *a)
+
+        def kept(key, fn, plain):
+            def rec(*a, **k):
+                if self.last_group:
+                    self.calls[key] = (fn, plain, a, k, ())
+                return fn(*a, **k)
+            return rec
+
+        engine.merge_count = count
+        engine.meiose_merge = kept("meiose_merge", fns["meiose_merge"],
+                                   mm.meiose_merge_plain)
+        engine.gather_rows_stacked = kept(
+            "gather_rows", fns["gather_rows_stacked"],
+            mat.gather_rows_stacked_plain)
+        segments.cdf_bins = bins
+        sim_cls._reproduce, sim_cls._reproduce_group = reproduce, group
+        sim_cls._plan, sim_cls._owned_gametes = plan, owned
+        sim_cls._probe_counts = probe
+        return self
+
+    def __exit__(self, *exc):
+        for mod, k, fn in self.saved:
+            setattr(mod, k, fn)
+        self.on = self.last_group = False
+        self.saved = None  # no cycle through the hooks
+
+
+def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
+    """The launches `rec` recorded, made again (comparison launches, after
+    the counted run) against their plain versions, bit-exact: the bins of
+    the last `_plan` call, drawn again and held to the run's checksums;
+    the count on the host copy of the parents' block it read, back on the
+    card, with the columns `_count_columns` builds from the plan drawn
+    again; the last group's merge and last gather on their own arguments.
+    Returns each kernel's max_abs_err."""
+    import torch
+
+    from geneevolve_tpu_torch.core import segments
+    from geneevolve_tpu_torch.ops import cdf_bins as cb
+    from geneevolve_tpu_torch.ops import merge_count as mc
+
+    sim = rec.sim
+    if sim is None or rec.count is None or rec.owned is None or \
+            set(rec.calls) != {"meiose_merge", "gather_rows"}:
+        raise AssertionError(f"{path}: the last generation's launches were "
+                             "not recorded")
+    seen, bins = [], segments.cdf_bins
+
+    def bins_rec(u, cum):
+        seen.append((u, cum))
+        return bins(u, cum)
+
+    segments.cdf_bins = bins_rec
+    try:
+        sim._plan(*rec.plan)
+    finally:
+        segments.cdf_bins = bins
+    if [int(_checksum(u)) for u, _ in seen] != [int(x) for x in rec.bins]:
+        raise AssertionError(f"{path}: the plan drawn again differs from "
+                             "the run's")
+    u, cum = seen[-1]
+    del seen
+    out = {"cdf_bins": _max_abs_err(cb.cdf_bins(u, cum),
+                                    cb.cdf_bins_plain(u, cum))}
+    (ptr, shape, dtype), (p, gen, n_pad), c0, c1 = rec.count
+    for (pop, key), (start, host) in rec.copy.items():
+        off = ptr - start
+        if pop == p.index and key == "seg_st" and \
+                0 <= off < host.numel() * host.element_size():
+            break
+    else:
+        raise AssertionError(f"{path}: the last count read no plane of the "
+                             "copy taken before the last generation")
+    seg = host[c0:c1]
+    if off != c0 * seg[0].numel() * seg.element_size() or tuple(
+            seg.shape) != shape or seg.dtype != dtype:
+        raise AssertionError(f"{path}: the last count reads its plane in a "
+                             "way the copy misses")
+    seg = seg.to(sim.device)
+    parents, owned = rec.owned
+    args = (seg,) + sim._count_columns(
+        parents, sim._plan(p, gen, n_pad, c0, c1), owned)[:4]
+    out["merge_count"] = _max_abs_err(mc.merge_count(*args),
+                                      mc.merge_count_plain(*args))
+    out.update(_check_calls(path, rec.calls))
+    bad = {k: v for k, v in out.items() if v}
+    if bad:
+        raise AssertionError(f"{path}: {bad} differ from their plain "
+                             "versions")
+    print(f" {path}: cdf_bins, merge_count (chromosomes {c0}-{c1 - 1}, the "
+          f"parents' block as it was read) == plain on the last "
+          "generation's last launches")
     return out
 
 
@@ -4065,60 +4331,84 @@ def _packed_mesh2(dev, cfg, state, ref, split) -> dict:
     return out
 
 
-def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
-                multipop_argv: list, dense_argv: list) -> dict:
-    """One rank of the two ranks that share the card over gloo: the
-    segment slice (`segment_mesh2`), two populations (`multipop_mesh2`),
-    the dense slice (`dense_mesh2`) and the packed steps (`packed_mesh2`),
-    each with the launch counts set to 0 just before it and read just
-    after; on rank 0 each kernel's last call of the path held against its
-    plain version after it."""
+def _mesh_phase(rank: int, res: dict, path: str, kind: str, fn) -> None:
+    """`fn()` on a rank of the two-rank group, as the path `path`: the
+    launch counts set to 0 just before it and read just after, the peak
+    (its `run_peak_mb` where `_mesh_cli` read it generation by
+    generation), and on rank 0 each kernel's last call of the path held
+    against its plain version after it (the segment paths' stacked
+    kernels: `_MeshLaunches`); kept in `res[path]`."""
+    import torch
+
+    wrappers, windows = _wrappers(), _windows()
+    calls = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in (*wrappers.values(), *windows.values()):
+        w.launches = 0
+    t0 = time.perf_counter()
+    targets = [t for t in _targets(kind) if kind != "segment"
+               or t[2] not in SEGMENT]  # `_MeshLaunches` holds those
+    with _last_calls(targets, calls):
+        out = fn()
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["window_launches"] = {k: w.launches for k, w in windows.items()}
+    out["max_memory_allocated_mb"] = max(
+        torch.cuda.max_memory_allocated() / 2**20,
+        out.pop("run_peak_mb", 0.0))
+    if "exchange_calls_rec" in out:
+        out.update(_exchange_peak(out.pop("exchange_calls_rec"),
+                                  out["max_memory_allocated_mb"]))
+    rec = out.pop("launches_rec", None)
+    if rank == 0:
+        out["plain_checks"] = _check_calls(path, calls) if calls else {}
+        if rec is not None:
+            out["plain_checks"].update(_check_mesh_launches(path, rec))
+    del rec, calls
+    res[path] = out
+    torch.cuda.empty_cache()
+
+
+def _rank_device(rank: int, device: str):
+    """The rank's device, the kernels built (rank 0 prints the logs)."""
     import io
 
     import torch
 
-    from geneevolve_tpu_torch.dense import packed
     from geneevolve_tpu_torch.ops import _build
 
     if rank:
-        sys.stdout = io.StringIO()  # rank 0 prints the runs' logs
+        sys.stdout = io.StringIO()
     dev = torch.device(device)
     if dev.type == "cuda":
         _build.lib()
         dev = torch.device("cuda", torch.cuda.current_device())
-    wrappers, windows = _wrappers(), _windows()
+    return dev
+
+
+def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
+                multipop_argv: list, dense_argv: list, big_argv: list) -> dict:
+    """One rank of the two ranks that share the card over gloo: the
+    segment slice (`segment_mesh2`), two populations (`multipop_mesh2`),
+    Table 3.1's top row (`table31_300k_mesh2`), the dense slice
+    (`dense_mesh2`) and the packed steps (`packed_mesh2`), each a
+    `_mesh_phase`."""
+    import torch
+
+    from geneevolve_tpu_torch.dense import packed
+
+    dev = _rank_device(rank, device)
     work = Path(work)
     res = {}
-
-    def phase(path, kind, fn):
-        calls = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for w in (*wrappers.values(), *windows.values()):
-            w.launches = 0
-        t0 = time.perf_counter()
-        with _last_calls(_targets(kind), calls):
-            out = fn()
-        torch.cuda.synchronize()
-        out["wall_s"] = time.perf_counter() - t0
-        out["launches"] = {k: w.launches for k, w in wrappers.items()}
-        out["window_launches"] = {k: w.launches for k, w in windows.items()}
-        out["max_memory_allocated_mb"] = \
-            torch.cuda.max_memory_allocated() / 2**20
-        if "exchange_calls_rec" in out:
-            out.update(_exchange_peak(out.pop("exchange_calls_rec"),
-                                      out["max_memory_allocated_mb"]))
-        if rank == 0:
-            out["plain_checks"] = _check_calls(path, calls)
-        res[path] = out
-        torch.cuda.empty_cache()
-
-    phase("segment_mesh2", "segment",
-          lambda: _mesh_cli(dev, work / "segment_mesh2", seg_argv))
-    phase("multipop_mesh2", "segment",
-          lambda: _mesh_cli(dev, work / "multipop_mesh2", multipop_argv))
-    phase("dense_mesh2", "dense",
-          lambda: _dense_mesh2(dev, work, dense_argv))
+    for path, argv in (("segment_mesh2", seg_argv),
+                       ("multipop_mesh2", multipop_argv),
+                       ("table31_300k_mesh2", big_argv)):
+        _mesh_phase(rank, res, path, "segment",
+                    lambda: _mesh_cli(dev, work / path, argv, segment=True))
+    _mesh_phase(rank, res, "dense_mesh2", "dense",
+                lambda: _dense_mesh2(dev, work, dense_argv))
     # the one-rank references, made before the counted run
     cfg = packed.PackedConfig(**{**FLAGSHIP, "n": MESH_N})
     state = packed.init_state_streamed(
@@ -4130,18 +4420,22 @@ def _mesh2_rank(rank: int, device: str, work: str, seg_argv: list,
         torch.Generator(device=dev).manual_seed(1), scfg)
     sref = packed.make_step(scfg)(sstate,
                                   torch.Generator(device=dev).manual_seed(5))
-    phase("packed_mesh2", "packed",
-          lambda: _packed_mesh2(dev, cfg, state, ref,
-                                (scfg, sstate, sref)))
+    _mesh_phase(rank, res, "packed_mesh2", "packed",
+                lambda: _packed_mesh2(dev, cfg, state, ref,
+                                      (scfg, sstate, sref)))
     return res
 
 
 def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
-                slice_out: dict, multipop_argv: list, dense31: dict) -> dict:
+                slice_out: dict, multipop_argv: list, dense31: dict,
+                big: dict) -> dict:
     """The mesh paths: `segment_mesh1`, `packed_mesh1` and `dense_mesh1`
     on a one-rank NCCL group in this process; then two ranks sharing the
-    card over gloo (`segment_mesh2`, `multipop_mesh2`, `dense_mesh2`,
-    `packed_mesh2`) against the unsharded runs' files."""
+    card over gloo (`segment_mesh2`, `multipop_mesh2`, `table31_300k_mesh2`
+    over `big`, `table31_300k`'s files, `dense_mesh2`, `packed_mesh2`)
+    against the unsharded runs' files. The segment runs go in place on
+    both ranks: each rank's peak (before, in and after each real pass)
+    must not pass its reckoned need."""
     import os
 
     import torch
@@ -4204,17 +4498,26 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
         "--backend", "dense", *DENSE_VARIANCES]
     t0 = time.perf_counter()
     ranks = launch.launch(_mesh2_rank, 2, (dev.type, str(work), seg_argv,
-                                            multipop_argv, dense_argv),
+                                            multipop_argv, dense_argv,
+                                            big["argv"]),
                           device=dev.type, backend="gloo",
-                          timeout_s=MESH_TIMEOUT_S, pg_timeout_s=300)
+                          timeout_s=MESH_TIMEOUT_S + BIG_MESH_TIMEOUT_S,
+                          pg_timeout_s=300)
     spawn_s = time.perf_counter() - t0
+    log = [dict(in_place=a, per_group=b) for a, b in zip(
+        ranks[0]["multipop_mesh2"]["in_place"],
+        ranks[0]["multipop_mesh2"]["per_group"])]
     want = {
-        # two 'ind' ranks: fresh planes
+        # two 'ind' ranks, in place: as one card
         "segment_mesh2": {k: v * MESH_GENS for k, v in
-                          SEGMENT_FRESH_PER_GEN.items()},
-        "multipop_mesh2": {k: v * MESH_GENS + GEN0_LAUNCHES[
-            "segment_multipop"].get(k, 0)
-            for k, v in MULTIPOP_FRESH_PER_GEN.items()},
+                          SEGMENT_PER_GEN.items()},
+        "table31_300k_mesh2": {k: v * BIOBANK_GENS for k, v in
+                               PER_GROUP_PER_GEN.items()},
+        # in place where a generation's children fit the rows the
+        # migration left
+        "multipop_mesh2": dict(
+            _launches_from_log(log, True),
+            paint=2 * len(log) + GEN0_LAUNCHES["segment_multipop"]["paint"]),
         # 2 layouts x 3 generations, 1 window launch each (whole
         # chromosomes at both layouts: 22 split as 11 + 11)
         "dense_mesh2": {k: 2 * v * MESH_GENS
@@ -4225,27 +4528,65 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
     }
     want_window = {"dense_mesh2": {"meiose_packed": 2 * MESH_GENS},
                    "packed_mesh2": {"meiose_packed": 4}}
-    for path in ("segment_mesh2", "multipop_mesh2", "dense_mesh2",
-                 "packed_mesh2"):
+    paths = ("segment_mesh2", "multipop_mesh2", "table31_300k_mesh2",
+             "dense_mesh2", "packed_mesh2")
+    for path in paths:
+        res[path] = {f"rank{r}": out[path] for r, out in enumerate(ranks)}
+
+    def gen_line(path, r, o):
+        print(f" {path} rank {r}: s/gen "
+              + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
+              + "; exchange a generation "
+              + " ".join(f"{b / 2**20:.1f} MiB/{s:.3f} s" for b, s in
+                         zip(o["exchange_bytes_per_gen"][1:],
+                             o["exchange_s_per_gen"][1:])))
+
+    for path in ("segment_mesh2", "multipop_mesh2", "table31_300k_mesh2",
+                 "dense_mesh2"):
+        for r in range(2):
+            o = res[path][f"rank{r}"]
+            if path == "dense_mesh2":
+                for tag in ("2x1", "1x2"):
+                    gen_line(f"{path} {tag}", r, o[tag])
+            else:
+                gen_line(path, r, o)
+            print(f" {path} rank {r}: peak {o['max_memory_allocated_mb']:.1f}"
+                  " MiB" + _peak_text(o))
+            if path == "dense_mesh2":
+                continue
+            print(f" {path} rank {r}: in place {o['in_place']}; a "
+                  "generation's peak (probe / real pass / the rest) "
+                  + ", ".join(f"{x['probe']:.0f}/{x['real']:.0f}/"
+                              f"{x['rest']:.0f}"
+                              for x in o["peaks_per_gen_mb"])
+                  + f" MiB; reckoned need {o['need_mb']:.1f} MiB")
+    for path in paths:
         for r, out in enumerate(ranks):
             counts = out[path]["launches"]
             idle = [k for k in PATHS[path] if counts[k] <= 0]
             if idle:
                 raise AssertionError(f"{path} rank {r}: kernels never "
                                      f"launched: {idle}")
-            _expect(f"{path} rank {r}", counts, want[path])
+            _expect(f"{path} rank {r}", counts,
+                    _mesh_want(want[path], out[path])
+                    if "merge_count" in want[path] else want[path])
             _expect(f"{path} rank {r} (window entry)",
                     out[path]["window_launches"], want_window.get(path, {}))
         launches[path] = ranks[0][path]["launches"]
         WINDOW_LAUNCHES[path] = ranks[0][path]["window_launches"]
-        res[path] = {f"rank{r}": out[path] for r, out in enumerate(ranks)}
         print(f" {path}: launches a rank {json.dumps(launches[path])}")
+    for path in ("segment_mesh2", "table31_300k_mesh2"):
+        for r in range(2):
+            _in_place_within_need(f"{path} rank {r}", res[path][f"rank{r}"])
     n = _same_files("segment_mesh2", slice_out["root"],
                     work / "segment_mesh2", _info_files(1, MESH_GENS))
     n += _same_files("segment_mesh2", slice_out["root"],
                      work / "segment_mesh2", ["out.pop1.summary"],
                      lines=MESH_GENS + 2)
     res["segment_mesh2"]["files_identical"] = n
+    res["table31_300k_mesh2"]["files_identical"] = _same_files(
+        "table31_300k_mesh2", big["root"], work / "table31_300k_mesh2",
+        _info_files(1, BIOBANK_GENS) + ["out.pop1.summary"])
     n = _same_files("multipop_mesh2", ref["root"], work / "multipop_mesh2",
                     _info_files(2, MESH_GENS)
                     + ["out.pop1.summary", "out.pop2.summary"])
@@ -4260,24 +4601,25 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
                          ["out.pop1.summary"], lines=MESH_GENS + 2)
     res["dense_mesh2"]["files_identical"] = n
 
-    def gen_line(path, r, o):
-        print(f" {path} rank {r}: s/gen "
-              + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
-              + "; exchange a generation "
-              + " ".join(f"{b / 2**20:.1f} MiB/{s:.3f} s" for b, s in
-                         zip(o["exchange_bytes_per_gen"][1:],
-                             o["exchange_s_per_gen"][1:])))
-
-    for path in ("segment_mesh2", "multipop_mesh2", "dense_mesh2"):
-        for r in range(2):
-            o = res[path][f"rank{r}"]
-            if path == "dense_mesh2":
-                for tag in ("2x1", "1x2"):
-                    gen_line(f"{path} {tag}", r, o[tag])
-            else:
-                gen_line(path, r, o)
-            print(f" {path} rank {r}: peak {o['max_memory_allocated_mb']:.1f}"
-                  " MiB" + _peak_text(o))
+    peaks = [res["segment_mesh2"][f"rank{r}"]["max_memory_allocated_mb"]
+             for r in range(2)]
+    print(" segment_mesh2: peak a rank " + " / ".join(f"{x:.1f}"
+                                                      for x in peaks)
+          + f" MiB in place (the whole fetch on fresh planes: "
+          f"{SEGMENT_MESH2_FRESH_MB} MiB); one card in place (table31) "
+          f"{slice_out['max_memory_allocated_mb']:.1f} MiB")
+    if not max(peaks) < slice_out["max_memory_allocated_mb"]:
+        raise AssertionError("segment_mesh2: a rank's peak is not below one "
+                             "card's")
+    big_peaks = [res["table31_300k_mesh2"][f"rank{r}"][
+        "max_memory_allocated_mb"] for r in range(2)]
+    print(" table31_300k_mesh2: .info/.summary byte-identical to "
+          "table31_300k's; peak a rank " + " / ".join(
+              f"{x:.1f}" for x in big_peaks) + " MiB against one card's "
+          f"{big['max_memory_allocated_mb']:.1f}; s/gen "
+          + " ".join(f"{x:.3f}" for x in res["table31_300k_mesh2"]["rank0"][
+              "s_per_gen"])
+          + " against " + " ".join(f"{x:.3f}" for x in big["s_per_gen"]))
     print(f" dense_mesh2: {n} files byte-identical to dense31's first "
           f"{MESH_GENS} generations at (2, 1) and (1, 2)")
     print(f" segment_mesh2: files byte-identical to table31's first "
@@ -4292,7 +4634,117 @@ def mesh_phases(dev, work: Path, wrappers: dict, launches: dict,
     return res
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _biobank_mesh2_rank(rank: int, device: str, work: str,
+                        argv: list) -> dict:
+    dev = _rank_device(rank, device)
+    res = {}
+    _mesh_phase(rank, res, "biobank_1m_mesh2", "segment",
+                lambda: _mesh_cli(dev, Path(work) / "biobank_1m_mesh2", argv,
+                                  segment=True))
+    return res
+
+
+def biobank_mesh2_main() -> int:
+    """`python3 chip_smoke.py biobank_1m_mesh2`, outside the smoke:
+    `biobank_1m` (pop_size 1e6 over the slice's scenario files, 3
+    generations, in place with the per-group plan) on one card through the
+    CLI, then at `--mesh ind=2` on two gloo ranks sharing the card
+    (`biobank_1m_mesh2`): `.info`/`.summary` byte-identical to the one-card
+    run's; per rank s/gen, exchange bytes and seconds a generation, each
+    generation's peaks (before, in and after the real pass) beside the
+    reckoned need, which the peak must not pass, every generation in
+    place, the per-group plan's launches; the last generation's last
+    launches of the stacked kernels held to their plain versions
+    (`_MeshLaunches`). `/proc/meminfo`'s MemAvailable is printed and
+    checked first: the gloo ranks stage their exchanges through pinned
+    host memory. The same last lines as the smoke."""
+    import torch
+
+    from geneevolve_tpu_torch.ops import _build
+    from geneevolve_tpu_torch.parallel import launch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    dev = torch.device("cuda", 0)
+    smi = _card()
+    print(f" card: {smi}")
+    avail = _mem_available_gib()
+    print(f" MemAvailable {avail:.1f} GiB")
+    if avail < BIOBANK_MESH_HOST_GIB:
+        raise AssertionError(f"{avail:.1f} GiB of host memory available, "
+                             f"{BIOBANK_MESH_HOST_GIB} needed")
+    _build.build()
+    _build.lib()
+    name = "biobank_1m"
+    scenario = dict(SCENARIO, pop_size=BIOBANK[name], gens=BIOBANK_GENS)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        root = work / "scenario"
+        root.mkdir()
+        argv = _with(_scenario(root, **SCENARIO, seed=1), "--file_gen_info",
+                     str(_popinfo(root, scenario, BIOBANK_GENS)))
+        one = slice_phase(dev, work, name, scenario, base=argv)
+        one.pop("sim")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.launch(_biobank_mesh2_rank, 2,
+                              (dev.type, str(work), argv), device=dev.type,
+                              backend="gloo", timeout_s=BIG_MESH_TIMEOUT_S * 3,
+                              pg_timeout_s=600)
+        wall = time.perf_counter() - t0
+        path = "biobank_1m_mesh2"
+        n = _same_files(path, work / name, work / path,
+                        _info_files(1, BIOBANK_GENS) + ["out.pop1.summary"])
+        res = {"one_card": {k: one[k] for k in (
+            "s_per_gen", "max_memory_allocated_mb", "peaks_per_gen_mb",
+            "reckoned", "stage_split_s")}, "files_identical": n,
+            "wall_s": wall}
+        for r, out in enumerate(ranks):
+            o = res[f"rank{r}"] = out[path]
+            print(f" {path} rank {r}: s/gen "
+                  + " ".join(f"{x:.3f}" for x in o["s_per_gen"])
+                  + "; exchange a generation " + " ".join(
+                      f"{b / 2**20:.1f} MiB/{t:.3f} s" for b, t in zip(
+                          o["exchange_bytes_per_gen"][1:],
+                          o["exchange_s_per_gen"][1:]))
+                  + f"; peak {o['max_memory_allocated_mb']:.1f} MiB "
+                  "(probe / real pass / the rest "
+                  + ", ".join(f"{x['probe']:.0f}/{x['real']:.0f}/"
+                              f"{x['rest']:.0f}"
+                              for x in o["peaks_per_gen_mb"])
+                  + f"), reckoned need {o['need_mb']:.1f} MiB"
+                  + _peak_text(o))
+        for r in range(2):
+            o = res[f"rank{r}"]
+            _expect(f"{path} rank {r}", o["launches"], _mesh_want({
+                k: v * BIOBANK_GENS for k, v in PER_GROUP_PER_GEN.items()},
+                o))
+            _in_place_within_need(f"{path} rank {r}", o)
+        print(f" {path}: {n} files byte-identical to one card's; one card "
+              + " ".join(f"{x:.3f}" for x in one["s_per_gen"])
+              + f" s/gen, peak {one['max_memory_allocated_mb']:.1f} MiB")
+    print(json.dumps(res))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4302,11 +4754,7 @@ def main() -> int:
     from geneevolve_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f" card: {smi}")
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -4426,15 +4874,23 @@ def main() -> int:
         dense_slice_kernels(kernels, res["dense_odd"].pop("captured"),
                             "dense_odd", ("meiose_packed",))
         torch.cuda.empty_cache()
+        big = res["biobank"]["table31_300k"]
+        big_root = big.pop("root")
         res["mesh"] = mesh_phases(
             dev, work, wrappers, launches,
             dict(argv=slice_argv, root=slice_root,
-                 s_per_gen=res["slice"]["s_per_gen"]),
+                 s_per_gen=res["slice"]["s_per_gen"],
+                 max_memory_allocated_mb=res["slice"][
+                     "max_memory_allocated_mb"]),
             multipop_argv[:-2],
             dict(argv=dense_argv, root=dense_root,
                  s_per_gen=res["dense_slice"]["s_per_gen"],
                  max_memory_allocated_mb=res["dense_slice"][
-                     "max_memory_allocated_mb"]))
+                     "max_memory_allocated_mb"]),
+            dict(argv=big.pop("argv"), root=big_root,
+                 s_per_gen=big["s_per_gen"],
+                 max_memory_allocated_mb=big["max_memory_allocated_mb"]))
+        shutil.rmtree(big_root)
         torch.cuda.empty_cache()
         res["dense_mutations"] = counted(
             "dense_mutations", wrappers,
@@ -4534,4 +4990,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(biobank_mesh2_main() if sys.argv[1:] == [
+        "biobank_1m_mesh2"] else main())

@@ -16,8 +16,8 @@ MV/SV (host, float64) -> info files. Reproduce has two passes:
   moved forward from the parents' (`ops/materialize` row gathers). A
   generation that keeps its parents' row count writes them over the
   parents, a group of GE_INPLACE_GROUP chromosomes at a time (peak memory
-  ~1x state, the JAX `_reproduce_group_inplace`); a resize generation
-  (or GE_NO_INPLACE_REPRO=1, or several 'ind' ranks) writes every
+  ~1x state, the JAX `_reproduce_group_inplace`), on one card or a mesh;
+  a resize generation (or GE_NO_INPLACE_REPRO=1) writes every
   chromosome's into fresh planes, one launch of each kind. Its own slot
   counts are checked against the probe's one generation later (the
   capacity tripwire). `core/memory.py` reckons what either needs.
@@ -37,10 +37,13 @@ the assortative pairing runs on the device (`parallel/mating_device.py`).
 Under a mesh (`--mesh`, `Simulation(mesh=...)`) every rank runs this loop
 with the same host state, and each 'ind' rank holds a contiguous block of
 rows of every genome plane (ranks that differ on 'loci' alone hold
-replicas). The plan is drawn in full on every rank and each keeps its own
-children; the parents' rows come in one exchange of exactly the rows
-asked; the allele counts behind A/D are an integer all-reduce and A and D
-are all-gathered, so every output is byte-identical to the unsharded run.
+replicas). The plan is drawn in full on every rank (a group's rows of it
+under the per-group plan) and each keeps its own children; the probe
+counts each gamete on the rank that holds its parent; the parents' rows
+come in one exchange of exactly the rows asked, a group's slabs at a
+time in place (the whole generation's at once on fresh planes); the
+allele counts behind A/D are an integer all-reduce and A and D are
+all-gathered, so every output is byte-identical to the unsharded run.
 Rank 0 writes `.info`, `.summary` and checkpoints; each node's first rank
 paints and writes the genotype files of its ranks' rows.
 """
@@ -185,6 +188,15 @@ def _ad_resident(cv, a_tab, d_tab, dominance_on: bool, n_real: int,
     return A, D
 
 
+def _allele_sums(c: torch.Tensor, k: int) -> torch.Tensor:
+    """(nchr, ncv) int32 sums of both chromatids' CV alleles (nchr, rows,
+    2, ncv) over the first `k` rows, a chromosome at a time: the int32
+    copies the sums take are one chromosome's rows, not every
+    chromosome's."""
+    return torch.stack([(x[:k, 0].int() + x[:k, 1].int()).sum(0)
+                        for x in c])
+
+
 def _pad_last(x: torch.Tensor, cap: int, value: int) -> torch.Tensor:
     cur = x.shape[-1]
     if cur >= cap:
@@ -268,10 +280,21 @@ class Simulation:
         row, masked as every padding row is)."""
         if self.mesh is None:
             return x
+        return x.index_select(axis, self._block_ids(rows, x.device))
+
+    def _own_host(self, a: np.ndarray, rows: int) -> torch.Tensor:
+        """`_own` of a full host array's rows (axis 1), on the device: only
+        this rank's block crosses to it."""
+        if self.mesh is not None:
+            a = np.take(a, self._block_ids(rows).numpy(), axis=1)
+        return torch.as_tensor(a, device=self.device)
+
+    def _block_ids(self, rows: int, device=None) -> torch.Tensor:
+        """The rows of planes of `rows` rows this rank holds, in order
+        (`_own`'s; every row on one 'ind' rank)."""
         b = self._block(rows)
-        idx = torch.arange(self._me * b, (self._me + 1) * b,
-                           device=x.device).clamp_(max=rows - 1)
-        return x.index_select(axis, idx)
+        return torch.arange(self._me * b, (self._me + 1) * b,
+                            device=device).clamp_(max=rows - 1)
 
     def _real_rows(self, st: PopState) -> int:
         """Rows of this rank's block that hold individuals (global row <
@@ -652,15 +675,16 @@ class Simulation:
         return max(n0, target)
 
     def _init_gen0_state(self, p: PopRuntime) -> PopState:
+        """Generation 0's planes, only this rank's block of rows under a
+        mesh (a rank never holds the whole population's)."""
         n = p.n_founders
         rows = self._gen0_rows(p, n)
-        seg_st, seg_hap = (self._own(x, rows) for x in
-                           segments.init_gen0_ledger_stacked(
+        ids = self._block_ids(rows)
+        seg_st, seg_hap = segments.init_gen0_ledger_stacked(
             n, [m.chr_start for m in p.maps], p.hap_offset, self.s_cap,
-            self.hap_dtype, rows=rows, device=self.device,
-        ))
+            self.hap_dtype, device=self.device, ids=ids.to(self.device))
         mut = segments.empty_mutations_stacked(
-            len(self.chrs), self._block(rows), self.m_cap, device=self.device
+            len(self.chrs), len(ids), self.m_cap, device=self.device
         )
         cv0 = None
         if self.resident_cv:
@@ -671,11 +695,9 @@ class Simulation:
                  for g in self.founder_cv],
                 axis=3,
             )  # (nchr, n, 2, npheno*ncv_pad)
-            if rows > n:
-                cv0 = np.concatenate(
-                    [cv0, np.repeat(cv0[:, -1:], rows - n, axis=1)], axis=1
-                )
-            cv0 = self._own(torch.as_tensor(cv0, device=self.device), rows)
+            cv0 = torch.as_tensor(
+                np.take(cv0, np.minimum(ids.numpy(), n - 1), axis=1),
+                device=self.device)
         return PopState(
             seg_st=seg_st, seg_hap=seg_hap, mut=mut, cv=cv0, rows=rows,
             **self._gen0_host_fields(p, n),
@@ -749,9 +771,8 @@ class Simulation:
     def _allele_counts(self, c: torch.Tensor, k: int) -> torch.Tensor:
         """(nchr, ncv) allele counts of the population from the CV alleles
         (nchr, rows, 2, ncv) of this rank's first `k` rows: exact integer
-        sums, all-reduced over 'ind'."""
-        return self._reduce_ind(
-            (c[:, :k, 0].int() + c[:, :k, 1].int()).sum(1))
+        sums (`_allele_sums`), all-reduced over 'ind'."""
+        return self._reduce_ind(_allele_sums(c, k))
 
     def _ad_gather(self, st: PopState, j: int, ad, want_cv: bool):
         """The gather path's A/D of phenotype j (the JAX `_ad_all`): its CV
@@ -797,8 +818,7 @@ class Simulation:
         counts = 0
         for lo, hi in spans:
             c = paint(*ledger(lo, hi), founder, pos)
-            kk = max(0, min(k - lo, hi - lo))
-            counts = counts + (c[:, :kk, 0].int() + c[:, :kk, 1].int()).sum(1)
+            counts = counts + _allele_sums(c, max(0, min(k - lo, hi - lo)))
         counts = self._reduce_ind(counts)
         parts = []
         for lo, hi in spans:
@@ -1146,12 +1166,20 @@ class Simulation:
         return (xo_f, xo_m, sh, torch.where(which == 0, new, BIG),
                 torch.where(which == 1, new, BIG))
 
-    def _probe_counts(self, seg_st, mut, parents, plan):
+    def _probe_counts(self, seg_st, mut, parents, plan, owned=None):
         """Ledger slots and (conservative) mutation slots the plan's
         chromosomes will need, from their parents' planes `seg_st` and
         `mut`: (seg, mut) device scalars. One count launch over those
-        chromosomes and both parents."""
-        xo_f, xo_m, sh, new_f, new_m = plan
+        chromosomes and both parents. Under several 'ind' ranks `owned`
+        (`_owned_gametes`) names the gametes whose parent this rank holds,
+        counted from its own block of the planes and the plan's rows of
+        those children (`_count_columns`): the largest over the ranks is
+        the unsharded count."""
+        if owned == ():  # this rank holds no parent of any child
+            zero = torch.zeros((), dtype=torch.long, device=self.device)
+            return zero, zero
+        parents, xo_f, xo_m, sh, kids = self._count_columns(parents, plan,
+                                                            owned)
         seg = merge_count(seg_st, parents, xo_f, xo_m, sh).amax().long()
         if not self.has_mut:
             return seg, torch.zeros_like(seg)
@@ -1160,11 +1188,52 @@ class Simulation:
         big = torch.full(mut.shape[:-1] + (1,), BIG, dtype=mut.dtype,
                          device=mut.device)
         mreal = torch.searchsorted(mut, big).sum((2, 3))
+        new_f, new_m = plan[3:]
         newr = ((new_f < BIG).sum(2, dtype=torch.int32)
                 + (new_m < BIG).sum(2, dtype=torch.int32))  # (nchr, nc)
         p = parents.long()
-        return seg, torch.maximum(mreal[:, p[0]], mreal[:, p[1]]).add(
-            newr).amax()
+        return seg, torch.maximum(mreal[:, p[0]] + newr[:, kids[0]],
+                                  mreal[:, p[1]] + newr[:, kids[1]]).amax()
+
+    @staticmethod
+    def _count_columns(parents, plan, owned=None):
+        """The operands of a count launch, whose two columns of gametes are
+        the plan's father's and mother's gametes of every child, or, with
+        `owned` (`_owned_gametes`), the gametes it names, read from this
+        rank's rows of their parents: ((2, nc) parent rows, column 0's
+        crossovers, column 1's, (nchr, nc, 2) start chromatids, each
+        column's children as an index of the plan's rows)."""
+        xo_f, xo_m, sh = plan[:3]
+        if owned is None:
+            return parents, xo_f, xo_m, sh, (slice(None), slice(None))
+        (i0, g0, r0), (i1, g1, r1) = owned
+        xo = (xo_f, xo_m)
+        return (torch.stack([r0, r1]), xo[g0][:, i0], xo[g1][:, i1],
+                torch.stack([sh[:, i0, g0], sh[:, i1, g1]], -1), (i0, i1))
+
+    def _owned_gametes(self, parents, rows: int):
+        """Under several 'ind' ranks, the gametes whose parent lies in this
+        rank's block of planes of `rows` rows, as the two columns of one
+        count launch: each column (its children, which parent, those
+        parents' rows in the block), padded to a common length by repeating
+        its last gamete (the count is a maximum); a column with no gamete
+        takes the other's. Every gamete is counted once, on its parent's
+        rank, and no parent row moves. None on one 'ind' rank (it holds
+        every parent); () when this rank holds no parent."""
+        if self._ind == 1:
+            return None
+        b = self._block(rows)
+        cols = [(torch.nonzero(parents[g] // b == self._me).squeeze(1), g)
+                for g in (0, 1)]
+        h = max(len(ix) for ix, _ in cols)
+        if h == 0:
+            return ()
+        cols = [c if len(c[0]) else cols[1 - i] for i, c in enumerate(cols)]
+        out = []
+        for ix, g in cols:
+            ix = ix[torch.arange(h, device=ix.device).clamp_(max=len(ix) - 1)]
+            out.append((ix, g, parents[g, ix] - self._me * b))
+        return out
 
     def _needs(self, counts: list):
         """Exact ledger-slot and (conservative) mutation-slot needs of the
@@ -1206,20 +1275,23 @@ class Simulation:
     def _reproduce(self, p: PopRuntime, gen: int,
                    plan: mating.MatingPlan) -> PopState:
         """One population's children. A generation that keeps the parents'
-        row count on one 'ind' rank writes them in place, a group of
-        chromosomes at a time (`_real_pass_in_place`; GE_NO_INPLACE_REPRO=1
-        turns it off); otherwise into fresh planes (`_real_pass`). Past
+        row count writes them in place, a group of chromosomes at a time,
+        on any number of 'ind' ranks (`_real_pass_in_place`;
+        GE_NO_INPLACE_REPRO=1 turns it off); a resize generation into fresh
+        planes (`_real_pass`), as the JAX `_reproduce`. Past
         GE_PLAN_BYTES_MAX bytes of plan (or under GE_PLAN_PER_GROUP=1) the
         probe draws and counts a group at a time, keeping only the counts,
         and the real pass draws each group's plan again (the whole plan at
-        once on fresh planes), as the JAX `_reproduce`."""
+        once on fresh planes). Under several 'ind' ranks the probe counts
+        each gamete on its parent's rank (`_owned_gametes`), so no parent
+        row moves before the real pass."""
         st = p.state
         self._check_capacity_guard()
         n_child = len(plan.child_father)
         n_pad = self._child_rows(p, gen, n_child, self._rows(st))
         sw = memory.Switches.from_env()
         nchr = len(self.chrs)
-        in_place = sw.in_place and self._ind == 1 and n_pad == self._rows(st)
+        in_place = sw.in_place and n_pad == self._rows(st)
         per_group = sw.per_group(nchr, n_pad, self.xo_cap, self.mn_cap)
         g = sw.group_size(nchr)
         groups = [(c0, min(c0 + g, nchr)) for c0 in range(0, nchr, g)]
@@ -1231,17 +1303,19 @@ class Simulation:
             dtype=torch.int32, device=self.device)
         with self.timer("reproduce/probe"):
             draws = None if per_group else self._plan(p, gen, n_pad)
-            st, parents, draws = self._fetch_parents(st, parents, draws,
-                                                     n_pad)
+            owned = self._owned_gametes(parents, self._rows(st))
             if per_group:
                 counts = [self._probe_counts(
                     st.seg_st[c0:c1], st.mut[c0:c1], parents,
-                    self._own_draws(self._plan(p, gen, n_pad, c0, c1),
-                                    n_pad)) for c0, c1 in groups]
+                    self._plan(p, gen, n_pad, c0, c1), owned)
+                    for c0, c1 in groups]
             else:
                 counts = [self._probe_counts(st.seg_st, st.mut, parents,
-                                             draws)]
+                                             draws, owned)]
+            del owned
             seg_need, mut_need = self._needs(counts)
+            if in_place:  # this rank's block of the plan's rows
+                draws = self._own_draws(draws, n_pad)
         if seg_need > self.s_cap:
             self.s_cap = seg_need * 3 // 2 + 8
             st.seg_st = _pad_last(st.seg_st, self.s_cap, BIG)
@@ -1259,13 +1333,17 @@ class Simulation:
         if in_place:
             planes, seg_used, mut_used = self._real_pass_in_place(
                 st, parents, draws, groups,
-                lambda c0, c1: self._plan(p, gen, n_pad, c0, c1))
+                lambda c0, c1: self._own_draws(
+                    self._plan(p, gen, n_pad, c0, c1), n_pad))
             # the parents' planes now hold the children
             st.seg_st = st.seg_hap = st.mut = st.cv = None
         else:
             if draws is None:
-                draws = self._own_draws(self._plan(p, gen, n_pad), n_pad)
-            planes, seg_used, mut_used = self._real_pass(st, parents, draws)
+                draws = self._plan(p, gen, n_pad)
+            par, local, draws = self._fetch_parents(st, parents, draws,
+                                                    n_pad)
+            planes, seg_used, mut_used = self._real_pass(par, local, draws)
+            del par
         del draws
         if self.cfg.stage_sync:
             telemetry.device_fence(self.device)
@@ -1280,29 +1358,40 @@ class Simulation:
             rows=n_pad, **self._child_host_fields(p, gen, plan),
         )
 
-    def _fetch_parents(self, st: PopState, parents, draws, n_pad: int):
-        """This rank's part of a generation over several 'ind' ranks: its
-        block of the children's rows of the parents and of the plan (both
-        drawn in full; `draws` None when the plan is drawn later), and the
-        rows of every parent they name, fetched from the ranks that hold
-        them in one exchange (every rank knows every rank's parents, so
-        each sends exactly the rows asked of it). Returns (the fetched
-        parents as a state, the children's parents as rows of it, the
-        plan's block). One 'ind' rank (or no mesh) holds every row: the
-        parents and the plan stay as they are."""
-        if self._ind == 1:
-            return st, parents, draws
+    def _wants(self, parents, n_pad: int):
+        """Under several 'ind' ranks: the parents' rows each rank wants
+        (the sorted distinct parents of its block of the `n_pad` children,
+        edge-padded; every rank knows every rank's), and this rank's
+        children's parents as rows of its own wanted ones."""
         b = self._block(n_pad)
         full = parents[:, torch.arange(b * self._ind, device=self.device)
                        .clamp_(max=n_pad - 1)]  # edge-padded
         wants = [torch.unique(full[:, r * b:(r + 1) * b])
                  for r in range(self._ind)]
-        got = exchange_rows(self._row_tables(st), wants,
-                            self._block(self._rows(st)),
-                            self.mesh.group("ind"), self.mesh.traffic,
-                            axis=self._row_axis)
         mine = full[:, self._me * b:(self._me + 1) * b].contiguous()
-        local = torch.searchsorted(wants[self._me], mine).to(torch.int32)
+        return wants, torch.searchsorted(wants[self._me], mine).to(
+            torch.int32)
+
+    def _fetch(self, tables: list, wants, rows: int) -> list:
+        """Rows `wants[me]` of `tables`, planes of `rows` unsharded rows
+        held in blocks over 'ind', from the ranks that hold them in one
+        exchange (each sends exactly the rows asked of it)."""
+        return exchange_rows(tables, wants, self._block(rows),
+                             self.mesh.group("ind"), self.mesh.traffic,
+                             axis=self._row_axis)
+
+    def _fetch_parents(self, st: PopState, parents, draws, n_pad: int):
+        """This rank's part of a generation on fresh planes over several
+        'ind' ranks: its block of the children's rows of the plan (drawn
+        in full), and the rows of every parent they name in one exchange
+        (`_fetch`). Returns (the fetched parents as a state, the children's
+        parents as rows of it, the plan's block). One 'ind' rank (or no
+        mesh) holds every row: the parents and the plan stay as they
+        are."""
+        if self._ind == 1:
+            return st, parents, draws
+        wants, local = self._wants(parents, n_pad)
+        got = self._fetch(self._row_tables(st), wants, self._rows(st))
         return (self._from_tables(got, n=0), local,
                 self._own_draws(draws, n_pad))
 
@@ -1332,8 +1421,7 @@ class Simulation:
         / `_make_per_chr`): one merge launch over every chromosome. Returns
         ((seg_st, seg_hap, mut, cv), seg_used, mut_used) with the used
         counts still on the device."""
-        return self._reproduce_group(st, parents, draws, 0,
-                                     st.seg_st.shape[0])
+        return self._reproduce_group(st, parents, draws)
 
     def _real_pass_in_place(self, st: PopState, parents, draws, groups,
                             draw_group):
@@ -1346,30 +1434,43 @@ class Simulation:
         chromosome's children read only that chromosome's parents, so a
         group's parent slab is dead once its children exist; every launch
         is on one stream, so the copy lands before the next group's launches
-        read. Peak memory: the state once, one group's children. `draws`:
-        the whole plan, or None to draw each group's (`draw_group(c0,
-        c1)`) just before it is used. Returns as `_real_pass`, the planes
-        being the parents'."""
+        read. Under several 'ind' ranks each group's parent rows come from
+        their ranks in one exchange of the group's slabs (`_fetch`), and
+        the children of this rank's block go over its block of the slab.
+        Peak memory: the state once, one group's fetched rows and children.
+        `draws`: the plan's rows of this rank's children, or None to draw
+        each group's (`draw_group(c0, c1)`) just before it is used.
+        Returns as `_real_pass`, the planes being the parents'."""
+        rows = self._rows(st)
+        if self._ind > 1:  # the children's parents as rows of the fetched
+            wants, parents = self._wants(parents, rows)
         seg_used, mut_used = [], []
         for c0, c1 in groups:
             plan = (draw_group(c0, c1) if draws is None
                     else tuple(x[c0:c1] for x in draws))
-            kids, su, mu = self._reproduce_group(st, parents, plan, c0, c1)
-            for dst, src in zip((st.seg_st, st.seg_hap, st.mut, st.cv),
-                                kids):
-                if src is not None:
-                    dst[c0:c1].copy_(src)
-            del plan, kids  # freed before the next group's
+            slab = [x[c0:c1] for x in self._row_tables(st)]
+            par = slab if self._ind == 1 else self._fetch(slab, wants, rows)
+            kids, su, mu = self._reproduce_group(self._from_tables(par, n=0),
+                                                 parents, plan, c0)
+            # Other ranks never read this slab: `exchange_rows` packs every
+            # row it sends into a buffer of its own (`mesh._row_bytes`) on
+            # this rank's stream before the all-to-all, so the copy, later
+            # on the same stream, cannot reach what they receive
+            # (tests/test_torch_mesh_inplace.py: byte-identical files at 2,
+            # 3 and 4 ranks).
+            for dst, src in zip(slab, kids):
+                dst.copy_(src)
+            del plan, par, kids  # freed before the next group's
             seg_used.append(su)
             mut_used.append(mu)
         return ((st.seg_st, st.seg_hap, st.mut, st.cv),
                 torch.stack(seg_used).amax(), torch.stack(mut_used).amax())
 
-    def _reproduce_group(self, st: PopState, parents, draws, c0: int,
-                         c1: int):
-        """The children of chromosomes [c0, c1) from the parents' planes
-        and those chromosomes' plan rows `draws` ((c1 - c0, nc, ...) each),
-        in fresh group-sized tensors: ((seg_st, seg_hap, mut, cv),
+    def _reproduce_group(self, st: PopState, parents, draws, c0: int = 0):
+        """The children of the chromosomes whose parents' planes `st` holds
+        (chromosomes [c0, c0 + its length) of the genome) from those planes
+        and the chromosomes' plan rows `draws` ((chromosomes, nc, ...)
+        each), in fresh group-sized tensors: ((seg_st, seg_hap, mut, cv),
         seg_used, mut_used), the used counts on the device. One merge
         launch over the group; the parents' CV and mutation rows in stacked
         gathers of at most `gather_chunk` chromosomes each (4 launches a
@@ -1379,30 +1480,29 @@ class Simulation:
         children."""
         xo_f, xo_m, sh, new_f, new_m = draws
         nc = parents.shape[1]
+        ng = st.seg_st.shape[0]
         dev = self.device
         c_st, c_hap, nv = meiose_merge(
-            st.seg_st[c0:c1], st.seg_hap[c0:c1], parents, xo_f, xo_m, sh,
-            self.s_cap, self.merge_ibd)
-        c_mut = torch.full((c1 - c0, nc, 2, self.m_cap), BIG,
-                           dtype=torch.int32, device=dev)
+            st.seg_st, st.seg_hap, parents, xo_f, xo_m, sh, self.s_cap,
+            self.merge_ibd)
+        c_mut = torch.full((ng, nc, 2, self.m_cap), BIG, dtype=torch.int32,
+                           device=dev)
         c_cv = None if st.cv is None else torch.empty(
-            (c1 - c0, nc) + tuple(st.cv.shape[2:]), dtype=torch.uint8,
-            device=dev)
+            (ng, nc) + tuple(st.cv.shape[2:]), dtype=torch.uint8, device=dev)
         rows = memory.Switches.from_env().chunk_rows(nc)
         mut_used = []
         chunk = self.gather_chunk
-        for g, k0 in itertools.product(range(2), range(c0, c1, chunk)):
-            k1 = min(k0 + chunk, c1)
+        for g, k0 in itertools.product(range(2), range(0, ng, chunk)):
+            k1 = min(k0 + chunk, ng)
             par = parents[g]
             cv_rows = (None if c_cv is None
                        else gather_rows_stacked(st.cv[k0:k1], par))
             mut_rows = (gather_rows_stacked(st.mut[k0:k1], par)
                         if self.has_mut else None)
-            for ci in range(k0, k1):
-                j = ci - c0
+            for j in range(k0, k1):
                 xo = (xo_f, xo_m)[g][j]
                 start = sh[j, :, g].contiguous()
-                pm = None if mut_rows is None else mut_rows[ci - k0]
+                pm = None if mut_rows is None else mut_rows[j - k0]
                 new_g = (new_f, new_m)[g][j]
                 if self.has_mut:
                     m_g, nm = segments.in_row_chunks(
@@ -1412,9 +1512,9 @@ class Simulation:
                     mut_used.append(nm.max())
                 if c_cv is not None:
                     c_cv[j, :, g] = segments.in_row_chunks(
-                        self._gamete_cv, rows, (cv_rows[ci - k0], xo, start,
+                        self._gamete_cv, rows, (cv_rows[j - k0], xo, start,
                                                 pm, new_g),
-                        self.cv_bp_all[ci])
+                        self.cv_bp_all[c0 + j])
             del cv_rows, mut_rows, pm  # pm views mut_rows
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return (
@@ -1515,18 +1615,29 @@ class Simulation:
         """The selected rows of several populations' states, concatenated:
         the planes of `_migrant_tables` (the segment ledgers and mutations
         padded to the current capacities: a population that has not
-        reproduced since another one grew them holds narrower planes).
-        Migrants keep their founder hap indices, which name their root
-        population. Under a mesh each rank fetches the rows of its block
-        from every source population in one exchange each."""
+        reproduced since another one grew them holds narrower planes),
+        written part by part into planes allocated once, in row chunks of
+        `memory.MIGRATION_CHUNK`, so that a new state is held once beside
+        the old ones. Migrants keep their founder hap indices, which name
+        their root population. Under a mesh each rank fetches the rows of
+        its block from every source population in one exchange each."""
         if self.mesh is not None:
             return self._gather_state_mesh(parts)
-        ax = self._row_axis
-        picked = [[t.index_select(ax, torch.as_tensor(
-            idx, dtype=torch.long, device=self.device))
-            for t in self._migrant_tables(src.state)] for src, idx in parts]
-        return self._from_tables([torch.cat(ts, ax) for ts in zip(*picked)],
-                                 **self._gather_host_fields(parts))
+        n = sum(len(idx) for _, idx in parts)
+        ax, out, at = self._row_axis, None, 0
+        for src, idx in parts:
+            tabs = self._migrant_tables(src.state)
+            if out is None:
+                out = [x.new_empty(x.shape[:ax] + (n,) + x.shape[ax + 1:])
+                       for x in tabs]
+            idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+            for lo in range(0, len(idx), memory.MIGRATION_CHUNK):
+                sub = idx[lo:lo + memory.MIGRATION_CHUNK]
+                for o, x in zip(out, tabs):
+                    o.narrow(ax, at + lo, len(sub)).copy_(
+                        x.index_select(ax, sub))
+            at += len(idx)
+        return self._from_tables(out, **self._gather_host_fields(parts))
 
     def _gather_state_mesh(self, parts) -> PopState:
         """`_gather_state` under a mesh: the new state's block of rows on
@@ -1608,15 +1719,12 @@ class Simulation:
         the resident CV matrix is rebuilt from the ledger when the
         checkpoint has none (a gather-path run's)."""
         rows = z[f"{pre}.seg_st"].shape[1]
-        seg_st, seg_hap, mut = (
-            self._own(torch.as_tensor(z[f"{pre}.{k}"], device=self.device),
-                      rows)
-            for k in ("seg_st", "seg_hap", "mut"))
+        seg_st, seg_hap, mut = (self._own_host(z[f"{pre}.{k}"], rows)
+                                for k in ("seg_st", "seg_hap", "mut"))
         cv = None
         if self.resident_cv:
             if f"{pre}.cv" in z.files:
-                cv = self._own(torch.as_tensor(z[f"{pre}.cv"],
-                                               device=self.device), rows)
+                cv = self._own_host(z[f"{pre}.cv"], rows)
             else:
                 cv = paint(seg_st, seg_hap, mut,
                            torch.as_tensor(np.concatenate(self.founder_cv, 2),

@@ -31,6 +31,7 @@ PLAN_BYTES_MAX = 1_500_000_000
 INPLACE_GROUP = 2
 REPRO_CHUNK = 1 << 18
 CHUNKED_PAST = 1 << 19  # children a chromosome takes in one pass
+MIGRATION_CHUNK = 1 << 13  # rows a migration moves with one row gather
 
 
 @dataclass(frozen=True)
@@ -108,35 +109,41 @@ class MemoryPlan:
 
 def reckon(sz: Sizes, free: int, sw: Switches = Switches(),
            resident: bool = True) -> MemoryPlan:
-    """The path a run takes and the bytes it needs at its peak.
+    """The path a run takes and the bytes a rank needs at its peak.
 
-    Fresh planes (a population's rows change, `GE_NO_INPLACE_REPRO=1`, or
-    several 'ind' ranks): every population's state, one population's
-    children beside it, the stacked plan and the CV phase's transient
-    (plus, under a mesh, the parents' rows a rank fetches). In place: the
-    states once, one group's children, the plan kept (the whole of it, or
-    a group's under the per-group plan) and the same transient; or, while
-    the probe draws, the plan and one kind of draw's probes and bins. The
-    CV phase's transient is the (rows, C) tensors `_gamete_cv` holds at
-    one time (its sorted searches: ~48 bytes a row and CV) over the rows
-    of one chunk, and a gamete's mutation and CV rows (twice when
-    chunked). The resident CV matrix stays when its path's need fits
-    `free` (and `resident` asks for it); the gather path adds the painted
-    CV columns and panels, and with several populations the migration's
-    three copies of every state beside the founders' panels. With several
-    populations a constant schedule reckons the larger of both regimes: a
-    generation after a migration runs in place only when its children fit
-    the rows the migration left. The stacked row gathers then take as
-    many chromosomes as fit in what is left, down to one; in place (one
-    population) at most a group's."""
+    Fresh planes (a population's rows change, or `GE_NO_INPLACE_REPRO=1`):
+    every population's state, one population's children beside it, the
+    stacked plan and the CV phase's transient (plus, under a mesh, the
+    parents' rows a rank fetches). In place: the states once, one group's
+    children, the plan kept (a rank's rows of the whole of it, or of a
+    group's under the per-group plan) and the same transient; or, while a
+    plan is drawn (over every row, on every rank), the plan and one kind
+    of draw's probes and bins. Under several 'ind' ranks in place, a
+    group's exchange besides: its fetched parent rows (at most twice a
+    rank's rows) and, while they move, the rows a rank sends (at most its
+    rows once to every rank) or the received bytes beside the tables split
+    from them; and while the probe counts, the columns of the gametes a
+    rank holds (at most the drawn plan again). The CV phase's transient is
+    the (rows, C) tensors `_gamete_cv` holds at one time (its sorted
+    searches: ~48 bytes a row and CV) over the rows of one chunk, and a
+    gamete's mutation and CV rows (twice when chunked). The resident CV
+    matrix stays when its path's need fits `free` (and `resident` asks for
+    it); the gather path adds the painted CV columns and panels, and with
+    several populations the migration's new states beside the old and the
+    founders' panels. With several populations a constant schedule
+    reckons the larger of both regimes: a generation after a migration
+    runs in place only when its children fit the rows the migration left.
+    The stacked row gathers then take as many chromosomes as fit in what
+    is left, down to one; in place (one population) at most a group's."""
     nchr, rows_all = sz.nchr, max(sz.pop_rows)
-    row_state = nchr * 2 * (sz.s_cap * (4 + sz.hap_bytes) + sz.m_cap * 4)
+    ledger = 2 * (sz.s_cap * (4 + sz.hap_bytes) + sz.m_cap * 4)
+    row_state = nchr * ledger
     loc = [-(-r // sz.ind) for r in sz.pop_rows]  # a rank's rows
     rows = max(loc)
     state = [r * row_state for r in loc]
     cv = [nchr * r * 2 * sz.c_all for r in loc]
     both = [a + b for a, b in zip(state, cv)]
-    in_place = sw.in_place and sz.ind == 1 and sz.constant
+    in_place = sw.in_place and sz.constant
     g = sw.group_size(nchr)
     per_group = sw.per_group(nchr, rows_all, sz.xo_cap, sz.mn_cap)
     plan = plan_bytes(nchr, rows_all, sz.xo_cap, sz.mn_cap)
@@ -149,9 +156,13 @@ def reckon(sz: Sizes, free: int, sw: Switches = Switches(),
     if sz.n_pop > 1:
         painted += nchr * (rows * 2 + sz.founder_haps) * sz.ncv_pad \
             + 16 * rows * sz.ncv_pad
-    # the migration's picked rows and their concatenation beside the old
-    # states, and the founders' CV and root panels
-    migration = (3 * sum(state)
+    # the migration's new states beside the old, the rows it moves at once
+    # (a chunk; under a mesh a part's exchange: the rows a rank sends, at
+    # most its rows to every rank, and those it receives), and the
+    # founders' CV and root panels
+    moved = (min(rows, MIGRATION_CHUNK) if sz.ind == 1
+             else (sz.ind + 1) * rows)
+    migration = (2 * sum(state) + moved * row_state
                  + nchr * sz.founder_haps * (sz.c_all + sz.ncv_pad)
                  if sz.n_pop > 1 else 0)
 
@@ -163,17 +174,34 @@ def reckon(sz: Sizes, free: int, sw: Switches = Switches(),
                 max(sum(state) + max(state) + plan + painted
                     + fetched * row_state + mut_t, migration))
 
+    def exchange(cv_bytes):
+        """(held, peak): a group's fetched parent rows, and the most its
+        exchange holds at once (0, 0 on one 'ind' rank)."""
+        if sz.ind == 1:
+            return 0, 0
+        w = g * (ledger + 2 * cv_bytes)  # a row of a group's slabs
+        big = g * 2 * max(4 * sz.s_cap, sz.hap_bytes * sz.s_cap,
+                          4 * sz.m_cap, cv_bytes)  # its widest table
+        got, sent = min(2 * rows, rows_all), sz.ind * rows
+        return got * w, max(sent * (w + big), (sent + got) * w,
+                            got * (2 * w + big))
+
     def over_parents():
-        live = plan_bytes(g, rows_all, sz.xo_cap, sz.mn_cap) if per_group \
-            else plan
-        drawing = 3 * (g if per_group else nchr) * rows \
-            * max(sz.xo_cap, sz.mn_cap) * 4
-        kids = g * rows * 2 * (sz.s_cap * (4 + sz.hap_bytes) + 4 * sz.m_cap)
+        cs = g if per_group else nchr
+        drawn = plan_bytes(cs, rows_all, sz.xo_cap, sz.mn_cap)
+        kept = plan_bytes(cs, rows, sz.xo_cap, sz.mn_cap)
+        drawing = 3 * cs * rows_all * max(sz.xo_cap, sz.mn_cap) * 4 + (
+            drawn if sz.ind > 1 else 0)
+        kids = g * rows * ledger
         kids_cv = g * rows * 2 * sz.c_all
-        return (max(sum(both) + kids + kids_cv + live + cv_t,
-                    sum(both) + live + drawing),
-                max(sum(state) + kids + live + painted + mut_t,
-                    sum(state) + live + drawing, migration))
+        held_r, moving_r = exchange(sz.c_all)
+        held_g, moving_g = exchange(0)
+        return (max(sum(both) + kept + max(
+                        held_r + kids + kids_cv + cv_t, moving_r),
+                    sum(both) + drawn + drawing),
+                max(sum(state) + kept + max(
+                        held_g + kids + painted + mut_t, moving_g),
+                    sum(state) + drawn + drawing, migration))
 
     # with several populations a generation after a migration runs in
     # place only when its children fit the rows the migration left, else

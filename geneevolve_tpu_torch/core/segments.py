@@ -151,23 +151,24 @@ class StackedMaps:
 
 def init_gen0_ledger_stacked(
     n: int, chr_starts, hap_offset: int, capacity: int,
-    hap_dtype=torch.int32, rows: int = 0, device="cuda",
+    hap_dtype=torch.int32, rows: int = 0, device="cuda", ids=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nchr, rows, 2, S) founder ledgers: founder i's chromatids point
     wholly at founder haps 2i / 2i+1 (+ offset), as in
     `ras_initial_human_gen0` (`Simulation.cpp:3024-3035`). Rows past n are
-    copies of founder n-1 (valid hap indices, masked from statistics)."""
+    copies of founder n-1 (valid hap indices, masked from statistics).
+    `ids`: only those rows (a mesh rank's block), in that order."""
     nchr = len(chr_starts)
-    rows = max(rows, n)
-    st = torch.full((nchr, rows, 2, capacity), BIG, dtype=POS, device=device)
+    if ids is None:
+        ids = torch.arange(max(rows, n), device=device)
+    st = torch.full((nchr, len(ids), 2, capacity), BIG, dtype=POS,
+                    device=device)
     st[:, :, :, 0] = torch.as_tensor(
         np.asarray(chr_starts), dtype=POS, device=device
     )[:, None, None]
-    hap = torch.zeros((nchr, rows, 2, capacity), dtype=hap_dtype,
+    hap = torch.zeros((nchr, len(ids), 2, capacity), dtype=hap_dtype,
                       device=device)
-    base = hap_offset + 2 * torch.clamp(
-        torch.arange(rows, device=device), max=n - 1
-    )
+    base = hap_offset + 2 * torch.clamp(ids, max=n - 1)
     hap[:, :, 0, 0] = base.to(hap_dtype)[None, :]
     hap[:, :, 1, 0] = (base + 1).to(hap_dtype)[None, :]
     return st, hap

@@ -22,6 +22,7 @@ import datetime
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -60,6 +61,13 @@ def _rank_main(rank: int, world: int, fn: Callable, args: Sequence,
         with open(os.path.join(tmp, f"error{rank}.txt"), "w") as f:
             f.write(traceback.format_exc())
         os._exit(1)  # peers blocked in a collective are killed by the parent
+    # The result is written and the group destroyed: end here, without the
+    # interpreter's teardown, whose C++ destructors can abort a gloo rank
+    # under load ("terminate called without an active exception") after
+    # its work is done.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _kill(procs) -> None:

@@ -5,8 +5,11 @@ the smoke's mutation map, 5 generations, `--stage_sync`) in this tree and
 in another checkout, in turns, each run in its own process on one CUDA
 card:
 
-    python3 slice_ab.py OTHER_CHECKOUT [--turns N]
+    python3 slice_ab.py OTHER_CHECKOUT [--turns N] [--multipop]
 
+With `--multipop` the run is `chip_smoke.py`'s `multipop31` instead (two
+populations of the slice's shape, 3 generations, migration `0.9 0.1 0.1
+0.9`, `--gamma 0.5`: the gather path, whose peak the migration sets).
 The scenario is written once (this tree's `tools/mkscenario.py`); the
 runs go other, this, this, other, ... (N turns of a pair, reversed every
 other turn, so that a drift of the card's clock hits both alike). Each
@@ -69,6 +72,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", help="the other checkout's root")
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--multipop", action="store_true",
+                    help="two populations with migration (multipop31)")
     args = ap.parse_args()
     import torch
 
@@ -87,6 +92,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "table31"
         base = chip_smoke._scenario(root, **chip_smoke.SCENARIO, seed=1)
+        if args.multipop:
+            gens = chip_smoke.MULTIPOP_GENS
+            base = chip_smoke._two_populations(
+                Path(tmp) / "multipop31", base,
+                dict(chip_smoke.SCENARIO, gens=gens), gens)
         for turn in range(args.turns):
             order = ["other", "this"] if turn % 2 == 0 else ["this", "other"]
             for name in order:

@@ -242,17 +242,29 @@ def sharded_fed(mesh, case: dict) -> dict:
 
 
 # ----------------------------------------------------------------- engine
-def _simulate(mesh, argv, inject=None) -> dict:
+def _simulate(mesh, argv, inject=None, s_cap=None) -> dict:
     """The segment `Simulation` on `mesh`; with `inject`, fed mating plans
     (`mates`, per (generation, population) in call order) and reproduce
     plans (`plans`, rows edge-extended or cut to the port's row count)
-    drawn elsewhere. Returns the rank's exchange record, capacity log and
-    block rows."""
+    drawn elsewhere; with `s_cap`, the ledger capacity cut to it after
+    loading (a later generation grows it). Returns the rank's exchange
+    record, capacity log, block rows and the address of population 1's
+    `seg_st` plane after each generation (the same from one to the next:
+    written in place)."""
     from geneevolve_tpu_torch.config import parse_args
     from geneevolve_tpu_torch.core.engine import Simulation
 
     mesh.traffic.reset()
     sim = Simulation(parse_args(argv), mesh=mesh, verbose=False)
+    if s_cap is not None:
+        sim.s_cap = s_cap
+    ptrs, step = [], sim.step
+
+    def step_kept(gen):
+        step(gen)
+        ptrs.append(sim.pops[0].state.seg_st.data_ptr())
+
+    sim.step = step_kept
     if inject is not None:
         n_pop = len(sim.pops)
 
@@ -270,14 +282,14 @@ def _simulate(mesh, argv, inject=None) -> dict:
         sim._plan = plan
     sim.run()
     return {"traffic": mesh.traffic.summary(), "log": sim.capacity_log,
-            "rows": sim.pops[0].state.seg_st.shape[1]}
+            "rows": sim.pops[0].state.seg_st.shape[1], "ptrs": ptrs}
 
 
 def engine_runs(rank: int, shape, runs) -> list:
     """Several runs on one (ind, loci) mesh of CPU ranks, in order. Each
     run is a dict: `argv` (a `Simulation` run, with `env` set around it,
-    `envs` per rank, and `inject`), or `moments` (the vectors whose
-    `_device_moments` to return)."""
+    `envs` per rank, `inject` and `s_cap`), or `moments` (the vectors
+    whose `_device_moments` to return)."""
     import os
 
     from geneevolve_tpu_torch.config import parse_args
@@ -297,7 +309,8 @@ def engine_runs(rank: int, shape, runs) -> list:
                                  verbose=False)
                 out.append([sim._device_moments(x) for x in run["moments"]])
             else:
-                out.append(_simulate(mesh, run["argv"], run.get("inject")))
+                out.append(_simulate(mesh, run["argv"], run.get("inject"),
+                                     run.get("s_cap")))
         finally:
             for k, v in saved.items():
                 if v is None:
