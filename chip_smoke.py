@@ -2775,9 +2775,10 @@ def segment_output_full(dev, work: Path, dense_argv: list) -> dict:
 
 def profile_phase(dev, work: Path, base: list) -> dict:
     """One generation of the resident segment slice under `--profile`: the
-    trace's device events (kernels, copies, sets) by total time, and the
-    device's busy share of the generation (the union of their intervals
-    over the generation's host-clock time)."""
+    device events (kernels, copies, sets) that start inside the
+    generation's `step` span (the trace covers the whole run) by total
+    time, and the device's busy share of the generation (the union of their
+    intervals over the generation's host-clock time)."""
     import glob
 
     root = work / "profile31"
@@ -2792,8 +2793,12 @@ def profile_phase(dev, work: Path, base: list) -> dict:
     if len(files) != 1:
         raise AssertionError(f"profile: trace files {files}")
     events = json.loads(Path(files[0]).read_text())["traceEvents"]
+    (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name") == "step" and "dur" in e]
     dev_ev = [e for e in events if e.get("cat") in (
-        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e
+        and lo <= e["ts"] <= hi]
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev_ev)
     busy, end = 0.0, -1e300
     for a, b in spans:

@@ -43,7 +43,7 @@ _HELP = """geneevolve-tpu-torch — the geneevolve-tpu engines on PyTorch/CUDA
    --checkpoint_every N (<prefix>.ckpt.npz after generation 0 and every N)
    --resume <file> (continue a run bit-identically from a checkpoint)
    --stage_sync (device fence per stage: device-true timing)
-   --profile <dir> (torch.profiler trace of the main loop)
+   --profile <dir> (torch.profiler trace of the whole run, with its spans)
    --backend segment (default) | dense (bit-packed genome planes)
  Genotype files, on both backends:
    --out_hap --out_vcf --out_plink --out_plink01 --file_output_generations

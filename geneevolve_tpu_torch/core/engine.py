@@ -50,6 +50,7 @@ paints and writes the genotype files of its ranks' rows.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import os
@@ -159,7 +160,7 @@ class PopRuntime:
 
 
 def _ad_resident(cv, a_tab, d_tab, dominance_on: bool, n_real: int,
-                 tsum=None, n_freq=None, roots=None):
+                 tsum=None, n_freq=None, roots=None, timer=None):
     """A/D of one phenotype from its CV alleles (nchr, rows, 2, ncv), the
     resident ones or the gather path's painted ones: `ras_compute_AD` as
     elementwise math and row sums, accumulated over chromosomes in order in
@@ -168,7 +169,8 @@ def _ad_resident(cv, a_tab, d_tab, dominance_on: bool, n_real: int,
     every chromatid, with `roots` (nchr, rows, 2, ncv) uint8 each
     chromatid's CV reads its root population's effect. `tsum` (nchr, ncv)
     and `n_freq`: the whole population's allele counts and size, when `cv`
-    holds a chunk of its rows."""
+    holds a chunk of its rows. `timer`: the run's, for the door of each
+    chromosome's frequency upload."""
     A = D = None
     for ci in range(cv.shape[0]):
         if roots is None:
@@ -181,7 +183,7 @@ def _ad_resident(cv, a_tab, d_tab, dominance_on: bool, n_real: int,
             d0, d1 = d_tab[ci][r0, icv], d_tab[ci][r1, icv]
         A_c, D_c = phenotype.additive_dominance_chr(
             cv[ci, :, 0], cv[ci, :, 1], a0, a1, d0, d1, dominance_on,
-            n_real, None if tsum is None else tsum[ci], n_freq,
+            n_real, None if tsum is None else tsum[ci], n_freq, timer=timer,
         )
         A = A_c if A is None else A + A_c
         D = D_c if D is None else D + D_c
@@ -231,7 +233,8 @@ class Simulation:
         self.n_pheno = cfg.n_pheno
         self.vt_type = cfg.vt_type
         self.pops: List[PopRuntime] = []
-        self.timer = telemetry.StageTimer()
+        # the run's spans (`--stage_sync` fences each stage of a generation)
+        self.timer = telemetry.StageTimer(self.device, cfg.stage_sync)
         # .int output needs the crossover-split ledger (the reference's part
         # structure, `Simulation.cpp:1582-1639`); otherwise merge
         # IBD-adjacent boundaries for a smaller ledger
@@ -252,8 +255,21 @@ class Simulation:
         # (`Simulation.cpp:2329-2337`); GE_EXACT_N=1 conditions every
         # generation on exactly pop_size, as the JAX engine does
         self.exact_n = os.environ.get("GE_EXACT_N") == "1"
-        self._load()
-        self._check_fits()
+        # `--profile` traces the whole run, from here to the end of `run`
+        # (one subdirectory a rank under a mesh)
+        trace = cfg.profile_dir
+        if trace and mesh is not None:
+            trace = os.path.join(trace, f"rank{rank}")
+        self._trace = contextlib.ExitStack()
+        self._trace.enter_context(telemetry.profiler_trace(trace,
+                                                           self.device))
+        try:
+            with self.timer("load"):
+                self._load()
+                self._check_fits()
+        except BaseException:
+            self._trace.close()
+            raise
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -344,9 +360,11 @@ class Simulation:
         for a in (plan.father_pos, plan.mother_pos, plan.child_couple):
             h.update(np.ascontiguousarray(a).tobytes())
         v = int.from_bytes(h.digest()[:7], "little")
-        t = torch.tensor([v, -v], dtype=torch.int64, device=self.device)
-        comm.all_reduce(t, "max", None, self.mesh.traffic)
-        if int(t[0]) != v or -int(t[1]) != v:
+        with telemetry.host_wait(self.timer, "plan_agree"):
+            t = torch.tensor([v, -v], dtype=torch.int64, device=self.device)
+            comm.all_reduce(t, "max", None, self.mesh.traffic)
+            got = int(t[0]), -int(t[1])
+        if got != (v, v):
             raise SimulationError(
                 f"the ranks' mating plans differ at generation {gen}")
 
@@ -753,15 +771,17 @@ class Simulation:
             if st.cv is not None:
                 c = st.cv[..., j * self.ncv_pad:(j + 1) * self.ncv_pad]
                 if self._ind == 1:
-                    A_j, D_j = _ad_resident(c, *ad, st.n)
+                    A_j, D_j = _ad_resident(c, *ad, st.n, timer=self.timer)
                 else:
                     k = self._real_rows(st)
                     A_j, D_j = _ad_resident(c, *ad, k,
-                                            self._allele_counts(c, k), st.n)
+                                            self._allele_counts(c, k), st.n,
+                                            timer=self.timer)
             else:
                 A_j, D_j, c = self._ad_gather(st, j, ad, dump_cv)
-            A[j] = self._gather_ind(A_j, st.n).double().cpu().numpy()
-            D[j] = self._gather_ind(D_j, st.n).double().cpu().numpy()
+            with telemetry.host_wait(self.timer, "ad_to_host"):
+                A[j] = self._gather_ind(A_j, st.n).double().cpu().numpy()
+                D[j] = self._gather_ind(D_j, st.n).double().cpu().numpy()
             if dump_cv:
                 c = self._gather_ind(c, st.n, axis=1)
                 if self.is_root:
@@ -786,8 +806,9 @@ class Simulation:
         against them. Under a mesh the counts are all-reduced over 'ind'.
         Returns (A, D, the painted alleles or None) of this rank's rows."""
         if self._cv_panels is None:  # the founders' CV columns, once
-            self._cv_panels = [torch.as_tensor(g, device=self.device)
-                               for g in self.founder_cv]
+            with telemetry.host_wait(self.timer, "cv_panels"):
+                self._cv_panels = [torch.as_tensor(g, device=self.device)
+                                   for g in self.founder_cv]
         cols = slice(j * self.ncv_pad, (j + 1) * self.ncv_pad)
         pos = self.cv_bp_all[:, cols].contiguous()
         founder = self._cv_panels[j]
@@ -811,9 +832,10 @@ class Simulation:
         if want_cv or rows <= chunk:
             c, r = painted(0, rows)
             if self._ind == 1:
-                return (*_ad_resident(c, *ad, st.n, roots=r), c)
+                return (*_ad_resident(c, *ad, st.n, roots=r,
+                                      timer=self.timer), c)
             return (*_ad_resident(c, *ad, k, self._allele_counts(c, k),
-                                  st.n, roots=r), c)
+                                  st.n, roots=r, timer=self.timer), c)
         spans = [(lo, min(lo + chunk, rows)) for lo in range(0, rows, chunk)]
         counts = 0
         for lo, hi in spans:
@@ -824,7 +846,8 @@ class Simulation:
         for lo, hi in spans:
             c, r = painted(lo, hi)
             parts.append(_ad_resident(c, *ad, max(0, min(k - lo, hi - lo)),
-                                      counts, st.n, roots=r))
+                                      counts, st.n, roots=r,
+                                      timer=self.timer))
         return (torch.cat([x[0] for x in parts]),
                 torch.cat([x[1] for x in parts]), None)
 
@@ -838,9 +861,10 @@ class Simulation:
             nf = np.diff(np.append(self.pop_starts,
                                    self.founder_cv[0].shape[1]))
             r = np.repeat(np.arange(self.n_pop, dtype=np.uint8), nf)
-            self._roots = torch.as_tensor(r, device=self.device)[
-                None, :, None].expand(len(self.chrs), -1,
-                                      self.ncv_pad).contiguous()
+            with telemetry.host_wait(self.timer, "root_panel"):
+                r = torch.as_tensor(r, device=self.device)
+            self._roots = r[None, :, None].expand(
+                len(self.chrs), -1, self.ncv_pad).contiguous()
         return self._roots
 
     def _dump_cvval(self, p: PopRuntime, gen: int, j: int, c) -> None:
@@ -854,7 +878,8 @@ class Simulation:
                 continue
             path = (f"{self.cfg.prefix}.pop{p.index + 1}.gen{gen}"
                     f".chr{self.chrs[ic]}.cvval")
-            cv = c[ic, : st.n, :, :k].cpu().numpy()  # (n, 2, ncv)
+            with telemetry.host_wait(self.timer, "cvval"):
+                cv = c[ic, : st.n, :, :k].cpu().numpy()  # (n, 2, ncv)
             inter = np.empty((cv.shape[0], 2 * cv.shape[2]), dtype=cv.dtype)
             inter[:, 0::2] = cv[:, 0]
             inter[:, 1::2] = cv[:, 1]
@@ -956,11 +981,12 @@ class Simulation:
         blocks (the JAX `_device_moments`)."""
         n = x.shape[0]
         b = self._block(n)
-        mine = torch.as_tensor(np.asarray(x[self._me * b:(self._me + 1) * b],
-                                          dtype=np.float32),
-                               device=self.device)
-        t = self._reduce_ind(torch.stack([mine.sum(), (mine * mine).sum()]))
-        return float(n), float(t[0]), float(t[1])
+        mine = np.asarray(x[self._me * b:(self._me + 1) * b], dtype=np.float32)
+        with telemetry.host_wait(self.timer, "moments"):
+            mine = torch.as_tensor(mine, device=self.device)
+            t = self._reduce_ind(torch.stack([mine.sum(),
+                                              (mine * mine).sum()]))
+            return float(n), float(t[0]), float(t[1])
 
     # ------------------------------------------------------------------ step
     def _mate(self, p: PopRuntime, gen: int, pop_size: int,
@@ -1018,7 +1044,8 @@ class Simulation:
         dev = self.device
 
         def put(x, dtype=None):
-            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+            with telemetry.host_wait(self.timer, "mate_upload"):
+                return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
         ped = {}
         if self.cfg.avoid_inbreeding:
@@ -1036,65 +1063,67 @@ class Simulation:
             mm_percent=p.mm_percent,
             offspring_dist=law,
             n_children=n_emit,
+            timer=self.timer,
         )
-        nc = int(plan.n_couples)
-        if nc == 0:
-            raise SimulationError("device mating produced zero couples")
-        return mating.MatingPlan(
-            father_pos=plan.father_pos[:nc].cpu().numpy(),
-            mother_pos=plan.mother_pos[:nc].cpu().numpy(),
-            inbred=plan.inbred[:nc].cpu().numpy(),
-            child_couple=plan.child_couple[:realized].cpu().numpy(),
-        )
+        with telemetry.host_wait(self.timer, "mate_plan"):
+            nc = int(plan.n_couples)
+            if nc == 0:
+                raise SimulationError("device mating produced zero couples")
+            return mating.MatingPlan(
+                father_pos=plan.father_pos[:nc].cpu().numpy(),
+                mother_pos=plan.mother_pos[:nc].cpu().numpy(),
+                inbred=plan.inbred[:nc].cpu().numpy(),
+                child_couple=plan.child_couple[:realized].cpu().numpy(),
+            )
 
     def step(self, gen: int) -> None:
         t_gen = time.time()
-        g = gen - 1  # schedule row
-        for p in self.pops:
-            with self.timer("mate"):
-                plan = self._mate(p, gen, int(p.schedule.pop_size[g]), g)
-                self._check_agree(plan, gen)
-            mv = plan.couple_cor_mating_value(p.state.mv)
+        with self.timer(telemetry.STEP):
+            g = gen - 1  # schedule row
+            for p in self.pops:
+                with self.timer("mate"):
+                    plan = self._mate(p, gen, int(p.schedule.pop_size[g]), g)
+                    self._check_agree(plan, gen)
+                mv = plan.couple_cor_mating_value(p.state.mv)
+                self._log(
+                    f"      pop {p.index + 1} gen {gen}: "
+                    f"couples={plan.n_couples} couple_cor_mv={mv:.3f}"
+                )
+                # no reference to the parents' state outlives `_reproduce`:
+                # on fresh planes they are freed with it, before the A/D and
+                # the migration
+                with self.timer("reproduce"):
+                    p.state = self._reproduce(p, gen, plan)
+                with self.timer("compute_ad"):
+                    A_raw, D_raw = self._compute_ad(p, gen)
+                with self.timer("phenotypes"):
+                    self._assemble_phenotypes(p, gen, A_raw, D_raw, plan)
+            with self.timer("gamma_mv_sv"):
+                self._apply_gamma()
+                for p in self.pops:
+                    self._mating_selection_values(p, gen)
+            if self.n_pop > 1:
+                with self.timer("migration"):
+                    self._migrate(gen)
+            with self.timer("info_files"):
+                for p in self.pops:
+                    p.prev_phen = p.state.comp["P"].copy()
+                    p.prev_F = p.state.comp["F"].copy()
+                    self._save_info(p, gen)
+                    self._record_traj(p, gen)
+            if gen in self.out_gens:
+                with self.timer("genotype_output"):
+                    self.save_genotypes(gen)
+            vm, rss = telemetry.process_mem_usage()
+            self._log("      -------------------------")
+            self._log(f"      memory used: VM = {vm:.0f} Mb, "
+                      f"RSS = {rss:.0f} Mb")
+            for dev, mb in telemetry.device_memory_mb(self.device).items():
+                self._log(f"        {dev}: memory allocated = {mb:.0f} Mb")
             self._log(
-                f"      pop {p.index + 1} gen {gen}: couples={plan.n_couples} "
-                f"couple_cor_mv={mv:.3f}"
+                f"      time used for this generation: "
+                f"{time.time() - t_gen:.2f} seconds"
             )
-            # no reference to the parents' state outlives `_reproduce`: on
-            # fresh planes they are freed with it, before the A/D and the
-            # migration
-            with self.timer("reproduce"):
-                p.state = self._reproduce(p, gen, plan)
-            with self.timer("compute_ad"):
-                A_raw, D_raw = self._compute_ad(p, gen)
-            with self.timer("phenotypes"):
-                self._assemble_phenotypes(p, gen, A_raw, D_raw, plan)
-        with self.timer("gamma_mv_sv"):
-            self._apply_gamma()
-            for p in self.pops:
-                self._mating_selection_values(p, gen)
-        if self.n_pop > 1:
-            with self.timer("migration"):
-                self._migrate(gen)
-                if self.cfg.stage_sync:
-                    telemetry.device_fence(self.device)
-        with self.timer("info_files"):
-            for p in self.pops:
-                p.prev_phen = p.state.comp["P"].copy()
-                p.prev_F = p.state.comp["F"].copy()
-                self._save_info(p, gen)
-                self._record_traj(p, gen)
-        if gen in self.out_gens:
-            with self.timer("genotype_output"):
-                self.save_genotypes(gen)
-        vm, rss = telemetry.process_mem_usage()
-        self._log("      -------------------------")
-        self._log(f"      memory used: VM = {vm:.0f} Mb, RSS = {rss:.0f} Mb")
-        for dev, mb in telemetry.device_memory_mb(self.device).items():
-            self._log(f"        {dev}: memory allocated = {mb:.0f} Mb")
-        self._log(
-            f"      time used for this generation: "
-            f"{time.time() - t_gen:.2f} seconds"
-        )
 
     def _child_rows(self, p: PopRuntime, gen: int, n_child: int,
                     par_rows: int) -> int:
@@ -1223,8 +1252,9 @@ class Simulation:
         if self._ind == 1:
             return None
         b = self._block(rows)
-        cols = [(torch.nonzero(parents[g] // b == self._me).squeeze(1), g)
-                for g in (0, 1)]
+        with telemetry.host_wait(self.timer, "owned"):
+            cols = [(torch.nonzero(parents[g] // b == self._me).squeeze(1), g)
+                    for g in (0, 1)]
         h = max(len(ix) for ix, _ in cols)
         if h == 0:
             return ()
@@ -1241,7 +1271,8 @@ class Simulation:
         the `_probe_counts` of its chromosomes. One sync; under a mesh the
         largest need of any rank."""
         t = torch.stack([torch.stack(x).amax() for x in zip(*counts)])
-        seg_need, mut_need = self._reduce_ind(t, "max").tolist()
+        with telemetry.host_wait(self.timer, "needs"):
+            seg_need, mut_need = self._reduce_ind(t, "max").tolist()
         return seg_need, mut_need
 
     def _check_capacity_guard(self) -> None:
@@ -1252,9 +1283,11 @@ class Simulation:
         if not pending:
             return
         # one sync; under a mesh the most any rank used
-        used = self._reduce_ind(torch.stack([
+        used = torch.stack([
             torch.stack([torch.as_tensor(x, device=self.device).long()
-                         for x in e[:2]]) for e in pending]), "max").tolist()
+                         for x in e[:2]]) for e in pending])
+        with telemetry.host_wait(self.timer, "capacity_guard"):
+            used = self._reduce_ind(used, "max").tolist()
         for (su, mu), (_su, _mu, seg_need, mut_need, s_cap, m_cap, gen,
                        pop, in_place, per_group) in zip(used, pending):
             self.capacity_log.append(dict(
@@ -1297,18 +1330,21 @@ class Simulation:
         groups = [(c0, min(c0 + g, nchr)) for c0 in range(0, nchr, g)]
 
         # (2, n_pad) father's and mother's rows, padded with parent 0
-        parents = torch.as_tensor(
-            np.pad(np.stack([plan.child_father, plan.child_mother]),
-                   ((0, 0), (0, n_pad - n_child))),
-            dtype=torch.int32, device=self.device)
+        parents = np.pad(np.stack([plan.child_father, plan.child_mother]),
+                         ((0, 0), (0, n_pad - n_child)))
+        with telemetry.host_wait(self.timer, "parents"):
+            parents = torch.as_tensor(parents, dtype=torch.int32,
+                                      device=self.device)
         with self.timer("reproduce/probe"):
             draws = None if per_group else self._plan(p, gen, n_pad)
             owned = self._owned_gametes(parents, self._rows(st))
             if per_group:
-                counts = [self._probe_counts(
-                    st.seg_st[c0:c1], st.mut[c0:c1], parents,
-                    self._plan(p, gen, n_pad, c0, c1), owned)
-                    for c0, c1 in groups]
+                counts = []
+                for c0, c1 in groups:
+                    with self.timer("reproduce/probe/group"):
+                        counts.append(self._probe_counts(
+                            st.seg_st[c0:c1], st.mut[c0:c1], parents,
+                            self._plan(p, gen, n_pad, c0, c1), owned))
             else:
                 counts = [self._probe_counts(st.seg_st, st.mut, parents,
                                              draws, owned)]
@@ -1329,25 +1365,23 @@ class Simulation:
             self._check_fits()
         if not self.resident_cv:
             st.cv = None  # the gather path (a grown ledger may move a run)
-        t0 = time.perf_counter()
-        if in_place:
-            planes, seg_used, mut_used = self._real_pass_in_place(
-                st, parents, draws, groups,
-                lambda c0, c1: self._own_draws(
-                    self._plan(p, gen, n_pad, c0, c1), n_pad))
-            # the parents' planes now hold the children
-            st.seg_st = st.seg_hap = st.mut = st.cv = None
-        else:
-            if draws is None:
-                draws = self._plan(p, gen, n_pad)
-            par, local, draws = self._fetch_parents(st, parents, draws,
-                                                    n_pad)
-            planes, seg_used, mut_used = self._real_pass(par, local, draws)
-            del par
-        del draws
-        if self.cfg.stage_sync:
-            telemetry.device_fence(self.device)
-        self.timer.add("reproduce/real", time.perf_counter() - t0)
+        with self.timer("reproduce/real"):
+            if in_place:
+                planes, seg_used, mut_used = self._real_pass_in_place(
+                    st, parents, draws, groups,
+                    lambda c0, c1: self._own_draws(
+                        self._plan(p, gen, n_pad, c0, c1), n_pad))
+                # the parents' planes now hold the children
+                st.seg_st = st.seg_hap = st.mut = st.cv = None
+            else:
+                if draws is None:
+                    draws = self._plan(p, gen, n_pad)
+                par, local, draws = self._fetch_parents(st, parents, draws,
+                                                        n_pad)
+                planes, seg_used, mut_used = self._real_pass(par, local,
+                                                             draws)
+                del par
+            del draws
         self._pending_used.append((
             seg_used, mut_used, seg_need, mut_need, self.s_cap, self.m_cap,
             gen, p.index, in_place, per_group,
@@ -1366,8 +1400,9 @@ class Simulation:
         b = self._block(n_pad)
         full = parents[:, torch.arange(b * self._ind, device=self.device)
                        .clamp_(max=n_pad - 1)]  # edge-padded
-        wants = [torch.unique(full[:, r * b:(r + 1) * b])
-                 for r in range(self._ind)]
+        with telemetry.host_wait(self.timer, "wants"):
+            wants = [torch.unique(full[:, r * b:(r + 1) * b])
+                     for r in range(self._ind)]
         mine = full[:, self._me * b:(self._me + 1) * b].contiguous()
         return wants, torch.searchsorted(wants[self._me], mine).to(
             torch.int32)
@@ -1376,9 +1411,10 @@ class Simulation:
         """Rows `wants[me]` of `tables`, planes of `rows` unsharded rows
         held in blocks over 'ind', from the ranks that hold them in one
         exchange (each sends exactly the rows asked of it)."""
-        return exchange_rows(tables, wants, self._block(rows),
-                             self.mesh.group("ind"), self.mesh.traffic,
-                             axis=self._row_axis)
+        with telemetry.host_wait(self.timer, "exchange"):
+            return exchange_rows(tables, wants, self._block(rows),
+                                 self.mesh.group("ind"), self.mesh.traffic,
+                                 axis=self._row_axis)
 
     def _fetch_parents(self, st: PopState, parents, draws, n_pad: int):
         """This rank's part of a generation on fresh planes over several
@@ -1446,23 +1482,25 @@ class Simulation:
             wants, parents = self._wants(parents, rows)
         seg_used, mut_used = [], []
         for c0, c1 in groups:
-            plan = (draw_group(c0, c1) if draws is None
-                    else tuple(x[c0:c1] for x in draws))
-            slab = [x[c0:c1] for x in self._row_tables(st)]
-            par = slab if self._ind == 1 else self._fetch(slab, wants, rows)
-            kids, su, mu = self._reproduce_group(self._from_tables(par, n=0),
-                                                 parents, plan, c0)
-            # Other ranks never read this slab: `exchange_rows` packs every
-            # row it sends into a buffer of its own (`mesh._row_bytes`) on
-            # this rank's stream before the all-to-all, so the copy, later
-            # on the same stream, cannot reach what they receive
-            # (tests/test_torch_mesh_inplace.py: byte-identical files at 2,
-            # 3 and 4 ranks).
-            for dst, src in zip(slab, kids):
-                dst.copy_(src)
-            del plan, par, kids  # freed before the next group's
-            seg_used.append(su)
-            mut_used.append(mu)
+            with self.timer("reproduce/real/group"):
+                plan = (draw_group(c0, c1) if draws is None
+                        else tuple(x[c0:c1] for x in draws))
+                slab = [x[c0:c1] for x in self._row_tables(st)]
+                par = (slab if self._ind == 1
+                       else self._fetch(slab, wants, rows))
+                kids, su, mu = self._reproduce_group(
+                    self._from_tables(par, n=0), parents, plan, c0)
+                # Other ranks never read this slab: `exchange_rows` packs
+                # every row it sends into a buffer of its own
+                # (`mesh._row_bytes`) on this rank's stream before the
+                # all-to-all, so the copy, later on the same stream, cannot
+                # reach what they receive (tests/test_torch_mesh_inplace.py:
+                # byte-identical files at 2, 3 and 4 ranks).
+                for dst, src in zip(slab, kids):
+                    dst.copy_(src)
+                del plan, par, kids  # freed before the next group's
+                seg_used.append(su)
+                mut_used.append(mu)
         return ((st.seg_st, st.seg_hap, st.mut, st.cv),
                 torch.stack(seg_used).amax(), torch.stack(mut_used).amax())
 
@@ -1630,7 +1668,9 @@ class Simulation:
             if out is None:
                 out = [x.new_empty(x.shape[:ax] + (n,) + x.shape[ax + 1:])
                        for x in tabs]
-            idx = torch.as_tensor(idx, dtype=torch.long, device=self.device)
+            with telemetry.host_wait(self.timer, "migrants"):
+                idx = torch.as_tensor(idx, dtype=torch.long,
+                                      device=self.device)
             for lo in range(0, len(idx), memory.MIGRATION_CHUNK):
                 sub = idx[lo:lo + memory.MIGRATION_CHUNK]
                 for o, x in zip(out, tabs):
@@ -1655,18 +1695,20 @@ class Simulation:
         for k, (src, _idx) in enumerate(parts):
             sst = src.state
             tabs = self._migrant_tables(sst)
-            wants = [torch.as_tensor(
-                row_of[r * b:(r + 1) * b][part_of[r * b:(r + 1) * b] == k],
-                device=self.device) for r in range(self._ind)]
-            got = exchange_rows(tabs, wants, self._block(self._rows(sst)),
-                                self.mesh.group("ind"), self.mesh.traffic,
-                                axis=ax)
+            with telemetry.host_wait(self.timer, "migrants"):
+                wants = [torch.as_tensor(
+                    row_of[r * b:(r + 1) * b][part_of[r * b:(r + 1) * b] == k],
+                    device=self.device) for r in range(self._ind)]
+                got = exchange_rows(tabs, wants,
+                                    self._block(self._rows(sst)),
+                                    self.mesh.group("ind"), self.mesh.traffic,
+                                    axis=ax)
+                sel = torch.as_tensor(
+                    np.flatnonzero(part_of[me * b:(me + 1) * b] == k),
+                    device=self.device)
             if out is None:
                 out = [x.new_empty(x.shape[:ax] + (b,) + x.shape[ax + 1:])
                        for x in got]
-            sel = torch.as_tensor(
-                np.flatnonzero(part_of[me * b:(me + 1) * b] == k),
-                device=self.device)
             for o, x in zip(out, got):
                 o.index_copy_(ax, sel, x)
         return self._from_tables(out, rows=n,
@@ -1864,35 +1906,43 @@ class Simulation:
 
     # ------------------------------------------------------------------- run
     def run(self) -> None:
-        cfg = self.cfg
-        start_gen = 1
-        ckpt = f"{cfg.prefix}.ckpt.npz"
-        if cfg.resume:
-            # `_load` built the maps and effect tables; the checkpoint
-            # restores the state and every constant frozen at generation 0
-            done = checkpoint.load(self, cfg.resume)
-            self._check_fits()  # at the checkpoint's capacities
-            start_gen = done + 1
-            self._log(f"    Resumed from {cfg.resume} after generation {done}")
-        else:
-            self.init_generation0()
-            if cfg.checkpoint_every:
-                checkpoint.save(self, 0, ckpt)
-        trace = cfg.profile_dir
-        if trace and self.mesh is not None:  # one trace a rank
-            trace = os.path.join(trace, f"rank{multihost.process_info()[0]}")
-        with telemetry.profiler_trace(trace, self.device):
+        """Generation 0 (or a checkpoint's state), the generations, the
+        summary and the last generation's genotype files; closes the
+        `--profile` trace that `__init__` opened."""
+        with self._trace:
+            cfg = self.cfg
+            start_gen = 1
+            ckpt = f"{cfg.prefix}.ckpt.npz"
+            if cfg.resume:
+                # `_load` built the maps and effect tables; the checkpoint
+                # restores the state and every constant frozen at
+                # generation 0
+                with self.timer("resume"):
+                    done = checkpoint.load(self, cfg.resume)
+                    self._check_fits()  # at the checkpoint's capacities
+                start_gen = done + 1
+                self._log(f"    Resumed from {cfg.resume} after generation "
+                          f"{done}")
+            else:
+                with self.timer("generation0"):
+                    self.init_generation0()
+                if cfg.checkpoint_every:
+                    with self.timer("checkpoint"):
+                        checkpoint.save(self, 0, ckpt)
             for gen in range(start_gen, self.tot_gen + 1):
                 self._log(f"    Start generation {gen}")
                 self.step(gen)
                 if cfg.checkpoint_every and gen % cfg.checkpoint_every == 0:
-                    checkpoint.save(self, gen, ckpt)
-        self._check_capacity_guard()  # last generation's deferred check
-        self.timer.report(self._log)
-        self.show_results()
-        self.write_summary()
-        if not self.out_gens and (cfg.out_hap or cfg.out_plink
-                                  or cfg.out_plink01 or cfg.out_vcf
-                                  or cfg.out_interval):
-            self.save_genotypes(self.tot_gen)  # the last generation's
-        self._io_pool.shutdown(wait=True)
+                    with self.timer("checkpoint"):
+                        checkpoint.save(self, gen, ckpt)
+            with self.timer("summary"):
+                self._check_capacity_guard()  # the last generation's
+                self.timer.report(self._log)
+                self.show_results()
+                self.write_summary()
+            if not self.out_gens and (cfg.out_hap or cfg.out_plink
+                                      or cfg.out_plink01 or cfg.out_vcf
+                                      or cfg.out_interval):
+                with self.timer("genotype_output"):
+                    self.save_genotypes(self.tot_gen)  # the last generation's
+            self._io_pool.shutdown(wait=True)

@@ -33,6 +33,7 @@ from geneevolve_tpu_torch.io import vcf as vcf_io
 from geneevolve_tpu_torch.ops.paint import SPAN as _SPAN  # loci a block
 from geneevolve_tpu_torch.ops.paint import paint
 from geneevolve_tpu_torch.parallel import multihost
+from geneevolve_tpu_torch.utils import telemetry
 
 
 def _chunks(n: int, m: int, H: int, device: torch.device):
@@ -66,25 +67,28 @@ def paint_chunks(
     streaming form: SNP-major outputs (.hap, VCF) consume each chunk and
     drop it. With a `StageTimer`, adds the fenced paint time and the
     device-to-host copy time under `genotype_output/paint` and
-    `genotype_output/copy`."""
+    `genotype_output/copy`, and takes each upload, fence and copy through
+    its door (`telemetry.host_wait`)."""
     dev = seg_st.device
     n, m, H = seg_st.shape[0], len(legend_pos), founder.shape[0]
     rc, mc = _chunks(n, m, H, dev)
     ledger = [x.contiguous()[None] for x in (seg_st, seg_hap, mut)]
     for lo in range(0, m, mc):
         hi = min(lo + mc, m)
-        pos = torch.as_tensor(np.asarray(legend_pos[lo:hi], dtype=np.int32),
-                              device=dev)[None]
-        fd = torch.as_tensor(np.ascontiguousarray(founder[:, lo:hi]),
-                             device=dev)[None]
+        pos = np.asarray(legend_pos[lo:hi], dtype=np.int32)
+        fd = np.ascontiguousarray(founder[:, lo:hi])
+        with telemetry.host_wait(timer, "paint_upload"):
+            pos = torch.as_tensor(pos, device=dev)[None]
+            fd = torch.as_tensor(fd, device=dev)[None]
         blk = np.empty((n, 2, hi - lo), dtype=np.uint8)
         for r0 in range(0, n, rc):
             t0 = time.perf_counter()
             out = paint(*(x[:, r0:r0 + rc] for x in ledger), fd, pos)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            with telemetry.host_wait(timer, "paint"):
+                telemetry.device_fence(dev)
             t1 = time.perf_counter()
-            blk[r0:r0 + rc] = out[0].cpu().numpy()
+            with telemetry.host_wait(timer, "paint_to_host"):
+                blk[r0:r0 + rc] = out[0].cpu().numpy()
             if timer is not None:
                 timer.add("genotype_output/paint", t1 - t0)
                 timer.add("genotype_output/copy", time.perf_counter() - t1)
@@ -151,8 +155,9 @@ def save_genotypes(sim, gen: int) -> None:
                     continue
                 rows = sim.output_rows(st)
                 if rows is not None:
-                    ledger = [x[torch.as_tensor(rows, device=x.device)]
-                              for x in ledger]
+                    with telemetry.host_wait(timer, "output_rows"):
+                        ledger = [x[torch.as_tensor(rows, device=x.device)]
+                                  for x in ledger]
                 ids, ped, sex = _host_fields(st, rows)
                 n_out = len(ids)
                 base = (f"{cfg.prefix}.pop{p.index + 1}.gen{gen}.chr{chrom}"
@@ -332,8 +337,9 @@ def write_interval(sim, gen: int) -> None:
                 continue
             path = (f"{sim.cfg.prefix}.pop{p.index + 1}.gen{gen}.chr{chrom}"
                     f"{suffix}.int")
-            seg_st = led[0].cpu().numpy()  # (n, 2, S)
-            seg_hap = led[1].cpu().numpy().astype(np.int64)
+            with telemetry.host_wait(sim.timer, "interval"):
+                seg_st = led[0].cpu().numpy()  # (n, 2, S)
+                seg_hap = led[1].cpu().numpy().astype(np.int64)
             if rows_out is not None:
                 seg_st, seg_hap = seg_st[rows_out], seg_hap[rows_out]
             n, _, S = seg_st.shape

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from geneevolve_tpu_torch.utils import telemetry
+
 
 def additive_dominance_chr(
     c0: torch.Tensor,  # (n, ncv) uint8 paternal-chromatid CV alleles
@@ -29,6 +31,7 @@ def additive_dominance_chr(
     # population: when its rows come in chunks, the frequency is the
     # population's, not the chunk's
     n_freq: int = None,  # the population size behind `tsum`
+    timer=None,  # the run's `StageTimer`: the door of the size's upload
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One chromosome's (A, D) contribution for every row, f32. One
     population passes its (ncv,) effect rows, broadcast over the rows."""
@@ -37,7 +40,9 @@ def additive_dominance_chr(
     if tsum is None:
         tsum = t_int[:n_real].sum(0)  # exact integer allele counts
         n_freq = n_real
-    nr = torch.tensor(float(n_freq), dtype=torch.float32, device=c0.device)
+    with telemetry.host_wait(timer, "ad_frequency"):
+        nr = torch.tensor(float(n_freq), dtype=torch.float32,
+                          device=c0.device)
     p = tsum.to(torch.float32) / (2.0 * nr)  # current-gen allele frequency
     q = 1.0 - p
     a = 0.5 * (a0 + a1)

@@ -41,7 +41,6 @@ a time).
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -401,10 +400,6 @@ class DenseSimulation(Simulation):
                               for _ in range(2)], 1)
         return xo_p, st_p, xo_m, st_m, mu
 
-    def _fence(self) -> None:
-        if self.cfg.stage_sync:
-            telemetry.device_fence(self.device)
-
     def _reproduce(self, p: PopRuntime, gen: int,
                    plan: mating.MatingPlan) -> DensePopState:
         st, dp = p.state, self.dps[p.index]
@@ -412,33 +407,32 @@ class DenseSimulation(Simulation):
         n_pad = self._child_rows(p, gen, n_child, self._rows(st))
         # (2, n_pad) father's and mother's rows; padding children are
         # meioses of row 0
-        parents = torch.as_tensor(
-            np.pad(np.stack([plan.child_father, plan.child_mother]),
-                   ((0, 0), (0, n_pad - n_child))),
-            dtype=torch.int32, device=self.device)
+        parents = np.pad(np.stack([plan.child_father, plan.child_mother]),
+                         ((0, 0), (0, n_pad - n_child)))
+        with telemetry.host_wait(self.timer, "parents"):
+            parents = torch.as_tensor(parents, dtype=torch.int32,
+                                      device=self.device)
         with self.timer("reproduce/plan"):
             draws = self._plan(p, gen, n_pad)
-            self._fence()
-        t0 = time.perf_counter()
-        st, parents, draws = self._fetch_parents(st, parents, draws, n_pad)
-        fathers, mothers = parents
-        xo_p, st_p, xo_m, st_m, mu = draws
-        # kernel 4 once a piece of this rank's words (one piece, all of
-        # them, on one card)
-        hap = meiose_window(st.hap, fathers, mothers,
-                            (xo_p, st_p, xo_m, st_m), mu, self._pieces,
-                            dp.chr_len, 32 * self._w0, 32 * self._lw)
-        cv = [
-            torch.stack([
-                cv_child(st.cv[j], par, xo, s, None if mu is None
-                         else mu[:, g], dp.cv_cols[j], dp.chr_len)
-                for g, (par, xo, s) in enumerate(
-                    ((fathers, xo_p, st_p), (mothers, xo_m, st_m)))
-            ], 1)
-            for j in range(self.n_pheno)
-        ]
-        self._fence()
-        self.timer.add("reproduce/meiosis", time.perf_counter() - t0)
+        with self.timer("reproduce/meiosis"):
+            st, parents, draws = self._fetch_parents(st, parents, draws,
+                                                     n_pad)
+            fathers, mothers = parents
+            xo_p, st_p, xo_m, st_m, mu = draws
+            # kernel 4 once a piece of this rank's words (one piece, all of
+            # them, on one card)
+            hap = meiose_window(st.hap, fathers, mothers,
+                                (xo_p, st_p, xo_m, st_m), mu, self._pieces,
+                                dp.chr_len, 32 * self._w0, 32 * self._lw)
+            cv = [
+                torch.stack([
+                    cv_child(st.cv[j], par, xo, s, None if mu is None
+                             else mu[:, g], dp.cv_cols[j], dp.chr_len)
+                    for g, (par, xo, s) in enumerate(
+                        ((fathers, xo_p, st_p), (mothers, xo_m, st_m)))
+                ], 1)
+                for j in range(self.n_pheno)
+            ]
         return DensePopState(n=n_child, hap=hap, cv=cv, rows=n_pad,
                              **self._child_host_fields(p, gen, plan))
 
@@ -463,9 +457,11 @@ class DenseSimulation(Simulation):
                 tsum = self._reduce_ind(
                     (c[:k, 0].int() + c[:k, 1].int()).sum(0))
             A_j, D_j = phenotype.additive_dominance_chr(
-                c[:, 0], c[:, 1], a, a, d, d, ph.vd != 0, k, tsum, st.n)
-            A[j] = self._gather_ind(A_j, st.n).double().cpu().numpy()
-            D[j] = self._gather_ind(D_j, st.n).double().cpu().numpy()
+                c[:, 0], c[:, 1], a, a, d, d, ph.vd != 0, k, tsum, st.n,
+                timer=self.timer)
+            with telemetry.host_wait(self.timer, "ad_to_host"):
+                A[j] = self._gather_ind(A_j, st.n).double().cpu().numpy()
+                D[j] = self._gather_ind(D_j, st.n).double().cpu().numpy()
         return A, D
 
     # ------------------------------------------------------------ checkpoint

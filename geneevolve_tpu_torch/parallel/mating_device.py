@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from geneevolve_tpu_torch.utils import telemetry
+
 BIG = 3.4e38  # float32 sort key of dropped members: they sort last
 
 
@@ -117,9 +119,12 @@ def pair(
     mm_percent: float = 0.0,
     offspring_dist: str = "p",
     n_children: Optional[int] = None,
+    timer=None,
 ) -> DevicePlan:
     """The pairing plan as a pure function of `draws`. father_pos and
-    mother_pos hold ORIGINAL positions, also under MM duplication."""
+    mother_pos hold ORIGINAL positions, also under MM duplication.
+    `timer`: the run's `StageTimer`, for the door of the template's two
+    scalar uploads."""
     n = mating_value.shape[0]
     dev = mating_value.device
     if n_children is None:
@@ -149,9 +154,11 @@ def pair(
     # MVN(0, [[1, r], [r, 1]]) template, ranks matched within the first nc
     # slots; each product rounded to float32 on its own, as JAX computes
     # it op by op (r and sqrt(1 - r^2) are float32 scalars)
-    r = torch.tensor(mat_cor, dtype=torch.float32, device=dev)
-    s = torch.sqrt(torch.tensor(1.0 - mat_cor * mat_cor, dtype=torch.float32,
-                                device=dev))
+    with telemetry.host_wait(timer, "mate_upload"):
+        r = torch.tensor(mat_cor, dtype=torch.float32, device=dev)
+        s = torch.tensor(1.0 - mat_cor * mat_cor, dtype=torch.float32,
+                         device=dev)
+    s = torch.sqrt(s)
     t1 = draws.z[0]
     t2 = r * draws.z[0] + s * draws.z[1]
     in_nc = torch.arange(N, device=dev) < nc
@@ -213,6 +220,7 @@ def assort_mate_device(
     mm_percent: float = 0.0,
     offspring_dist: str = "p",
     n_children: Optional[int] = None,
+    timer=None,
 ) -> DevicePlan:
     """Assortative pairing on `gen`'s device: `draw_assort`, then `pair`.
     pop_size is the schedule's nominal size; n_children the child slots
@@ -223,7 +231,7 @@ def assort_mate_device(
                         offspring_dist, n_children)
     return pair(draws, mating_value, selection_prob, sex, pedigree, mat_cor,
                 avoid_inbreeding, pop_size, mm_percent, offspring_dist,
-                n_children)
+                n_children, timer)
 
 
 def random_mate_device(

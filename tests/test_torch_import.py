@@ -36,6 +36,7 @@ def _forbidden(name: str) -> bool:
     "geneevolve_tpu_torch.ops.meiose_planes",
     "geneevolve_tpu_torch.ops.paint",
     "geneevolve_tpu_torch.utils.telemetry",
+    "geneevolve_tpu_torch.utils.trace_spans",
     "geneevolve_tpu_torch.dense.step",
     "geneevolve_tpu_torch.dense.packed",
     "geneevolve_tpu_torch.dense.backend",

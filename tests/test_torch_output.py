@@ -11,6 +11,7 @@ between the port's own resident and gather runs they are byte-identical
 """
 
 import filecmp
+import json
 from pathlib import Path
 
 import numpy as np
@@ -325,8 +326,10 @@ def test_check_fits_takes_gather_path_when_short(mini_scenario, tmp_path,
 
 
 def test_profile_writes_trace(mini_scenario, tmp_path):
-    """`--profile DIR`: a `torch.profiler` trace of the main loop lands in
-    DIR (CPU activity here; the card's kernels too on CUDA)."""
+    """`--profile DIR`: a `torch.profiler` trace of the whole run lands in
+    DIR (CPU activity here; the card's kernels too on CUDA), from the load
+    through the summary: it holds the run's `load`, `generation0`, `step`
+    and `summary` spans."""
     trace = tmp_path / "trace"
     sim = torch_engine.Simulation(
         parse_args(_argv(mini_scenario, tmp_path / "out")
@@ -335,3 +338,8 @@ def test_profile_writes_trace(mini_scenario, tmp_path):
     sim.run()
     files = list(trace.glob("*.pt.trace.json"))
     assert len(files) == 1 and files[0].stat().st_size > 1000
+    spans = [e["name"] for e in json.loads(files[0].read_text())[
+        "traceEvents"] if e.get("cat") == "user_annotation"]
+    for name in ("load", "generation0", "summary"):
+        assert spans.count(name) == 1, name
+    assert spans.count("step") == sim.tot_gen
