@@ -29,7 +29,9 @@ non-zero):
    as the segment path launches them (n = 30,000 children, K ~ 5,000 map
    bins, 200-byte CV rows, S 49 ledger slots, 23 crossover slots), the
    gather also as one table, the count and the merge also at one
-   chromosome; the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
+   chromosome; the gamete inheritance (`ops/gamete_inherit`) at the
+   slice's in-place group shape (2 chromosomes x 30,708 gametes of one
+   parent); the packed meiosis at the flagship shape (n 16,384 x 1 Mi loci,
    8 chromosomes) with and without mutations and in the split-plane
    layout, and at its odd twin (`flagship_odd`: 8 chromosomes of 4,095
    words, rows that are not whole 16-byte vectors); the byte meiosis at n
@@ -49,11 +51,14 @@ non-zero):
    parts: before the real pass, the real pass, the rest) beside the memory
    reckoning's need, and the stacked kernels' launches a generation (3
    bins, 1 count; in place, a group of 2 chromosomes at a time: 11
-   merges, 44 gathers); then those kernels against their plain versions
-   on the last generation's own inputs (its parents' planes copied to the
-   host before it, outside its timing), bit-exact: every launch that read
-   the parents (the count, the 11 merges, each equal to the children the
-   run wrote over the parents, and the 44 gathers; `_recheck`) and the 3
+   merges, 44 gathers, 22 gamete inheritances); then those kernels
+   against their plain versions on the last generation's own inputs (its
+   parents' planes copied to the host before it, outside its timing),
+   bit-exact: every launch that read the parents (the count, the 11
+   merges, each equal to the children the run wrote over the parents, the
+   44 gathers, and the 22 gamete inheritances on the rows those gathers
+   made, each equal to the mutation and CV rows the run wrote;
+   `_recheck`) and the 3
    bins launches, timed: the bins, the last group's gathers, the count,
    the merge of the last group and of every chromosome (both modes); then
    the paint kernel at full width on the slice's final
@@ -284,6 +289,11 @@ KERNELS = {  # name -> (source, TPU function it replaces)
                     "geneevolve_tpu/ops/materialize.py:72"),
     "meiose_merge": ("geneevolve_tpu_torch/csrc/meiose_merge.cu",
                      "geneevolve_tpu/core/segments.py:749"),
+    # new: ports no TPU kernel (XLA chains in the JAX package)
+    "gamete_inherit": ("geneevolve_tpu_torch/csrc/gamete_inherit.cu",
+                       "geneevolve_tpu/core/segments.py:855 and "
+                       "geneevolve_tpu/core/engine.py:422 (XLA; no TPU "
+                       "kernel)"),
     "meiose_packed": ("geneevolve_tpu_torch/csrc/meiose_packed.cu",
                       "geneevolve_tpu/ops/meiosis_packed_pallas.py:146"),
     "meiose_planes": ("geneevolve_tpu_torch/csrc/meiose_planes.cu",
@@ -304,14 +314,15 @@ BYTE_N = 4096  # byte-engine rows: 2 x 4 GiB of uint8 planes at 1 Mi loci
 FLAGSHIP_ODD = dict(FLAGSHIP, m=8 * 131_040)
 BYTE_ODD_M = 8 * 131_071
 # each path: the kernels it must launch; its counts are read after it runs
-SEGMENT = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
+SEGMENT_LEDGER = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
+SEGMENT = SEGMENT_LEDGER + ("gamete_inherit",)
 PATHS = {
     "segment_slice": SEGMENT,
     "segment_gather": SEGMENT + ("paint",),
     "segment_multipop": SEGMENT + ("paint",),
     "segment_multipop_resume": SEGMENT + ("paint",),
     "dense_multipop": ("meiose_packed", "gather_rows"),
-    "segment_output": SEGMENT + ("paint",),
+    "segment_output": SEGMENT_LEDGER + ("paint",),
     "segment_profiled": SEGMENT,
     "dense_slice": ("meiose_packed", "gather_rows"),
     "dense_odd": ("meiose_packed", "gather_rows"),
@@ -339,20 +350,22 @@ PATHS = {
 }
 HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
+             "gamete_inherit": "segment_slice",
              "meiose_packed": "dense_slice", "meiose_planes": "byte_engine",
              "paint": "segment_gather"}
 # launches a generation of the segment slice's stacked kernels on fresh
 # planes: one bins launch per kind of draw (father's and mother's
 # crossovers, mutations), one gather per parent and table (CV rows,
 # mutation rows), one count (the probe) and one merge (the real pass) over
-# every chromosome and parent
+# every chromosome and parent, one gamete inheritance a parent
 SEGMENT_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
-                         "meiose_merge": 1}
+                         "meiose_merge": 1, "gamete_inherit": 2}
 # in place (every constant-size generation on one 'ind' rank): the real
-# pass a group of 2 chromosomes at a time, one merge and 4 gathers a group
+# pass a group of 2 chromosomes at a time, one merge, 4 gathers and 2
+# gamete inheritances a group
 GROUPS = 22 // 2
 SEGMENT_PER_GEN = dict(SEGMENT_FRESH_PER_GEN, gather_rows=4 * GROUPS,
-                       meiose_merge=GROUPS)
+                       meiose_merge=GROUPS, gamete_inherit=2 * GROUPS)
 # past 1.5e9 bytes of plan (300,000 and 1e6 here) the probe draws and
 # counts a group at a time, and the real pass draws each group's plan
 # again: 3 bins launches a group twice, one count a group
@@ -361,9 +374,9 @@ PER_GROUP_PER_GEN = dict(SEGMENT_PER_GEN, cdf_bins=2 * 3 * GROUPS,
 # the gather path: no CV-row gathers; one paint a phenotype (one here) and
 # generation, and one more for generation 0's A/D
 GATHER_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
-                        "meiose_merge": 1, "paint": 1}
+                        "meiose_merge": 1, "gamete_inherit": 2, "paint": 1}
 GATHER_PER_GEN = dict(GATHER_FRESH_PER_GEN, gather_rows=2 * GROUPS,
-                      meiose_merge=GROUPS)
+                      meiose_merge=GROUPS, gamete_inherit=2 * GROUPS)
 # two populations (gather path), a generation and population: the gather
 # path's launches with two paints a phenotype (alleles, then roots over the
 # root panel with an empty mutation plane); one packed meiosis (dense)
@@ -462,6 +475,7 @@ SCALAR_OPS_S = 67e12
 
 def _wrappers():
     from geneevolve_tpu_torch.ops.cdf_bins import cdf_bins
+    from geneevolve_tpu_torch.ops.gamete_inherit import gamete_inherit
     from geneevolve_tpu_torch.ops.materialize import gather_rows
     from geneevolve_tpu_torch.ops.meiose_merge import meiose_merge
     from geneevolve_tpu_torch.ops.meiose_packed import meiose_packed
@@ -471,6 +485,7 @@ def _wrappers():
 
     return dict(cdf_bins=cdf_bins, merge_count=merge_count,
                 gather_rows=gather_rows, meiose_merge=meiose_merge,
+                gamete_inherit=gamete_inherit,
                 meiose_packed=meiose_packed, meiose_planes=meiose_planes,
                 paint=paint)
 
@@ -591,6 +606,25 @@ def _merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap) -> dict:
                   + _nbytes(parents, xo_f, xo_m, sh)
                   + gametes * (cap * (4 + seg_hap.element_size()) + 4),
                   gametes * (K + 2 * S) * _log2(K + 2 * S))
+
+
+def _inherit_work(pm, cv, xo, start, new, q, out_mut, out_cv) -> dict:
+    # each operand read once (a chromosome's CV positions once), each
+    # output row and count written once; the rank sorts of the crossovers
+    # and de novo slots, a binary search of the crossovers and of the other
+    # two lists for each parent mutation, de novo entry and CV
+    gametes = xo.shape[0] * xo.shape[1]
+    K = xo.shape[-1]
+    mn = new.shape[-1] if pm is not None else 0
+    Mp = pm.shape[-1] if pm is not None else 0
+    C = cv.shape[-1] if cv is not None else 0
+    out = gametes * (4 * (out_mut.shape[-1] + 1) if pm is not None else 0)
+    out += gametes * C
+    reads = _nbytes(pm, cv, xo, q if cv is not None else None) + 4 * gametes
+    reads += _nbytes(new) if pm is not None else 0
+    search = _log2(K) + 2 * _log2(max(Mp, 2)) + _log2(max(mn, 2))
+    return _bound(reads + out, gametes * (K * K + mn * mn
+                                          + (2 * Mp + mn + C) * search))
 
 
 def _packed_need(rows: int, args, n_chr: int, chr_len: int,
@@ -821,6 +855,26 @@ def kernel_phase(dev) -> list:
              lambda: mm.meiose_merge_plain(*one, S, True),
              _merge_work(*one, S), None)),
     }
+    # gamete inheritance at the in-place group shape (2 chromosomes of the
+    # plane rows): ascending parent mutation rows with half their slots
+    # live, ~1 de novo mutation in 10 slots, CV positions drawn anew
+    from geneevolve_tpu_torch.ops import gamete_inherit as gi
+
+    pm = torch.where(torch.rand((2, n, 2, M), generator=g, device=dev) < 0.5,
+                     mut[:2], BIG).sort(-1).values
+    new = torch.where(
+        torch.rand((2, n, 11), generator=g, device=dev) < 0.1,
+        torch.randint(0, chr_len, (2, n, 11), generator=g, device=dev,
+                      dtype=torch.int32), BIG)
+    q = torch.randint(0, chr_len, (2, C), generator=g, device=dev,
+                      dtype=torch.int32)
+    inherit = (pm, cv[:2], xo_f[:2], sh[:2, :, 0], new, q,
+               torch.empty((2, n, M), dtype=torch.int32, device=dev),
+               torch.empty((2, n, C), dtype=torch.uint8, device=dev))
+    cases["gamete_inherit"] = (
+        lambda: _inherit_outputs(gi.gamete_inherit)(*inherit),
+        lambda: _inherit_outputs(gi.gamete_inherit_plain)(*inherit),
+        _inherit_work(*inherit), None, None)
     results = []
     for name, (kern, plain, work, library, entry) in cases.items():
         r = dict(name=name, route="cuda", source=KERNELS[name][0],
@@ -1364,7 +1418,8 @@ def _checksum(u):
 PLANES = ("seg_st", "seg_hap", "mut", "cv")
 # the kernels that read the parents' planes, which a real pass in place
 # overwrites with the children
-PARENT_KERNELS = ("merge_count", "meiose_merge", "gather_rows")
+PARENT_KERNELS = ("merge_count", "meiose_merge", "gather_rows",
+                  "gamete_inherit")
 # (chromosome, child) pairs a call of a plain version takes in a re-check
 PLAIN_PAIRS = 1 << 20
 
@@ -1389,6 +1444,81 @@ def _desc(t) -> tuple:
     return (t.data_ptr(), tuple(t.shape), t.dtype)
 
 
+def _inherit_outputs(fn):
+    """`fn` (`ops/gamete_inherit` or its plain version) with the arguments
+    of a call, writing into fresh child planes laid out as the engine's (a
+    parent's [:, :, g] view of (nk, nc, 2, width) planes) in place of the
+    call's own outputs: returns what it wrote, (mutation rows, counts, CV
+    rows), those the call has."""
+    import torch
+
+    def plane(t):
+        return None if t is None else torch.empty(
+            t.shape[:2] + (2,) + t.shape[2:], dtype=t.dtype,
+            device=t.device)[:, :, 1]
+
+    def run(pm, cv, xo, start, new, q, out_mut, out_cv):
+        om, oc = plane(out_mut), plane(out_cv)
+        counts = fn(pm, cv, xo, start, new, q, om, oc)
+        return tuple(x for x in (om, counts, oc) if x is not None)
+
+    return run
+
+
+def _int_sum(t):
+    """A checksum of an integer tensor, left on the card (None for None)."""
+    import torch
+
+    return None if t is None else t.sum(dtype=torch.int64)
+
+
+def _inherit_operands(path, sim, plan_of, gathered, sums, widths):
+    """A recorded gamete inheritance's operands, made again: its parent
+    rows, the last gathers of the mutation and CV planes (`gathered`:
+    plane -> ((population, c0, c1, parents), rows)), held to the launch's
+    checksums; its crossovers, starts and de novo slots, those of the
+    parent of the range's plan drawn again whose checksums they match; its
+    chromosomes' CV positions; fresh outputs of the recorded widths.
+    Returns (population, c0, c1, parent, arguments)."""
+    import torch
+
+    pm_s, cv_s, xo_s, st_s, new_s = sums
+    rows, at = {}, None
+    for plane, want in (("mut", pm_s), ("cv", cv_s)):
+        rows[plane] = None
+        if want is None:
+            continue
+        if plane not in gathered or (
+                at is not None and (gathered[plane][0][:3] != at[:3]
+                                    or gathered[plane][0][3] is not at[3])):
+            raise AssertionError(f"{path}: a gamete inheritance without "
+                                 f"the gather of its {plane} rows before it")
+        at, rows[plane] = gathered[plane]
+        if int(_int_sum(rows[plane])) != int(want):
+            raise AssertionError(f"{path}: the {plane} rows gathered again "
+                                 "differ from the gamete inheritance's")
+    pop, c0, c1, _ = at
+    plan = plan_of(pop, c0, c1)
+    want = [int(x) for x in (xo_s, st_s, new_s)]
+    g = next((g for g in range(2) if [int(_int_sum(x)) for x in (
+        plan[g], plan[2][:, :, g], plan[3 + g])] == want), None)
+    if g is None:
+        raise AssertionError(f"{path}: no parent's plan rows match the "
+                             f"gamete inheritance's (pop {pop + 1}, "
+                             f"chromosomes {c0}-{c1 - 1})")
+    nk, nc = plan[g].shape[:2]
+    dev = plan[g].device
+    Mo, C = widths
+    args = (rows["mut"], rows["cv"], plan[g], plan[2][:, :, g], plan[3 + g],
+            sim.cv_bp_all[c0:c1],
+            None if Mo is None else torch.empty((nk, nc, Mo),
+                                                dtype=torch.int32,
+                                                device=dev),
+            None if C is None else torch.empty((nk, nc, C),
+                                               dtype=torch.uint8, device=dev))
+    return pop, c0, c1, g, args
+
+
 class _ParentLaunches:
     """Records the launches of a run's last generation (`last_gen`) that
     read the parents' planes, so that each can be made again after the run
@@ -1399,7 +1529,9 @@ class _ParentLaunches:
     plane or a plan, each launch's plane addresses and shapes, the
     children's parents (which the generation holds anyway) and an exact
     checksum of its crossovers and starts (a reduction on the card, no
-    sync), and each population's `_plan` arguments."""
+    sync), and each population's `_plan` arguments; of a gamete
+    inheritance, checksums of its operands (its parent rows are the
+    gathers just before it) and its outputs' widths."""
 
     def __init__(self, last_gen: int):
         self.last, self.on = last_gen, False
@@ -1415,9 +1547,11 @@ class _ParentLaunches:
         from geneevolve_tpu_torch.core import engine
 
         self.saved = {k: getattr(engine, k) for k in (
-            "merge_count", "meiose_merge", "gather_rows_stacked")}
+            "merge_count", "meiose_merge", "gather_rows_stacked",
+            "gamete_inherit")}
         self.saved_plan = engine.Simulation._plan
         count, merge = engine.merge_count, engine.meiose_merge
+        inherit = engine.gamete_inherit
         gather, plan = engine.gather_rows_stacked, engine.Simulation._plan
 
         def sums(*ts):
@@ -1444,6 +1578,15 @@ class _ParentLaunches:
                                       None, ()))
             return gather(table, idx)
 
+        def inherit_rec(pm, cv, xo, start, new, q, out_mut, out_cv):
+            if self.on:
+                self.launches.append((
+                    "gamete_inherit", None, None,
+                    [_int_sum(t) for t in (pm, cv, xo, start, new)],
+                    tuple(None if t is None else t.shape[-1]
+                          for t in (out_mut, out_cv))))
+            return inherit(pm, cv, xo, start, new, q, out_mut, out_cv)
+
         def plan_rec(sim, p, gen, n_pad, c0=0, c1=None):
             if self.on:
                 self.plans[p.index] = (p, gen, n_pad)
@@ -1451,6 +1594,7 @@ class _ParentLaunches:
 
         engine.merge_count, engine.meiose_merge = count_rec, merge_rec
         engine.gather_rows_stacked = gather_rec
+        engine.gamete_inherit = inherit_rec
         engine.Simulation._plan = plan_rec
         return self
 
@@ -1502,6 +1646,8 @@ GATHER_AXES = ((0, None), (None, 0))
 COUNT_AXES = ((0, None), (None, 1), (0, 1), (0, 1), (0, 1))
 MERGE_AXES = ((0, None), (0, None), (None, 1), (0, 1), (0, 1), (0, 1),
               (None, None), (None, None))
+INHERIT_AXES = ((0, 1), (0, 1), (0, 1), (0, 1), (0, 1), (0, None), (0, 1),
+                (0, 1))
 
 
 def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
@@ -1516,9 +1662,12 @@ def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
     planes), every row. Returns `checked` (launches a kernel), `planes`
     (the copy on the card) and `last` (the last launch of each kernel, of
     the gathers the last 4, as [(kernel, plain version in chunks,
-    arguments, (population, c0, c1))])."""
+    arguments, (population, c0, c1))]). A gamete inheritance runs on its
+    operands made again (`_inherit_operands`) and, with `children`, must
+    equal the mutation and CV rows the run wrote."""
     import torch
 
+    from geneevolve_tpu_torch.ops import gamete_inherit as gi
     from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_merge as mm
     from geneevolve_tpu_torch.ops import merge_count as mc
@@ -1543,7 +1692,7 @@ def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
                     c.shape[1:]) != shape[1:] or c0 + shape[0] > c.shape[0]:
                 raise AssertionError(f"{path}: a launch reads {k} of pop "
                                      f"{pop + 1} in a way the copy misses")
-            return pop, c0, c[c0:c0 + shape[0]]
+            return pop, c0, c[c0:c0 + shape[0]], k
         raise AssertionError(f"{path}: a launch reads a plane that was not "
                              "a parent plane before the last generation")
 
@@ -1553,20 +1702,49 @@ def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
         if (pop, c0, c1) not in drawn:
             drawn.clear()  # one range's plan at a time
             p, gen, n_pad = rec.plans[pop]
-            drawn[pop, c0, c1] = sim._plan(p, gen, n_pad, c0, c1)[:3]
+            drawn[pop, c0, c1] = sim._plan(p, gen, n_pad, c0, c1)
         return drawn[pop, c0, c1]
 
     checked = dict.fromkeys(PARENT_KERNELS, 0)
     last = {k: [] for k in PARENT_KERNELS}
+    gathered = {}  # plane -> ((pop, c0, c1, parents), rows) of its last
     for kind, descs, parents, sums, extra in rec.launches:
-        pop, c0, view = locate(descs[0])
+        if kind == "gamete_inherit":
+            pop, c0, c1, g, args = _inherit_operands(
+                path, sim, plan_of, gathered, sums, extra)
+            kern, plain = (_inherit_outputs(gi.gamete_inherit),
+                           _inherit_outputs(gi.gamete_inherit_plain))
+            axes = tuple((None, None) if a is None else x
+                         for a, x in zip(args, INHERIT_AXES))
+            got = kern(*args)
+            err = _max_abs_err(got, _plain_chunked(plain, args, axes))
+            if err:
+                raise AssertionError(f"{path}: gamete_inherit (pop "
+                                     f"{pop + 1}, chromosomes {c0}-{c1 - 1})"
+                                     f" differs from its plain version by "
+                                     f"{err}")
+            if final is not None and not (
+                    (args[0] is None
+                     or torch.equal(got[0], final.mut[c0:c1, :, g]))
+                    and (args[1] is None
+                         or torch.equal(got[-1], final.cv[c0:c1, :, g]))):
+                raise AssertionError(
+                    f"{path}: the mutation or CV rows the run wrote differ "
+                    f"from the gamete inheritance (chromosomes "
+                    f"{c0}-{c1 - 1}, parent {g})")
+            del got
+            checked[kind] += 1
+            last[kind] = [(kern, lambda a=args, f=plain, x=axes:
+                           _plain_chunked(f, a, x), args, (pop, c0, c1))]
+            continue
+        pop, c0, view, plane = locate(descs[0])
         c1 = c0 + view.shape[0]
         if kind == "gather_rows":
             kern, plain, axes = (mat.gather_rows_stacked,
                                  mat.gather_rows_stacked_plain, GATHER_AXES)
             args = (view, parents)
         else:
-            xo_f, xo_m, sh = plan_of(pop, c0, c1)
+            xo_f, xo_m, sh = plan_of(pop, c0, c1)[:3]
             if [int(_checksum(x)) for x in (xo_f, xo_m, sh)] != [
                     int(s) for s in sums]:
                 raise AssertionError(
@@ -1583,6 +1761,8 @@ def _recheck(path: str, rec: _ParentLaunches, children=False) -> dict:
                 args = (view, locate(descs[1])[2], parents, xo_f, xo_m, sh,
                         *extra)
         got = kern(*args)
+        if kind == "gather_rows":
+            gathered[plane] = ((pop, c0, c1, parents), got)
         err = _max_abs_err(got, _plain_chunked(plain, args, axes))
         if err:
             raise AssertionError(f"{path}: {kind} (pop {pop + 1}, "
@@ -1682,7 +1862,8 @@ def segment_slice_kernels(kernels: list, captured: dict) -> dict:
                              f"launches {len(captured['cdf_bins'])}")
     res = _recheck("table31", captured["parents"], children=True)
     want = dict(merge_count=1, meiose_merge=GROUPS,
-                gather_rows=SEGMENT_PER_GEN["gather_rows"])
+                gather_rows=SEGMENT_PER_GEN["gather_rows"],
+                gamete_inherit=SEGMENT_PER_GEN["gamete_inherit"])
     if res["checked"] != want:
         raise AssertionError(f"table31: last generation's launches "
                              f"{res['checked']}, {want} expected")
@@ -1715,7 +1896,8 @@ def segment_slice_kernels(kernels: list, captured: dict) -> dict:
             dict(entry=f"segment_slice/{what}", shape=shape, **r))
     _parent_entries(by_name, "segment_slice", res["last"], gathers=(
         "cv_rows_father", "mutation_rows_father", "cv_rows_mother",
-        "mutation_rows_mother"), merge="real_pass_group", count="probe")
+        "mutation_rows_mother"), merge="real_pass_group", count="probe",
+        inherit="real_pass_group")
     # the merge over every chromosome at once, as on fresh planes
     (_, _, args, _), = res["last"]["meiose_merge"]
     planes = {k: res["planes"][0, k][1] for k in ("seg_st", "seg_hap")}
@@ -1742,11 +1924,13 @@ def segment_slice_kernels(kernels: list, captured: dict) -> dict:
 
 
 def _parent_entries(by_name: dict, tag: str, last: dict, gathers=(),
-                    merge=None, count=None, children_equal=False) -> None:
+                    merge=None, count=None, children_equal=False,
+                    inherit=None) -> None:
     """Timed entries (`_compare`, the plain version in `_plain_chunked`'s
     chunks) for the last launches `_recheck` kept: the last
-    `len(gathers)` gathers under those names, the last merge and the last
-    count under `merge` and `count` (None: none)."""
+    `len(gathers)` gathers under those names, the last merge, the last
+    count and the last gamete inheritance under `merge`, `count` and
+    `inherit` (None: none)."""
     for (kern, plain, (table, idx), (pop, c0, c1)), what in zip(
             last["gather_rows"][-len(gathers):] if gathers else [], gathers):
         shape = (f"{idx.shape[0]} rows of {tuple(table.shape)} "
@@ -1773,6 +1957,18 @@ def _parent_entries(by_name: dict, tag: str, last: dict, gathers=(),
             children_equal and k == "meiose_merge") else {}
         by_name[k].setdefault("entries", []).append(
             dict(entry=f"{tag}/{what}", shape=shape, **extra, **r))
+    if inherit is not None:
+        (kern, plain, args, (pop, c0, c1)), = last["gamete_inherit"]
+        pm, cv, xo = args[:3]
+        shape = (f"{c1 - c0} chromosomes ({c0}-{c1 - 1}) x {xo.shape[1]} "
+                 f"gametes of one parent, K {xo.shape[2]}, mutation rows "
+                 f"{None if pm is None else pm.shape[-1]}, de novo slots "
+                 f"{args[4].shape[-1]}, CVs "
+                 f"{None if cv is None else cv.shape[-1]}")
+        r = _compare(f"gamete_inherit/{tag}/{inherit}", lambda: kern(*args),
+                     plain, _inherit_work(*args))
+        by_name["gamete_inherit"].setdefault("entries", []).append(
+            dict(entry=f"{tag}/{inherit}", shape=shape, **r))
 
 
 def _paint_work(seg_st, seg_hap, mut, founder, pos) -> dict:
@@ -2090,17 +2286,19 @@ def _launches_from_log(log: list, gather_path: bool) -> dict:
     """The stacked kernels' launches a run's reproduce passes make, from
     its capacity log (whether each (generation, population) ran in place
     and drew its plan a group at a time): whole plan, 3 bins and 1 count;
-    per group, twice 3 bins and 1 count a group; fresh planes, 1 merge
-    and a gather a parent and table; in place, those a group."""
+    per group, twice 3 bins and 1 count a group; fresh planes, 1 merge,
+    a gather a parent and table and a gamete inheritance a parent; in
+    place, those a group."""
     tables = 1 if gather_path else 2
     out = {"cdf_bins": 0, "merge_count": 0, "gather_rows": 0,
-           "meiose_merge": 0}
+           "meiose_merge": 0, "gamete_inherit": 0}
     for c in log:
         groups = GROUPS if c["in_place"] else 1
         out["cdf_bins"] += 2 * 3 * GROUPS if c["per_group"] else 3
         out["merge_count"] += GROUPS if c["per_group"] else 1
         out["meiose_merge"] += groups
         out["gather_rows"] += 2 * tables * groups
+        out["gamete_inherit"] += 2 * groups
     return out
 
 
@@ -2393,7 +2591,8 @@ def biobank_kernels(kernels: list, name: str, rec, per_gen: dict) -> dict:
     by_name = {k["name"]: k for k in kernels}
     _parent_entries(by_name, name, res["last"],
                     gathers=("cv_rows_mother", "mutation_rows_mother"),
-                    merge="real_pass", count="probe", children_equal=True)
+                    merge="real_pass", count="probe", children_equal=True,
+                    inherit="real_pass")
     (_, _, _, (pop, c0, c1)), = res["last"]["meiose_merge"]
     sim = rec.sim
     p, gen, n_pad = rec.plans[pop]
@@ -4118,8 +4317,9 @@ class _MeshLaunches:
     chromosome range, the address of the parents' block it read and the
     `_owned_gametes` it counted (small index tensors; its operands rebuilt
     after the run by the engine's `_count_columns`); for the merge and the
-    gathers, references to the last group's arguments (that group's
-    fetched parent rows, which nothing overwrites). `idle` counts the
+    gathers and the gamete inheritance, references to the last group's
+    arguments (that group's fetched parent rows, which nothing
+    overwrites). `idle` counts the
     probe's counts the rank made without a launch, holding no parent of
     any child (generation 1's founders lie on rank 0). `before_step` copies
     the parents' planes to the host before the last generation on rank 0,
@@ -4141,12 +4341,14 @@ class _MeshLaunches:
 
     def __enter__(self):
         from geneevolve_tpu_torch.core import engine, segments
+        from geneevolve_tpu_torch.ops import gamete_inherit as gi
         from geneevolve_tpu_torch.ops import materialize as mat
         from geneevolve_tpu_torch.ops import meiose_merge as mm
 
         sim_cls = engine.Simulation
         self.saved = [(engine, k, getattr(engine, k)) for k in (
-            "merge_count", "meiose_merge", "gather_rows_stacked")] + [
+            "merge_count", "meiose_merge", "gather_rows_stacked",
+            "gamete_inherit")] + [
             (segments, "cdf_bins", segments.cdf_bins)] + [
             (sim_cls, k, getattr(sim_cls, k)) for k in (
                 "_reproduce", "_reproduce_group", "_plan",
@@ -4209,6 +4411,15 @@ class _MeshLaunches:
         engine.gather_rows_stacked = kept(
             "gather_rows", fns["gather_rows_stacked"],
             mat.gather_rows_stacked_plain)
+
+        def inherit(*a):
+            if self.last_group:  # the outputs it wrote, on fresh planes
+                self.calls["gamete_inherit"] = (
+                    _inherit_outputs(gi.gamete_inherit),
+                    _inherit_outputs(gi.gamete_inherit_plain), a, {}, ())
+            return fns["gamete_inherit"](*a)
+
+        engine.gamete_inherit = inherit
         segments.cdf_bins = bins
         sim_cls._reproduce, sim_cls._reproduce_group = reproduce, group
         sim_cls._plan, sim_cls._owned_gametes = plan, owned
@@ -4228,7 +4439,8 @@ def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
     the last `_plan` call, drawn again and held to the run's checksums;
     the count on the host copy of the parents' block it read, back on the
     card, with the columns `_count_columns` builds from the plan drawn
-    again; the last group's merge and last gather on their own arguments.
+    again; the last group's merge, last gather and last gamete inheritance
+    on their own arguments.
     Returns each kernel's max_abs_err."""
     import torch
 
@@ -4238,7 +4450,8 @@ def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
 
     sim = rec.sim
     if sim is None or rec.count is None or rec.owned is None or \
-            set(rec.calls) != {"meiose_merge", "gather_rows"}:
+            set(rec.calls) != {"meiose_merge", "gather_rows",
+                               "gamete_inherit"}:
         raise AssertionError(f"{path}: the last generation's launches were "
                              "not recorded")
     seen, bins = [], segments.cdf_bins

@@ -124,15 +124,17 @@ def reckon(sz: Sizes, free: int, sw: Switches = Switches(),
     rows once to every rank) or the received bytes beside the tables split
     from them; and while the probe counts, the columns of the gametes a
     rank holds (at most the drawn plan again). The CV phase's transient is
-    the (rows, C) tensors `_gamete_cv` holds at one time (its sorted
-    searches: ~48 bytes a row and CV) over the rows of one chunk, and a
-    gamete's mutation and CV rows (twice when chunked). The resident CV
-    matrix stays when its path's need fits `free` (and `resident` asks for
-    it); the gather path adds the painted CV columns and panels, and with
-    several populations the migration's new states beside the old and the
-    founders' panels. With several populations a constant schedule
-    reckons the larger of both regimes: a generation after a migration
-    runs in place only when its children fit the rows the migration left.
+    the (rows, C) tensors the plain `segments.gamete_cv` holds at one time
+    (its sorted searches: ~48 bytes a row and CV) over the rows of one
+    chunk, and a gamete's mutation and CV rows (twice when chunked); the
+    card's `ops/gamete_inherit` kernel holds none, so there it over-reckons.
+    The resident CV matrix stays when its path's need fits `free` (and
+    `resident` asks for it); the gather path adds the painted CV columns
+    and panels, and with several populations the migration's new states
+    beside the old and the founders' panels. With several populations a
+    constant schedule reckons the larger of both regimes: a generation
+    after a migration runs in place only when its children fit the rows
+    the migration left.
     The stacked row gathers then take as many chromosomes as fit in what
     is left, down to one; in place (one population) at most a group's."""
     nchr, rows_all = sz.nchr, max(sz.pop_rows)

@@ -395,12 +395,30 @@ def inherit_mutations(par_mut, xo, start_hap, new_mut, capacity):
     return s[:, :capacity].contiguous(), n_valid
 
 
+def gamete_cv(rows, xo, start, pm, new_g, q):
+    """The gamete's CV alleles from its parent's CV rows (nc, 2, C): the
+    parent allele of the chromatid it copies at each CV position q (C,),
+    flipped by a de novo mutation at that position unless the copied
+    chromatid already carries one there (membership, not parity —
+    `Simulation.cpp:2961-2970`). `pm` None: no mutation map. Sorted
+    searches of each row: its transients are (nc, C) tensors."""
+    qx = q.expand(xo.shape[0], -1).contiguous()
+    phase = active_at(xo, start, qx)
+    g = torch.where(phase == 0, rows[:, 0], rows[:, 1])
+    if pm is not None:
+        carried = torch.where(phase == 0, member(pm[:, 0], qx),
+                              member(pm[:, 1], qx))
+        flip = member(new_g, qx) & ~carried
+        g = torch.where(flip, 1 - g, g)
+    return g
+
+
 def in_row_chunks(fn, chunk: int, rows: tuple, *fixed):
     """`fn(*rows, *fixed)` over chunks of `chunk` rows (axis 0 of each
     tensor of `rows`; None passes through), the outputs (a tensor or a
     tuple of them) concatenated on axis 0. Equal to one call for any `fn`
     whose output row i reads only row i of `rows`, as
-    `inherit_mutations` and the engine's `_gamete_cv` do; it bounds
+    `inherit_mutations` and `gamete_cv` do; it bounds
     their transients at biobank row counts (the JAX `_make_per_chr`'s
     chunks)."""
     n = next(x.shape[0] for x in rows if x is not None)

@@ -38,6 +38,10 @@ SIGNATURES = {
     "ge_merge_count": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P,
     ],
+    "ge_gamete_inherit": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+        _I64, _I64, _I64, _I, _I, _I, _I, _I, _I, _P,
+    ],
     "ge_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "ge_meiose_merge": [
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,

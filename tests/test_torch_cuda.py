@@ -10,16 +10,20 @@ import numpy as np
 import pytest
 import torch
 
+from geneevolve_tpu_torch.core import memory as tmemory
 from geneevolve_tpu_torch.ops import cdf_bins as tbins
+from geneevolve_tpu_torch.ops import gamete_inherit as tinherit
 from geneevolve_tpu_torch.ops import materialize as tmat
 from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
 from geneevolve_tpu_torch.ops import paint as tpaint
-from torch_cases import (BIG, CASES, PAINT_CASES, STACKED_CASES, cdf,
-                         dense_plan, foreign_slots, mutation_loci, paint_case,
-                         paint_ledger, paint_positions, probes, stacked)
+from torch_cases import (BIG, CASES, INHERIT_CASES, INHERIT_PARTS,
+                         PAINT_CASES, STACKED_CASES, cdf, dense_plan,
+                         foreign_slots, inherit_case, inherit_planes,
+                         mutation_loci, paint_case, paint_ledger,
+                         paint_positions, probes, stacked)
 
 T = torch.as_tensor
 
@@ -705,3 +709,67 @@ def test_cuda_parent_draw_deterministic(cuda):
         torch.randint(0, 2**31, (1 << 26,), device=cuda)  # churn memory
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*draws))
+
+
+def _check_inherit(args, Mo, part):
+    """The kernel against its plain version on the card, for each parent:
+    the written rows, the counts, and the other parent's slots untouched.
+    Returns the counts of parent 0's gametes."""
+    out = []
+    for g in range(2):
+        got = inherit_planes(tinherit.gamete_inherit, args, Mo, part, g)
+        torch.cuda.synchronize()
+        want = inherit_planes(tinherit.gamete_inherit_plain, args, Mo, part,
+                              g)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+        out.append(got[2])
+    return out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", INHERIT_PARTS)
+@pytest.mark.parametrize("nk, n, K, Mp, mn, C, Mo, span", INHERIT_CASES)
+def test_cuda_gamete_inherit_kernel(cuda, nk, n, K, Mp, mn, C, Mo, span,
+                                    part):
+    """Crowded rows (de novo slots equal to each other, to parent mutations
+    and to CVs; crossovers equal to each other and on CVs and mutations),
+    counts past Mo, K and mn past 32, with and without mutation or CV rows,
+    written through [:, :, g] views: the kernel equals the plain version
+    bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(n + K + Mo)
+    args = inherit_case(g, nk, n, K, Mp, mn, C, span, device=cuda)
+    counts = _check_inherit(args, Mo, part)
+    if part == "both" and Mo < Mp:
+        assert (counts > Mo).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30_708, 302_208])
+def test_cuda_gamete_inherit_at_group_shapes(cuda, n):
+    """The in-place real pass's group at 30,000 and 300,000 (2 chromosomes
+    of their plane rows, K 23, Mp 37, mn 11, 100 CVs), positions over a
+    chromosome's length."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    args = inherit_case(g, 2, n, 23, 37, 11, 100, 249_000_000, device=cuda)
+    _check_inherit(args, 37, "both")
+
+
+@pytest.mark.cuda
+def test_cuda_gamete_inherit_past_chunk_rows(cuda):
+    """More than 2^19 gametes of one chromosome in one launch: the kernel
+    equals the plain version over its row chunks."""
+    n = tmemory.CHUNKED_PAST + 4099
+    g = torch.Generator(device=cuda).manual_seed(19)
+    args = inherit_case(g, 1, n, 23, 37, 11, 100, 5_000, device=cuda)
+    assert tmemory.Switches.from_env().chunk_rows(n) < n
+    _check_inherit(args, 30, "both")
+
+
+@pytest.mark.cuda
+def test_cuda_gamete_inherit_refuses_rows_past_shared_memory(cuda):
+    """One gamete's rows above a block's 227 KB: the wrapper raises."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    args = inherit_case(g, 1, 4, 8, 15_000, 4, 10, 1 << 20, device=cuda)
+    with pytest.raises(ValueError):
+        inherit_planes(tinherit.gamete_inherit, args, 15_000, "both", 0)

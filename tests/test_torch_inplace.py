@@ -285,7 +285,7 @@ def test_in_place_paths_identical(quad, tmp_path, variant,
 
 def test_row_chunks_equal_one_pass():
     """`segments.in_row_chunks` at a chunk of 7 rows equals one pass of
-    `inherit_mutations` and of the engine's `_gamete_cv` over 50 rows."""
+    `inherit_mutations` and of `gamete_cv` over 50 rows."""
     g = torch.Generator().manual_seed(5)
     n, K, M, mn, C = 50, 6, 5, 3, 9
     BIG = segments.BIG
@@ -305,10 +305,9 @@ def test_row_chunks_equal_one_pass():
                                  (pm, xo, start, new), 8)
     assert all(torch.equal(a, b) for a, b in zip(one, got))
     assert int((one[0] < BIG).sum()) > 20
-    gcv = torch_engine.Simulation._gamete_cv
     for m in (pm, None):
-        one = gcv(None, rows, xo, start, m, new, q)
-        got = segments.in_row_chunks(lambda *a: gcv(None, *a), 7,
+        one = segments.gamete_cv(rows, xo, start, m, new, q)
+        got = segments.in_row_chunks(segments.gamete_cv, 7,
                                      (rows, xo, start, m, new), q)
         assert torch.equal(one, got)
 

@@ -16,11 +16,16 @@ from geneevolve_tpu.core import segments as jseg
 from geneevolve_tpu.ops import cdf_bins_pallas as cbp
 from geneevolve_tpu.ops import materialize as jmat
 from geneevolve_tpu.ops import merge_count_pallas as mcp
+from geneevolve_tpu_torch.core import memory as tmemory
+from geneevolve_tpu_torch.core import segments as tseg
 from geneevolve_tpu_torch.ops import cdf_bins as tbins
+from geneevolve_tpu_torch.ops import gamete_inherit as tinherit
 from geneevolve_tpu_torch.ops import materialize as tmat
 from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import merge_count as tcount
 from torch_cases import CASES, STACKED_CASES, cdf as _cdf, probes as _probes
+from torch_cases import (INHERIT_CASES, INHERIT_PARTS, inherit_case,
+                         inherit_planes)
 from torch_cases import stacked as _stacked_case
 
 T = torch.as_tensor
@@ -227,9 +232,117 @@ def test_stacked_merge_truncates_like_meiose(S, K, cap, merge_ibd):
                                          device="meta"),) * 5),
     ("meiose_merge", lambda: (torch.zeros(1, 2, 2, 3, dtype=torch.int32,
                                           device="meta"),) * 6 + (3,)),
+    ("gamete_inherit", lambda: (
+        torch.zeros(1, 2, 2, 3, dtype=torch.int32, device="meta"), None,
+        *(torch.zeros(1, 2, 3, dtype=torch.int32, device="meta"),) * 1,
+        torch.zeros(1, 2, dtype=torch.int32, device="meta"),
+        torch.zeros(1, 2, 3, dtype=torch.int32, device="meta"),
+        torch.zeros(1, 3, dtype=torch.int32, device="meta"),
+        torch.zeros(1, 2, 3, dtype=torch.int32, device="meta"), None)),
 ])
 def test_wrappers_reject_bad_inputs(fn, args):
     mod = {"cdf_bins": tbins, "merge_count": tcount,
-           "meiose_merge": tmerge}[fn]
+           "meiose_merge": tmerge, "gamete_inherit": tinherit}[fn]
     with pytest.raises((TypeError, ValueError)):
         getattr(mod, fn)(*args())
+
+
+# ----------------------------------------------- gamete inheritance (CPU)
+def _inherit_reference(pm, cv, xo, start, new, q, Mo, part):
+    """The real pass's composition before `ops/gamete_inherit`:
+    `segments.inherit_mutations` and `segments.gamete_cv` a chromosome at
+    a time, in one pass."""
+    mut, counts, cvs = [], [], []
+    for j in range(xo.shape[0]):
+        pmj = None if part == "cv" else pm[j]
+        if part != "cv":
+            m, nv = tseg.inherit_mutations(pm[j], xo[j], start[j], new[j], Mo)
+            mut.append(m)
+            counts.append(nv)
+        if part != "mutations":
+            cvs.append(tseg.gamete_cv(cv[j], xo[j], start[j], pmj, new[j],
+                                      q[j]))
+    stack = (lambda x: torch.stack(x) if x else None)
+    return stack(mut), stack(counts), stack(cvs)
+
+
+def _coincidences(args):
+    """Which equalities the drawn operands hold: de novo slots equal to
+    each other, to a parent mutation and to a CV; crossovers equal to
+    each other, to a CV and to a parent mutation."""
+    pm, _, xo, _, new, q = args
+    nk, n = xo.shape[:2]
+
+    def meet(a, b):  # some valid a[j, i, :] equal to some b[j, i, :]
+        hit = (a[..., :, None] == b[..., None, :]) & (a < BIG)[..., None]
+        return bool(hit.any())
+
+    def twice(a):
+        s = torch.sort(a, -1).values
+        return bool(((s[..., 1:] == s[..., :-1]) & (s[..., 1:] < BIG)).any())
+
+    qs = q[:, None, :].expand(nk, n, -1)
+    par = pm.flatten(2)
+    return dict(new_new=twice(new), new_parent=meet(new, par),
+                new_cv=meet(new, qs), xo_xo=twice(xo), xo_cv=meet(xo, qs),
+                xo_parent=meet(xo, par))
+
+
+BIG = tseg.BIG
+
+
+@pytest.mark.parametrize("part", INHERIT_PARTS)
+@pytest.mark.parametrize("nk, n, K, Mp, mn, C, Mo, span", INHERIT_CASES)
+def test_gamete_inherit_plain_equals_composition(nk, n, K, Mp, mn, C, Mo,
+                                                 span, part):
+    """The op's plain version (the CPU path), written through strided
+    [:, :, g] views of child planes, equals `inherit_mutations` and
+    `gamete_cv` composed as the engine composed them, for each parent, with
+    and without mutation or CV rows; the other parent's slots stay as they
+    were."""
+    args = inherit_case(torch.Generator().manual_seed(n + K + Mo), nk, n, K,
+                        Mp, mn, C, span)
+    pm, cv, xo, sh, new, q = args
+    for g in range(2):
+        out_m, out_c, counts = inherit_planes(tinherit.gamete_inherit, args,
+                                              Mo, part, g)
+        m, nv, c = _inherit_reference(pm, cv, xo, sh[:, :, g], new, q, Mo,
+                                      part)
+        if part != "cv":
+            assert torch.equal(out_m[:, :, g], m)
+            assert torch.equal(counts, nv)
+        else:
+            assert counts is None
+        if part != "mutations":
+            assert torch.equal(out_c[:, :, g], c)
+        assert (out_m[:, :, 1 - g] == -7).all()
+        assert (out_c[:, :, 1 - g] == 9).all()
+        if part == "both" and Mo < Mp:
+            assert (nv > Mo).any()  # rows cut, counts not
+    if span <= 60 and min(K, mn) > 1:  # crowded rows: every equality
+        assert all(_coincidences(args).values())
+
+
+def test_gamete_inherit_plain_row_chunks(monkeypatch):
+    """Past `memory.CHUNKED_PAST` gametes (16 here) the plain version runs
+    each chromosome over chunks of `GE_REPRO_CHUNK` rows (7 here): the same
+    rows and counts as one pass."""
+    args = inherit_case(torch.Generator().manual_seed(3), 2, 50, 7, 6, 4, 9,
+                        30)
+    pm, cv, xo, sh, new, q = args
+    monkeypatch.setattr(tmemory, "CHUNKED_PAST", 16)
+    monkeypatch.setenv("GE_REPRO_CHUNK", "7")
+    calls = []
+    chunks = tseg.in_row_chunks
+
+    def rec(fn, chunk, rows, *fixed):
+        calls.append(chunk)
+        return chunks(fn, chunk, rows, *fixed)
+
+    monkeypatch.setattr(tseg, "in_row_chunks", rec)
+    out_m, out_c, counts = inherit_planes(tinherit.gamete_inherit, args, 8,
+                                          "both", 1)
+    m, nv, c = _inherit_reference(pm, cv, xo, sh[:, :, 1], new, q, 8, "both")
+    assert torch.equal(out_m[:, :, 1], m) and torch.equal(counts, nv)
+    assert torch.equal(out_c[:, :, 1], c)
+    assert calls and set(calls) == {7}

@@ -2,6 +2,7 @@
 run on machines without it)."""
 
 import numpy as np
+import torch
 
 from geneevolve_tpu_torch.ops.paint import SPAN
 
@@ -207,3 +208,71 @@ def paint_case(C, n, S, live, M, Q, hap_dtype, order):
     hap[:, ::5, 0, 1] = H + 3  # haps outside the panel read its last row
     hap[:, 1::7, 1, 0] = -2  # and its first
     return st, hap, mut, founder, pos
+
+
+# `ops/gamete_inherit`'s cases: (chromosomes, gametes, K crossover slots, Mp
+# parent mutation slots, mn de novo slots, C CVs, Mo output slots, span of
+# the positions). The benchmark's group shape at few rows; crowded rows
+# whose de novo, parent mutations, crossovers and CV positions coincide
+# often; K and mn past one warp's lanes with counts past Mo; rows as wide
+# as their output; one crossover and one de novo slot.
+INHERIT_CASES = [(2, 300, 23, 37, 11, 100, 37, 400),
+                 (3, 200, 7, 6, 4, 9, 8, 30),
+                 (2, 150, 40, 40, 20, 70, 12, 60),
+                 (1, 257, 33, 70, 64, 33, 70, 200),
+                 (2, 64, 1, 3, 1, 5, 3, 8)]
+INHERIT_PARTS = ["both", "mutations", "cv"]
+
+
+def inherit_case(gen, nk, n, K, Mp, mn, C, span, device="cpu"):
+    """The operands of `ops/gamete_inherit` drawn from `gen`: (parent
+    mutation rows (nk, n, 2, Mp), strictly ascending and BIG padded as the
+    engine keeps them; parent CV rows (nk, n, 2, C) uint8; crossovers (nk,
+    n, K), BIG padded, unsorted; start chromatids (nk, n, 2); de novo slots
+    (nk, n, mn), unsorted, BIG where absent; CV positions (nk, C), unsorted
+    and repeated). Half of every drawn position is one of its chromosome's
+    CV positions, so crossovers, parent and de novo mutations and CVs fall
+    on each other; the others lie anywhere in [0, span)."""
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def rb(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def pos(*shape):
+        w = int(np.prod(shape[2:]))
+        at = torch.gather(q[:, None, :].expand(nk, n, C), 2,
+                          ri(C, nk, n, w).long()).view(shape)
+        return torch.where(rb(*shape) < 0.5, at, ri(span, *shape))
+
+    q = ri(span, nk, C)
+    q[:, -1] = q[:, 0]  # a repeated position, as the padding columns repeat
+    xo = torch.where(rb(nk, n, K) < 0.6, pos(nk, n, K), BIG)
+    pm = torch.where(rb(nk, n, 2, Mp) < 0.7, pos(nk, n, 2, Mp), BIG)
+    pm = torch.sort(pm, -1).values
+    dup = torch.zeros_like(pm, dtype=torch.bool)
+    dup[..., 1:] = pm[..., 1:] == pm[..., :-1]
+    pm = torch.sort(torch.where(dup, BIG, pm), -1).values
+    cv = ri(2, nk, n, 2, C).to(torch.uint8)
+    sh = ri(2, nk, n, 2)
+    new = torch.where(rb(nk, n, mn) < 0.5, pos(nk, n, mn), BIG)
+    return pm, cv, xo, sh, new, q
+
+
+def inherit_planes(fn, args, Mo, part, g):
+    """`fn` (the op or its plain version) writing parent g's gametes into
+    (nk, n, 2, ...) child planes through their [:, :, g] views; the planes
+    start filled with values no output holds. Returns (mutation plane, CV
+    plane, counts)."""
+    pm, cv, xo, sh, new, q = args
+    nk, n = xo.shape[:2]
+    dev = xo.device
+    out_m = torch.full((nk, n, 2, Mo), -7, dtype=torch.int32, device=dev)
+    out_c = torch.full((nk, n, 2, cv.shape[-1]), 9, dtype=torch.uint8,
+                       device=dev)
+    counts = fn(None if part == "cv" else pm,
+                None if part == "mutations" else cv, xo, sh[:, :, g], new,
+                q, None if part == "cv" else out_m[:, :, g],
+                None if part == "mutations" else out_c[:, :, g])
+    return out_m, out_c, counts
