@@ -16,6 +16,16 @@ generation out again and the program's children are compared with it:
   from those ledgers, phenotypes, gamma and migration, and the probe's
   ledger slots against the most the children hold.
 
+On the dense backend (`--backend dense`, one population) the genome is the
+packed panel (`gebench/reference/dense.py`): generation 0's planes against
+the founder panel, generations 1 and the last's children planes against the
+reference's (`plane_mismatch`, the SNPs only, padding left out), every
+generation's resident CV alleles against the program's own planes at the CV
+columns (`cv_mismatch`), and A/D from the reference's children at 1 and the
+last, from the program's planes otherwise. The numbers of the ledger and
+the probe (`probe_gap`, `ledger_mismatch`, `mutation_mismatch`) have no
+meaning there and are not printed; `plane_mismatch` is printed only there.
+
 Every generation's `.info` file is read against the reference's fields,
 and the call's `.info` and `.summary` files must equal the timed call's
 byte for byte (its digests were taken when the window closed), so the
@@ -33,7 +43,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from gebench.reference import inputs, sim
+from gebench.reference import dense, inputs, sim
 from gebench.reference.law import BIG
 
 # limits, each set from readings of sound runs and of the control
@@ -44,11 +54,15 @@ LIMITS = {
     "probe_gap": 0,
     "ledger_mismatch": 0,
     "mutation_mismatch": 0,
+    "plane_mismatch": 0,
     "cv_mismatch": 0,
     "pheno_gap": 3e-4,
     "info_gap": 1e-3,
 }
 KEYS = ("A", "D", "G", "C", "E", "F", "P")
+# the numbers that only one genome backend has
+SEGMENT_ONLY = ("probe_gap", "ledger_mismatch", "mutation_mismatch")
+DENSE_ONLY = ("plane_mismatch",)
 
 
 def digests(prefix: Path) -> Dict[str, str]:
@@ -73,18 +87,22 @@ def _rms_gap(got, want) -> float:
     return gap / scale if scale > 0 else gap
 
 
-def _snapshot(program, planes: bool) -> list:
+def _snapshot(program, planes: bool, packed: bool = False) -> list:
     """Each population's state as the reference takes it: host fields
-    copied, and with `planes` the planes copied on the device."""
+    copied, and with `planes` the planes copied on the device (`packed`:
+    the dense backend's packed planes and CV matrices)."""
     out = []
     for p in program.pops:
         st = p.state
+        rows = (st.rows or st.hap.shape[0]) if packed else st.seg_st.shape[1]
         out.append(dict(
-            n=st.n, rows=st.seg_st.shape[1], sex=st.sex.copy(),
+            n=st.n, rows=rows, sex=st.sex.copy(),
             ids=st.ids.copy(), ped={k: v.copy() for k, v in st.ped.items()},
             comp={k: v[0].copy() for k, v in st.comp.items()},
             mv=st.mv.copy(), sv=st.sv.copy(), svf=st.svf.copy()))
-        if planes:
+        if planes and packed:
+            out[-1].update(hap=st.hap.clone(), cv=[c.clone() for c in st.cv])
+        elif planes:
             out[-1].update(seg_st=st.seg_st.clone(),
                            seg_hap=st.seg_hap.clone(), mut=st.mut.clone(),
                            cv=None if st.cv is None else st.cv.clone())
@@ -112,8 +130,13 @@ def _genome(st) -> list:
 class Judge:
     """Holds the readings of one checked call."""
 
+    packed = False  # the run's genome is the dense backend's packed planes
+
     def __init__(self, argv: List[str], seed: int, device, last_gen: int):
-        self.ref = sim.Reference(inputs.read(argv, seed), device)
+        sc = inputs.read(argv, seed)
+        self.packed = sc.backend == "dense"
+        self.ref = (dense.Reference if self.packed else sim.Reference)(
+            sc, device)
         self.full = {1, last_gen}
         self.last = last_gen
         self.n = {k: 0 for k in LIMITS}
@@ -127,19 +150,23 @@ class Judge:
 
     # ------------------------------------------------------------ hooks
     def before(self, program, gen: int) -> None:
-        self._snap = _snapshot(program, gen in self.full)
+        self._snap = _snapshot(program, gen in self.full, self.packed)
         if gen == 1:
             genomes, states = self.ref.generation0()  # fixes generation 0
             self._compare(self._snap, genomes, states, 0)
 
     def migrating(self, program, gen: int) -> None:
-        self.held[gen] = _held(program.pops)
+        if not self.packed:
+            self.held[gen] = _held(program.pops)
 
     def after(self, program, gen: int) -> None:
         snap, self._snap = self._snap, None
         self.seen.add(gen)
-        self.held.setdefault(gen, _held(program.pops))
         got = [_state(p.state) for p in program.pops]
+        if self.packed:
+            self._after_packed(got, snap, gen)
+            return
+        self.held.setdefault(gen, _held(program.pops))
         if gen in self.full:
             genomes, states, self.probes[gen] = self.ref.generation(gen,
                                                                     snap)
@@ -157,29 +184,38 @@ class Judge:
         else:
             self.n[key] += int(v)
 
+    def _host(self, st: dict, want: dict, gen: int, k: int) -> bool:
+        """The host fields of population k's state `st` against the
+        reference's `want`; whether both hold as many rows."""
+        self.want[(gen, k)] = want
+        n = want["n"]
+        self._bump("pedigree_mismatch", abs(st["n"] - n))
+        m = min(n, st["n"])
+        bad = np.zeros(m, dtype=bool)
+        bad |= st["sex"][:m] != want["sex"][:m]
+        bad |= st["ids"][:m] != want["ids"][:m]
+        for key, v in want["ped"].items():
+            bad |= st["ped"][key][:m] != v[:m]
+        self._bump("pedigree_mismatch", bad.sum())
+        for key in KEYS:
+            self._bump("pheno_gap", _rms_gap(st["comp"][key][:m],
+                                             want["comp"][key][:m]))
+        for key in ("mv", "sv", "svf"):
+            self._bump("pheno_gap", _rms_gap(st[key][:m], want[key][:m]))
+        return st["n"] == n
+
     def _compare(self, got, genomes, states, gen: int,
                  ledgers: bool = True) -> None:
         """The program's states `got` against the reference's `states` and
         `genomes`; without `ledgers` the genomes are the program's own, and
         only the CV alleles are compared with them."""
+        if self.packed:
+            self._compare_packed(got, genomes, states, gen)
+            return
         for k, want in enumerate(states):
             st = got[k]
-            self.want[(gen, k)] = want
             n = want["n"]
-            self._bump("pedigree_mismatch", abs(st["n"] - n))
-            m = min(n, st["n"])
-            bad = np.zeros(m, dtype=bool)
-            bad |= st["sex"][:m] != want["sex"][:m]
-            bad |= st["ids"][:m] != want["ids"][:m]
-            for key, v in want["ped"].items():
-                bad |= st["ped"][key][:m] != v[:m]
-            self._bump("pedigree_mismatch", bad.sum())
-            for key in KEYS:
-                self._bump("pheno_gap", _rms_gap(st["comp"][key][:m],
-                                                 want["comp"][key][:m]))
-            for key in ("mv", "sv", "svf"):
-                self._bump("pheno_gap", _rms_gap(st[key][:m], want[key][:m]))
-            if st["n"] != n:
+            if not self._host(st, want, gen, k):
                 continue
             for c, (pos, hap, mut) in enumerate(genomes[k]):
                 if ledgers:
@@ -196,6 +232,37 @@ class Judge:
                 got_cv = st["cv"][c, :n, :, :want_cv.shape[-1]]
                 self._bump("cv_mismatch", int((got_cv != want_cv).sum()))
 
+    def _after_packed(self, got, snap, gen: int) -> None:
+        """Generation `gen` on the dense backend: the reference's children
+        from the parents' planes at 1 and the last, else A/D from the
+        program's own planes."""
+        if gen in self.full:
+            genomes, states, _ = self.ref.generation(gen, snap)
+        else:
+            genomes = [self.ref.program_alleles(st["hap"], st["n"])
+                       for st in got]
+            _, states, _ = self.ref.generation(gen, snap, genomes)
+        del snap
+        self._compare_packed(got, genomes, states, gen)
+
+    def _compare_packed(self, got, genomes, states, gen: int) -> None:
+        """The dense backend's states `got` against the reference's: the
+        host fields; generation 0's planes against the founder panel, the
+        children's against the reference's `Children` where it made them;
+        the resident CV alleles against the program's planes."""
+        for k, want in enumerate(states):
+            st = got[k]
+            if not self._host(st, want, gen, k):
+                continue
+            n, hap = want["n"], st["hap"]
+            if gen == 0:
+                self._bump("plane_mismatch", self.ref.panel_differs(hap, n))
+            elif isinstance(genomes[k], dense.Children):
+                self._bump("plane_mismatch",
+                           self.ref.children_differ(genomes[k], hap))
+            planes = torch.cat(self.ref.program_alleles(hap, n), -1)
+            self._bump("cv_mismatch", int((st["cv"][0][:n] != planes).sum()))
+
     def finish(self, program, prefix: Path, timed: Dict[str, str],
                checked: Dict[str, str]) -> None:
         """The numbers read after the run: the probe's counts against the
@@ -208,6 +275,26 @@ class Judge:
             self.n["files_differ"] += 1
         for gen in set(range(1, self.last + 1)) - self.seen:  # never stepped
             self._bump("pedigree_mismatch", 1)
+        if not self.packed:
+            self._probe_gaps(program)
+        for (gen, k), want in self.want.items():
+            path = prefix.parent / f"{prefix.name}.info.pop{k + 1}.gen{gen}.txt"
+            ids, vals = _read_info(path)
+            if ids is None or len(ids) != want["n"]:
+                self._bump("pedigree_mismatch", want["n"])
+                continue
+            cols = [want["ids"] + 1] + [want["ped"][x] + 1 for x in (
+                "father", "mother", "ff", "fm", "mf", "mm")] + [want["sex"]]
+            self._bump("pedigree_mismatch",
+                       (ids != np.stack(cols, 1)).any(1).sum())
+            wv = [want["comp"][x] for x in KEYS] + [
+                want["mv"], want["sv"], want["svf"]]
+            for j, w in enumerate(wv):
+                self._bump("info_gap", _rms_gap(vals[:, j], w))
+
+    def _probe_gaps(self, program) -> None:
+        """The probe's counts of every generation against the children's
+        rows, and at 1 and the last against the reference's."""
         log = {}
         for e in getattr(program, "capacity_log", []):
             g = log.setdefault(e["gen"], [0, 0])
@@ -228,26 +315,14 @@ class Judge:
             else:
                 gap += max(0, held_m - need_m)
             self._bump("probe_gap", gap)
-        for (gen, k), want in self.want.items():
-            path = prefix.parent / f"{prefix.name}.info.pop{k + 1}.gen{gen}.txt"
-            ids, vals = _read_info(path)
-            if ids is None or len(ids) != want["n"]:
-                self._bump("pedigree_mismatch", want["n"])
-                continue
-            cols = [want["ids"] + 1] + [want["ped"][x] + 1 for x in (
-                "father", "mother", "ff", "fm", "mf", "mm")] + [want["sex"]]
-            self._bump("pedigree_mismatch",
-                       (ids != np.stack(cols, 1)).any(1).sum())
-            wv = [want["comp"][x] for x in KEYS] + [
-                want["mv"], want["sv"], want["svf"]]
-            for j, w in enumerate(wv):
-                self._bump("info_gap", _rms_gap(vals[:, j], w))
 
     def numbers(self) -> Dict[str, float]:
         """Each number compared, in print order (`cv_mismatch` only where
-        the program holds resident CV alleles); a number that is not
-        finite reads 1e300."""
-        out = {k: (v if np.isfinite(v) else 1e300) for k, v in self.n.items()}
+        the program holds resident CV alleles, and each backend's own
+        numbers only on it); a number that is not finite reads 1e300."""
+        drop = SEGMENT_ONLY if self.packed else DENSE_ONLY
+        out = {k: (v if np.isfinite(v) else 1e300) for k, v in self.n.items()
+               if k not in drop}
         if not self.resident:
             out.pop("cv_mismatch")
         return out
@@ -255,11 +330,13 @@ class Judge:
 
 def _state(st) -> dict:
     """A program state's fields as the comparison reads them (the planes
-    are read in place, on the device)."""
-    return dict(n=st.n, seg_st=st.seg_st, seg_hap=st.seg_hap, mut=st.mut,
-                cv=st.cv, sex=st.sex, ids=st.ids, ped=st.ped,
+    are read in place, on the device): the segment ledger's planes, or the
+    dense backend's packed planes `hap`."""
+    planes = (dict(hap=st.hap) if hasattr(st, "hap") else
+              dict(seg_st=st.seg_st, seg_hap=st.seg_hap, mut=st.mut))
+    return dict(n=st.n, cv=st.cv, sex=st.sex, ids=st.ids, ped=st.ped,
                 comp={k: v[0] for k, v in st.comp.items()},
-                mv=st.mv, sv=st.sv, svf=st.svf)
+                mv=st.mv, sv=st.sv, svf=st.svf, **planes)
 
 
 def _ledgers_differ(st, hap, pos, want_hap) -> int:

@@ -1,8 +1,9 @@
 """The scenario's inputs as the reference reads them: maps, CV tables and
-founder CV haplotypes of every population, parsed from the same files the
-program reads (GeneEvolve's formats: `chr bp cM` recombination map,
-`chr bp rate` mutation map, `chr pos a d` CV table, `.hap` rows of 0/1
-alleles, one column a founder haplotype)."""
+founder CV haplotypes of every population, where each chromosome's panel
+lies, and the genome backend, parsed from the same files the program reads
+(GeneEvolve's formats: `chr bp cM` recombination map, `chr bp rate`
+mutation map, `chr pos a d` CV table, `.hap` rows of 0/1 alleles, one
+column a founder haplotype)."""
 
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ class Population:
     mat_cor: List[float]
     offspring: List[str]
     selection: List[tuple]  # (function, par1, par2)
+    panels: List[tuple]  # (.hap file, .legend file) a chromosome
 
 
 @dataclass
@@ -54,6 +56,7 @@ class Scenario:
     migration: np.ndarray  # (gens, n_pop, n_pop) or None
     gamma: float
     seed: int
+    backend: str  # the genome backend the run names (`--backend`)
 
 
 def _schedule(path: str):
@@ -72,9 +75,11 @@ def read(argv: List[str], seed: int) -> Scenario:
             _flag(argv, "file_gen_info"), _flag(argv, "file_hap_name"),
             _flag(argv, "file_recom_map"), _flag(argv, "file_cv_info"),
             _flag(argv, "file_cvs"))):
+        rows = [r.split() for r in Path(haps).read_text().splitlines()[1:]
+                if r.strip()]
+        panels = {int(r[0]): (r[1], r[2]) for r in rows}
         if chrs is None:
-            rows = Path(haps).read_text().splitlines()[1:]
-            chrs = [int(r.split()[0]) for r in rows if r.strip()]
+            chrs = [int(r[0]) for r in rows]
             raw = _table(rm)
             rmap = [(raw[raw[:, 0] == c, 1].astype(np.int64),
                      raw[raw[:, 0] == c, 2]) for c in chrs]
@@ -95,13 +100,16 @@ def read(argv: List[str], seed: int) -> Scenario:
             d=[raw[raw[:, 0] == c, 3] for c in chrs],
             founder_cv=[f[:, :len(raw[raw[:, 0] == c])]
                         for f, c in zip(founder, chrs)],
-            pop_size=sizes, mat_cor=cors, offspring=offs, selection=sels))
+            pop_size=sizes, mat_cor=cors, offspring=offs, selection=sels,
+            panels=[panels[c] for c in chrs]))
     mig = _flag(argv, "file_migration")
     migration = None
     if mig:
         n = len(pops)
         migration = np.loadtxt(mig[0], ndmin=2).reshape(-1, n, n)
     gamma = _flag(argv, "gamma")
+    backend = _flag(argv, "backend")
     return Scenario(chrs=chrs, rmap=rmap, mmap=mmap, pops=pops,
                     migration=migration,
-                    gamma=float(gamma[0]) if gamma else 0.0, seed=seed)
+                    gamma=float(gamma[0]) if gamma else 0.0, seed=seed,
+                    backend=backend[-1] if backend else "segment")

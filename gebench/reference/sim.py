@@ -242,11 +242,11 @@ class Reference:
         A = D = 0
         for c in range(len(self.sc.chrs)):
             al = self.alleles(genome, c)
-            pos, hap, _ = genome[c]
             if self.n_pop == 1:
                 a0 = a1 = self.a[c][0]
                 d0 = d1 = self.d[c][0]
             else:
+                pos, hap, _ = genome[c]
                 qq = self.cv_q[c][None, :].expand(2 * n, -1)
                 r = self.root[hap_at(pos.reshape(2 * n, -1),
                                      hap.reshape(2 * n, -1), qq)].view(n, 2, -1)
@@ -393,9 +393,8 @@ class Reference:
                 n_pad = child_rows(n_child, par["rows"], p.offspring[gen - 1])
                 cf = torch.as_tensor(plan[0][plan[2]], device=self.device)
                 cm = torch.as_tensor(plan[1][plan[2]], device=self.device)
-                g, mut_need = meiosis(par, cf, cm, self.m, self.sc.seed, gen,
-                                      k, n_child, n_pad, self.device)
-                probes.append((probe_need(g), mut_need))
+                g, probe = self.born(par, cf, cm, gen, k, n_child, n_pad)
+                probes.append(probe)
                 A, D = self.ad(g, n_child)
             elif born is not None:
                 g = born[k]
@@ -418,6 +417,15 @@ class Reference:
         if children is not None:
             return children, self.migrate(moves, None, states)[1], probes
         return (*self.migrate(moves, genomes, states), probes)
+
+    def born(self, par: dict, cf, cm, gen: int, pop: int, n_child: int,
+             n_pad: int):
+        """(the children's genome, the probe's (ledger slots, mutation
+        slots)) of one population, made by meiosis from the parents' planes:
+        child i of parents rows cf[i], cm[i]."""
+        g, mut_need = meiosis(par, cf, cm, self.m, self.sc.seed, gen, pop,
+                              n_child, n_pad, self.device)
+        return g, (probe_need(g), mut_need)
 
     def moves(self, gen: int, sizes: list) -> list:
         """Each population's rows after migration, as parts (source

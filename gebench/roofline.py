@@ -2,7 +2,8 @@
 could take for a launch, from its arguments' shapes and dtypes alone.
 
 The arithmetic is `chip_smoke.py`'s (`_bound`, `_bins_work`,
-`_count_work`, `_merge_work`, `_gather_work`), frozen here: each input byte
+`_count_work`, `_merge_work`, `_gather_work`, `_packed_need`,
+`_packed_work`), frozen here: each input byte
 read once, each output byte written once, against NVIDIA's published
 3.35 TB/s of HBM3 and 67 T scalar operations a second (the H100 SXM data
 sheet, at its 700 W limit). The bytes are computed, not measured.
@@ -10,7 +11,9 @@ sheet, at its 700 W limit). The bytes are computed, not measured.
 The traced run records each launch's shapes and keeps its index tensor
 (`Launch`); the distinct rows the indices name (`torch.unique`, as the
 original counts them) are counted after the traced window has closed, so
-reckoning a bound adds no device op or sync to the traced run."""
+reckoning a bound adds no device op or sync to the traced run. The packed
+meiosis keeps its parents and plan too: the parent words its gametes take
+are reckoned from them after the window (`packed_need`)."""
 
 from __future__ import annotations
 
@@ -106,6 +109,70 @@ def merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, cap):
             + nbytes(parents, xo_f, xo_m, sh)
             + gametes * (cap * (4 + seg_hap.element_size()) + 4),
             gametes * (K + 2 * S) * log2(K + 2 * S))
+
+
+def phase_words(xo, start, n_chr: int, chr_len: int):
+    """(n, words) int32 phase of each gamete's words, a bit set where the
+    gamete takes its parent's second chromatid: the start chromatid's mask,
+    XORed with each crossover's mask of the loci at and after it on its
+    chromosome (`dense/packed.py`'s `phase_word_masks`, frozen)."""
+    import torch
+
+    n, K = xo.shape[0], xo.shape[2]
+    cw = chr_len // 32
+    dev = xo.device
+    cols = torch.arange(cw, dtype=torch.int32, device=dev)[None, None, :]
+    base = (torch.arange(n_chr, dtype=torch.int32, device=dev)
+            * chr_len)[None, :, None]
+    mask = -(start[:, :, None] & 1).to(torch.int32)
+    mask = mask.expand(n, n_chr, cw).contiguous()
+    for k in range(K):
+        x = xo[:, :, k:k + 1] - base
+        xw = x >> 5
+        partial = torch.full_like(x, -1) << (x & 31)
+        mask ^= -(cols > xw).to(torch.int32) | (
+            partial & -(cols == xw).to(torch.int32))
+    return mask.reshape(n, n_chr * cw)
+
+
+def packed_need(rows: int, args, n_chr: int, chr_len: int,
+                chunk: int = 2048) -> int:
+    """Bytes of parent words the packed meiosis must read for these inputs
+    (`args`: fathers, mothers, xo_p, st_p, xo_m, st_m): each (parent row,
+    plane, word) that some gamete takes a bit from, read once. A word whose
+    phase is all zeros takes plane A only, all ones plane B only."""
+    import torch
+
+    fathers, mothers, xo_p, st_p, xo_m, st_m = args[:6]
+    need = torch.zeros((2, rows, n_chr * chr_len // 32), dtype=torch.int32,
+                       device=fathers.device)
+    for par, xo, st in ((fathers, xo_p, st_p), (mothers, xo_m, st_m)):
+        for i in range(0, par.shape[0], chunk):
+            mask = phase_words(xo[i:i + chunk], st[i:i + chunk], n_chr,
+                               chr_len)
+            idx = par[i:i + chunk].long()
+            need[0].index_add_(0, idx, (mask != -1).int())
+            need[1].index_add_(0, idx, (mask != 0).int())
+    return 4 * int((need > 0).sum())
+
+
+def packed_work(need: int, args, mu, n_chr: int, chr_len: int):
+    """(bytes, ops) of the packed meiosis: the parent words it must read
+    (`need`, `packed_need`'s bytes), the plan and the mutation columns
+    once, the child words written once; one select (and, andnot, or) a
+    child word."""
+    n, mw = args[0].shape[0], n_chr * chr_len // 32
+    out_b = 2 * n * mw * 4
+    return need + nbytes(*args[:6], mu) + out_b, 3 * out_b
+
+
+def packed_launch_work(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
+                       n_chr: int, chr_len: int):
+    """(bytes, ops) of one launch of the packed meiosis on parent planes
+    `hap` (a `Shape` will do)."""
+    args = (fathers, mothers, xo_p, st_p, xo_m, st_m)
+    return packed_work(packed_need(hap.shape[0], args, n_chr, chr_len), args,
+                       mu, n_chr, chr_len)
 
 
 def share(launches: list, events: list, kernel: str):

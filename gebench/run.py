@@ -269,7 +269,8 @@ def traced(cell: Cell, call, inp, index: int, work: Path, s_per_gen: float,
         f"{s_per_gen:.6f} untraced (the tracing overhead)")
     launches = {k: [x() for x in v] for k, v in w.launches.items()}
     ctx = dict(stages=dict(w.timer.totals) if w.timer else {},
-               gens=inp.generations, trace=red, launches=launches)
+               gens=inp.generations, trace=red, launches=launches,
+               s_per_gen=s_per_gen)
     metrics = {}
     for m in cell.per_layer:
         v = readers[m["name"]].read(dict(ctx, metric=m["name"]))

@@ -5,15 +5,20 @@ A frozen copy of the repository's scenario writers, so that later changes
 to them cannot move the yardstick: `make_scenario` is `tools/mkscenario.py`
 (the Table 3.1 file set: GRCh37 chromosome lengths, a 1.3 cM/Mb map in 50 kb
 bins, CV tables and founder CV haplotypes, 2-SNP stub panels), and
-`mutation_map`, `extra_population` and the schedule and migration files are
-`chip_smoke.py`'s `_mutation_map`, `_second_population`, `_popinfo` and
-`_two_populations`. `gebench/tests/test_gebench_frozen.py` holds each
-equal to its original, byte for byte.
+`mutation_map`, `extra_population`, `cvs_on_panel` and the schedule and
+migration files are `chip_smoke.py`'s `_mutation_map`, `_second_population`,
+`_cvs_on_panel`, `_popinfo` and `_two_populations`.
+`gebench/tests/test_gebench_frozen.py` holds each equal to its original,
+byte for byte.
 
 A configuration (`configs/<name>.json`) gives the sizes, a mix
 (`mixes/<name>.json`) the schedule, the populations and the migration;
 `write_inputs` writes the files and returns the CLI arguments of one whole
 run and of the warm-up run, whose schedule is `WARMUP_GENERATIONS` long.
+A configuration may also state `backend` (`dense` adds `--backend dense`),
+`snps_per_chromosome` (a panel of that many SNPs on each chromosome, in
+place of the 2-SNP stub) and `cvs_on_panel` (every CV moved onto a panel
+site, as the dense backend reads a CV's alleles from its column).
 """
 
 from __future__ import annotations
@@ -33,15 +38,6 @@ CHR_MB = [249, 243, 198, 191, 181, 171, 159, 146, 141, 136,
           135, 134, 115, 107, 102, 90, 83, 78, 59, 63, 48, 51]
 
 
-def _hap_line(row: np.ndarray) -> bytes:
-    """One .hap text row: every allele followed by a space, then newline."""
-    line = bytearray(2 * len(row) + 1)
-    line[0:-1:2] = (row + ord("0")).tobytes()
-    line[1:-1:2] = b" " * len(row)
-    line[-1:] = b"\n"
-    return bytes(line)
-
-
 def make_scenario(
     out: str,
     n0: int = 10_000,
@@ -49,7 +45,8 @@ def make_scenario(
     gens: int = 10,
     nchr: int = 22,
     ncv: int = 100,  # per chromosome
-    snps: int = 0,  # per chromosome; 0 = stub panel (evolution never reads it)
+    snps=0,  # per chromosome, or a list of one count a chromosome; 0 = stub
+    #          panel (the segment backend never reads it)
     mat_cor: float = 0.0,
     selection: str = "thr 1 1",
     offspring_dist: str = "p",
@@ -59,7 +56,8 @@ def make_scenario(
 ) -> dict:
     """Write every scenario file under `out`; returns the CLI argument map
     (`tools/mkscenario.py`'s `make_scenario`, frozen: the same bytes, with
-    the text written in bulk)."""
+    the text written in bulk; `snps` may also give each chromosome its own
+    count, drawn in the same order)."""
     root = Path(out)
     root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -93,11 +91,7 @@ def make_scenario(
         pos = np.sort(10_000 + rng.choice(L - 20_000, ncv, replace=False))
         a = rng.normal(size=ncv)
         mat = rng.integers(0, 2, size=(ncv, 2 * n0)).astype(np.uint8)
-        body = bytearray()
-        for r in range(ncv):
-            body += _hap_line(mat[r])
-        with open(root / f"cv.chr{c}.hap", "wb") as f:
-            f.write(bytes(body))
+        write_hap(root / f"cv.chr{c}.hap", mat)
         for p, aa in zip(pos, a):
             cv_rows.append((c, int(p), float(aa)))
     with open(root / "cv.info", "w") as f:
@@ -108,19 +102,14 @@ def make_scenario(
         for c in chrs:
             f.write(f"{c} {root}/cv.chr{c}.hap\n")
 
-    m = max(snps, 2)
-    for c, L in zip(chrs, lengths):
+    counts = list(snps) if isinstance(snps, (list, tuple)) else [snps] * nchr
+    for c, L, m in zip(chrs, lengths, (max(int(x), 2) for x in counts)):
         pos = np.sort(1 + rng.choice(L - 1, m, replace=False))
         with open(root / f"ref.chr{c}.legend", "w") as f:
             f.write("id position a0 a1\n")
-            for i, p in enumerate(pos):
-                f.write(f"rs{c}_{i} {p} A G\n")
+            f.writelines(f"rs{c}_{i} {p} A G\n" for i, p in enumerate(pos))
         mat = rng.integers(0, 2, size=(m, 2 * n0)).astype(np.uint8)
-        body = bytearray()
-        for r in range(m):
-            body += _hap_line(mat[r])
-        with open(root / f"ref.chr{c}.hap", "wb") as f:
-            f.write(bytes(body))
+        write_hap(root / f"ref.chr{c}.hap", mat)
     with open(root / "hap_address.txt", "w") as f:
         f.write("chr hap legend sample\n")
         for c in chrs:
@@ -179,6 +168,28 @@ def extra_population(root: Path, nchr: int, ncv: int, n0: int,
             0, 2, size=(ncv, 2 * n0), dtype=np.uint8))
 
 
+def cvs_on_panel(root: Path, seed: int) -> None:
+    """Move every CV onto a panel site, as when CVs are taken from the
+    reference panel: `cv.info` keeps each chromosome's effects at sites
+    drawn from its legend, and each CV hap row becomes the panel's row at
+    that site (`chip_smoke.py`'s `_cvs_on_panel`, frozen). The founders'
+    CV alleles then equal their panel's at the CV columns."""
+    rng = np.random.default_rng(seed)
+    head, *rows = (root / "cv.info").read_text().splitlines()
+    by_chr = {}
+    for r in rows:
+        by_chr.setdefault(r.split()[0], []).append(r.split())
+    out = [head]
+    for c, rs in by_chr.items():
+        legend = (root / f"ref.chr{c}.legend").read_text().splitlines()[1:]
+        idx = np.sort(rng.choice(len(legend), len(rs), replace=False))
+        panel = (root / f"ref.chr{c}.hap").read_bytes().splitlines(True)
+        (root / f"cv.chr{c}.hap").write_bytes(b"".join(panel[i] for i in idx))
+        out += [" ".join([c, legend[i].split()[1], *r[2:]])
+                for i, r in zip(idx, rs)]
+    (root / "cv.info").write_text("\n".join(out) + "\n")
+
+
 def schedule(path: Path, pop_size: int, gens: int, mix: dict) -> Path:
     """A generation-info file of `gens` rows of the mix's schedule."""
     row = (f"{pop_size} {mix['mat_cor']:g} {mix['offspring_dist']} "
@@ -213,18 +224,21 @@ def write_inputs(root: Path, config: dict, mix: dict, seed: int) -> Inputs:
     n_pop = int(mix["populations"])
     nchr, ncv = int(config["chromosomes"]), int(config["cvs_per_chromosome"])
     n0, pop_size = int(config["founders"]), int(config["pop_size"])
+    snps = config.get("snps_per_chromosome", 0)
     argv, warm_argv, dirs = [], [], []
     for k in range(n_pop):
         d = root / f"pop{k + 1}"
         flags = make_scenario(
             str(d), n0=n0, pop_size=pop_size, gens=gens, nchr=nchr, ncv=ncv,
-            mat_cor=float(mix["mat_cor"]), selection=mix["selection"],
-            offspring_dist=mix["offspring_dist"],
+            snps=snps, mat_cor=float(mix["mat_cor"]),
+            selection=mix["selection"], offspring_dist=mix["offspring_dist"],
             bin_kb=int(config["recombination_bin_kb"]),
             cm_per_mb=float(config["recombination_cm_per_mb"]), seed=seed)
         if k:
             extra_population(d, nchr, ncv, n0,
                              np.random.default_rng([seed, k + 1]))
+        if config.get("cvs_on_panel"):
+            cvs_on_panel(d, seed)
         flags["file_mutation_map"] = str(mutation_map(
             d / "mut.txt", Path(flags["file_recom_map"]),
             config.get("mutation_rate_per_bin")))
@@ -247,6 +261,9 @@ def write_inputs(root: Path, config: dict, mix: dict, seed: int) -> Inputs:
         argv += ["--file_migration", str(root / "migration.txt"), *extra]
         warm_argv += ["--file_migration", str(root / "migration_warm.txt"),
                       *extra]
+    if config.get("backend", "segment") != "segment":
+        argv += ["--backend", config["backend"]]
+        warm_argv += ["--backend", config["backend"]]
     size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
     return Inputs(argv=argv, warm_argv=warm_argv, pop_dirs=dirs,
                   generations=gens, bytes_written=size)

@@ -13,6 +13,11 @@ REPO = Path(__file__).resolve().parent.parent.parent
 sys.path.insert(0, str(REPO))
 
 TINY = dict(pop_size=60, founders=40, chromosomes=3, cvs_per_chromosome=6)
+# the dense configuration at a few hundred rows: three chromosomes of uneven
+# panels, so that two are padded, and CVs on panel sites
+TINY_DENSE = dict(pop_size=300, founders=20, chromosomes=3,
+                  cvs_per_chromosome=6, snps_per_chromosome=[70, 45, 100],
+                  snps=215, mutation_rate_per_bin=1.0)
 
 
 def pytest_configure(config):
@@ -48,6 +53,10 @@ def tiny_root(root: Path, generations: int = 3) -> Path:
     bench["workloads"] = [
         dict(w, config="tiny", name=w["name"].replace("t31_30k", "tiny"))
         for w in bench["workloads"] if w["config"] == "t31_30k"]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = [w.replace("t31_30k", "tiny")
+                              for w in m["workloads"]]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
@@ -58,3 +67,37 @@ def tiny(tmp_path):
 
     torch.set_num_threads(1)
     return tiny_root(tmp_path / "checkout")
+
+
+def tiny_dense_root(root: Path, generations: int = 3) -> Path:
+    """A checkout layout under `root` whose BENCHMARK.json holds the cell
+    `tinyd.rand`: the dense configuration at a few hundred individuals, 3
+    chromosomes of uneven panels and 3 generations."""
+    (root / "gebench" / "configs").mkdir(parents=True)
+    (root / "gebench" / "mixes").mkdir()
+    cfg = json.loads((REPO / "gebench/configs/dense31.json").read_text())
+    cfg.update(name="tinyd", **TINY_DENSE)
+    (root / "gebench/configs/tinyd.json").write_text(json.dumps(cfg))
+    mix = json.loads((REPO / "gebench/mixes/rand.json").read_text())
+    mix["generations"] = generations
+    (root / "gebench/mixes/rand.json").write_text(json.dumps(mix))
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    bench["configs"] = [dict(c, name="tinyd", file="gebench/configs/tinyd.json")
+                        for c in bench["configs"] if c["name"] == "dense31"]
+    bench["workloads"] = [dict(w, config="tinyd", name="tinyd.rand")
+                          for w in bench["workloads"]
+                          if w["name"] == "dense31.rand"]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = ["tinyd.rand" if w == "dense31.rand" else w
+                              for w in m["workloads"]]
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+@pytest.fixture
+def tiny_dense(tmp_path):
+    import torch
+
+    torch.set_num_threads(1)
+    return tiny_dense_root(tmp_path / "checkout")

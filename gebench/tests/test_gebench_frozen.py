@@ -1,9 +1,10 @@
 """The benchmark's frozen copies equal their originals: the scenario files
 byte for byte at a small size (`tools/mkscenario.py`, `chip_smoke.py`'s
-`_mutation_map`, `_second_population` and `_popinfo`), the roofline
-arithmetic (`chip_smoke.py`'s `_bins_work`, `_gather_work`, `_count_work`,
-`_merge_work`) and the busy arithmetic (`profile_phase`) on fixed
-inputs."""
+`_mutation_map`, `_second_population`, `_cvs_on_panel` and `_popinfo`),
+the roofline arithmetic (`chip_smoke.py`'s `_bins_work`, `_gather_work`,
+`_count_work`, `_merge_work`, `_packed_need`, `_packed_work`, and
+`dense/packed.py`'s `phase_word_masks`) and the busy arithmetic
+(`profile_phase`) on fixed inputs."""
 
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ def _paths_free(files: dict, *roots) -> dict:
     return out
 
 
-@pytest.mark.parametrize("snps", [0, 5])
+@pytest.mark.parametrize("snps", [0, 5, 40])
 def test_scenario_equals_mkscenario(tmp_path, snps):
     mk = _module("mkscenario_original", "tools/mkscenario.py")
     a, b = tmp_path / "a", tmp_path / "b"
@@ -72,6 +73,28 @@ def test_second_population_equals_smoke(tmp_path, smoke):
                               np.random.default_rng(2))
     scenario.mutation_map(b / "mut.txt", b / "rmap.txt")
     assert _paths_free(_files(a), a) == _paths_free(_files(b), b)
+
+
+def test_cvs_on_panel_equals_smoke(tmp_path, smoke):
+    """`cvs_on_panel` moves the CVs onto the same panel sites, with the same
+    rows, as `chip_smoke.py`'s `_cvs_on_panel`."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    for d in (a, b):
+        scenario.make_scenario(str(d), **SMALL, snps=[30, 12, 50], seed=4)
+    assert _paths_free(_files(a), a) == _paths_free(_files(b), b)
+    smoke._cvs_on_panel(a, 4)
+    scenario.cvs_on_panel(b, 4)
+    assert _paths_free(_files(a), a) == _paths_free(_files(b), b)
+
+
+def test_panel_counts_draw_as_one_count(tmp_path):
+    """A list of equal counts writes what the one count writes."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    fa = scenario.make_scenario(str(a), **SMALL, snps=9, seed=2)
+    fb = scenario.make_scenario(str(b), **SMALL, snps=[9] * SMALL["nchr"],
+                                seed=2)
+    assert _paths_free(_files(a), a) == _paths_free(_files(b), b)
+    assert fa.keys() == fb.keys()
 
 
 def test_schedule_equals_popinfo(tmp_path, smoke):
@@ -116,6 +139,45 @@ def test_roofline_equals_smoke(smoke):
     b, o = roofline.merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, 11)
     assert roofline.bound_s(b, o) * 1e3 == pytest.approx(
         smoke._bound(b, o)["bound_ms"], rel=1e-12)
+
+
+def _packed_inputs():
+    g = torch.Generator().manual_seed(5)
+    n_chr, chr_len, K, rows, n = 3, 96, 6, 30, 50
+    m = n_chr * chr_len
+    xo = [torch.where(torch.rand((n, n_chr, K), generator=g) < 0.5,
+                      torch.randint(0, chr_len, (n, n_chr, K), generator=g,
+                                    dtype=torch.int32)
+                      + torch.arange(n_chr, dtype=torch.int32)[None, :, None]
+                      * chr_len, m).to(torch.int32) for _ in range(2)]
+    st = [torch.randint(0, 2, (n, n_chr), generator=g, dtype=torch.int32)
+          for _ in range(2)]
+    par = [torch.randint(0, rows, (n,), generator=g, dtype=torch.int32)
+           for _ in range(2)]
+    mu = torch.randint(0, m + 1, (n, 2, 4), generator=g, dtype=torch.int32)
+    return (par[0], par[1], xo[0], st[0], xo[1], st[1]), mu, rows, n_chr, \
+        chr_len
+
+
+def test_packed_work_equals_smoke(smoke):
+    from geneevolve_tpu_torch.dense import packed
+
+    args, mu, rows, n_chr, chr_len = _packed_inputs()
+    cfg = packed.PackedConfig(n=0, m=n_chr * chr_len, n_chr=n_chr)
+    for xo, st in ((args[2], args[3]), (args[4], args[5])):
+        assert torch.equal(roofline.phase_words(xo, st, n_chr, chr_len),
+                           packed.phase_word_masks(xo, st, cfg))
+    need = roofline.packed_need(rows, args, n_chr, chr_len, chunk=16)
+    assert need == smoke._packed_need(rows, args, n_chr, chr_len, chunk=16)
+    assert need == roofline.packed_need(rows, args, n_chr, chr_len)
+    assert roofline.packed_work(need, args, mu, n_chr, chr_len) == \
+        _bytes_ops(smoke._packed_work(need, args, mu, n_chr, chr_len))
+    hap = torch.zeros((rows, 2, n_chr * chr_len // 32), dtype=torch.int32)
+    launch = roofline.Launch(roofline.packed_launch_work,
+                             (hap, *args, mu, n_chr, chr_len),
+                             keep=(1, 2, 3, 4, 5, 6))
+    assert isinstance(launch.args[0], roofline.Shape)
+    assert launch() == roofline.packed_work(need, args, mu, n_chr, chr_len)
 
 
 def test_launch_keeps_shapes_and_indices():

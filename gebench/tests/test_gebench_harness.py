@@ -57,9 +57,15 @@ def test_manifest_keeps_to_contract():
 def test_every_cell_loads(cell):
     c = run.load_cell(REPO, cell)
     assert c.config["pop_size"] > 0 and c.mix["generations"] > 0
-    assert {m["name"] for m in c.end_to_end} >= {"setup_s", "s_per_gen"}
+    e2e = {m["name"] for m in c.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    # the window's time a generation: end to end, or per layer where the
+    # host's drift spreads it too widely for a bound
+    assert "s_per_gen" in e2e or "window_s_per_gen" in {
+        m["name"] for m in c.per_layer}
     assert c.per_layer
     for m in c.per_layer:
+        assert m["moves"] in e2e
         assert callable(run.reader(REPO, m["name"]).read)
 
 
@@ -84,6 +90,20 @@ def test_new_files_load_without_edit(tiny):
     assert run.reader(tiny, "new_ms").read({}) == 1.5
     assert "new_ms" not in [m["name"] for m in
                             run.load_cell(tiny, "tiny.rand").per_layer]
+
+
+def test_untraced_metrics_follow_the_manifest(tiny):
+    """An untraced run reports its cell's end-to-end metrics and no others:
+    `s_per_gen` only where the manifest lists the cell for it."""
+    for name, want in (("tiny.rand", {"peak_gib", "setup_s"}),
+                       ("tiny.admix", {"s_per_gen", "peak_gib", "setup_s"})):
+        c = run.load_cell(tiny, name)
+        assert {m["name"] for m in c.end_to_end} == want
+        if name == "tiny.rand":
+            res = run.run_cell(c, 5, 0.0, False, device="cpu",
+                               work=tiny / "work", log=lambda s: None,
+                               min_runs=1)
+            assert set(res["metrics"]) == want and res["correct"]
 
 
 def test_forbidden_names_are_whole(monkeypatch):
@@ -151,17 +171,19 @@ def test_trace_reduction():
 
 def test_readers():
     ctx = dict(stages={"mate": 0.5, "reproduce/real": 2.0}, gens=10,
+               s_per_gen=0.15,
                trace=dict(device_events=[{"name": "x meiose_merge_kernel",
                                           "ts": 0, "dur": 1000}],
                           busy_s=1.0, window_s=4.0),
                launches={"merge_roofline": [(3.35e6, 0)]})
     got = {m: run.reader(REPO, m).read(dict(ctx, metric=m)) for m in (
         "mate_ms", "real_ms", "migration_ms", "device_idle_pct",
-        "device_ops_per_gen", "merge_roofline")}
+        "device_ops_per_gen", "merge_roofline", "window_s_per_gen")}
     assert got == pytest.approx(dict(mate_ms=50.0, real_ms=200.0,
                                      migration_ms=None, device_idle_pct=75.0,
                                      device_ops_per_gen=0.1,
-                                     merge_roofline=0.1))
+                                     merge_roofline=0.1,
+                                     window_s_per_gen=0.15))
     ctx["launches"]["merge_roofline"].append((1, 1))  # one unmatched
     assert run.reader(REPO, "merge_roofline").read(
         dict(ctx, metric="merge_roofline")) is None
