@@ -3,9 +3,12 @@
 After the window, the harness runs the window's last call again, the same
 arguments and seed through the same entry, with hooks around every
 generation's step. Before the step they copy each population's host fields
-(the parents), and before generation 1 and the last also its planes on the
-device. After the step the plain reference (`gebench/reference`) works the
-generation out again and the program's children are compared with it:
+(the parents), and before generation 1 and the last also its planes: the
+segment ledger's into host memory. After the step the plain reference
+(`gebench/reference`) works the generation out again, a population and a
+chromosome at a time, and the program's children are compared with it; the
+device holds one chromosome of one population's parents and of the
+reference's children at once, beside the program's own state:
 
 - generation 0 whole, against the reference's own founders;
 - generations 1 and the last from the parents' planes: mating, the
@@ -25,11 +28,14 @@ columns (`cv_mismatch`), and A/D from the reference's children at 1 and the
 last, from the program's planes otherwise. The numbers of the ledger and
 the probe (`probe_gap`, `ledger_mismatch`, `mutation_mismatch`) have no
 meaning there and are not printed; `plane_mismatch` is printed only there.
+Its parents' packed planes are copied on the device, where its reference
+reads them a block of children at a time.
 
-Every generation's `.info` file is read against the reference's fields,
-and the call's `.info` and `.summary` files must equal the timed call's
-byte for byte (its digests were taken when the window closed), so the
-judgement holds for what the window produced.
+Every generation's `.info` file is read against the reference's fields
+(numpy's C loader, a file at a time), and the call's
+`.info` and `.summary` files must equal the timed call's byte for byte
+(its digests were taken when the window closed), so the judgement holds
+for what the window produced.
 
 Every number compared has its limit in `LIMITS`; `numbers()` gives them
 in print order."""
@@ -37,6 +43,8 @@ in print order."""
 from __future__ import annotations
 
 import hashlib
+import time
+import warnings
 from pathlib import Path
 from typing import Dict, List
 
@@ -60,6 +68,7 @@ LIMITS = {
     "info_gap": 1e-3,
 }
 KEYS = ("A", "D", "G", "C", "E", "F", "P")
+PLANES = ("seg_st", "seg_hap", "mut")  # the segment ledger's planes
 # the numbers that only one genome backend has
 SEGMENT_ONLY = ("probe_gap", "ledger_mismatch", "mutation_mismatch")
 DENSE_ONLY = ("plane_mismatch",)
@@ -72,6 +81,26 @@ def digests(prefix: Path) -> Dict[str, str]:
         if f.name.endswith(".summary") or ".info." in f.name:
             out[f.name] = hashlib.sha256(f.read_bytes()).hexdigest()
     return out
+
+
+def _read_info(path: Path):
+    """(int columns (n, 8), float columns (n, k)) of an `.info` file, or
+    (None, None) when it is missing or malformed."""
+    try:
+        with open(path, "rb") as f:
+            ncol = len(f.readline().split())
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # no rows
+            a = np.loadtxt(path, dtype=np.float64, skiprows=1, ndmin=2)
+    except (OSError, ValueError):
+        return None, None
+    if ncol < 9:
+        return None, None
+    if a.size == 0:
+        a = a.reshape(0, ncol)
+    if a.shape[1] != ncol:
+        return None, None
+    return a[:, :8].astype(np.int64), a[:, 8:].astype(np.float64)
 
 
 def _rms_gap(got, want) -> float:
@@ -89,8 +118,10 @@ def _rms_gap(got, want) -> float:
 
 def _snapshot(program, planes: bool, packed: bool = False) -> list:
     """Each population's state as the reference takes it: host fields
-    copied, and with `planes` the planes copied on the device (`packed`:
-    the dense backend's packed planes and CV matrices)."""
+    copied, and with `planes` the planes copied: the segment ledger's into
+    host memory, a chromosome at a time and cut after the last slot that
+    any of its rows fills (`_live`), the dense backend's packed planes on
+    the device."""
     out = []
     for p in program.pops:
         st = p.state
@@ -101,12 +132,29 @@ def _snapshot(program, planes: bool, packed: bool = False) -> list:
             comp={k: v[0].copy() for k, v in st.comp.items()},
             mv=st.mv.copy(), sv=st.sv.copy(), svf=st.svf.copy()))
         if planes and packed:
-            out[-1].update(hap=st.hap.clone(), cv=[c.clone() for c in st.cv])
+            out[-1].update(hap=st.hap.clone())
         elif planes:
-            out[-1].update(seg_st=st.seg_st.clone(),
-                           seg_hap=st.seg_hap.clone(), mut=st.mut.clone(),
-                           cv=None if st.cv is None else st.cv.clone())
+            for c in range(st.seg_st.shape[0]):
+                w, m = _live(st.seg_st[c]), _live(st.mut[c])
+                for k, x in (("seg_st", st.seg_st[c, ..., :w]),
+                             ("seg_hap", st.seg_hap[c, ..., :w]),
+                             ("mut", st.mut[c, ..., :m])):
+                    out[-1].setdefault(k, []).append(
+                        x.to("cpu", copy=True))
     return out
+
+
+def _live(plane) -> int:
+    """The slots of a chromosome's ledger starts or mutations (rows, 2,
+    width) up to the last that any row fills; at least one."""
+    at = torch.arange(1, plane.shape[-1] + 1, device=plane.device)
+    return max(1, int(torch.where(plane < BIG, at, 0).amax()))
+
+
+def _chromosome(snap: dict, c: int, device) -> dict:
+    """Chromosome c of a population's snapshotted ledger (a plane a
+    chromosome), on the device."""
+    return {k: snap[k][c].to(device) for k in PLANES}
 
 
 def _held(pops) -> tuple:
@@ -120,11 +168,22 @@ def _held(pops) -> tuple:
     return slots, muts
 
 
-def _genome(st) -> list:
-    """A program state's children as the reference reads a genome:
-    [(pos, hap, mut)] a chromosome, views of its planes."""
-    return [(st.seg_st[c, :st.n], st.seg_hap[c, :st.n], st.mut[c, :st.n])
-            for c in range(st.seg_st.shape[0])]
+def _genome(st: dict, c: int) -> tuple:
+    """Chromosome c of a program state's children (`_state`) as the
+    reference reads a genome's block: (pos, hap, mut), views of its
+    planes."""
+    n = st["n"]
+    return tuple(st[k][c, :n] for k in PLANES)
+
+
+def _rows(block: tuple, idx: np.ndarray) -> tuple:
+    """The rows `idx` of a block (the block itself where they are all of
+    its rows in order)."""
+    if len(idx) == block[0].shape[0] and np.array_equal(
+            idx, np.arange(len(idx))):
+        return block
+    rows = torch.as_tensor(idx, device=block[0].device)
+    return tuple(x[rows] for x in block)
 
 
 class Judge:
@@ -147,35 +206,103 @@ class Judge:
         self.resident = True
         self._snap = None
         self.seen = set()
+        # seconds of the check's own work in the checked call and after it
+        self.seconds = dict(snapshots=0.0, reference=0.0, files=0.0)
 
     # ------------------------------------------------------------ hooks
     def before(self, program, gen: int) -> None:
+        t = time.perf_counter()
         self._snap = _snapshot(program, gen in self.full, self.packed)
+        self.seconds["snapshots"] += time.perf_counter() - t
         if gen == 1:
+            t = time.perf_counter()
             genomes, states = self.ref.generation0()  # fixes generation 0
-            self._compare(self._snap, genomes, states, 0)
+            got = [_state(p.state) for p in program.pops]
+            if self.packed:
+                self._compare_packed(got, genomes, states, 0)
+            else:
+                for k, want in enumerate(states):
+                    if self._host(got[k], want, 0, k):
+                        for c, block in enumerate(genomes[k]):
+                            self._compare_rows(got[k], c, 0, want["n"],
+                                               block)
+            self.seconds["reference"] += time.perf_counter() - t
 
     def migrating(self, program, gen: int) -> None:
         if not self.packed:
+            t = time.perf_counter()
             self.held[gen] = _held(program.pops)
+            self.seconds["reference"] += time.perf_counter() - t
 
     def after(self, program, gen: int) -> None:
+        t = time.perf_counter()
         snap, self._snap = self._snap, None
         self.seen.add(gen)
         got = [_state(p.state) for p in program.pops]
         if self.packed:
             self._after_packed(got, snap, gen)
-            return
-        self.held.setdefault(gen, _held(program.pops))
-        if gen in self.full:
-            genomes, states, self.probes[gen] = self.ref.generation(gen,
-                                                                    snap)
-            self._compare(got, genomes, states, gen)
         else:
-            genomes = [_genome(p.state) for p in program.pops]
-            _, states, _ = self.ref.generation(gen, snap, genomes)
-            self._compare(got, genomes, states, gen, ledgers=False)
+            self.held.setdefault(gen, _held(program.pops))
+            self._generation(got, snap, gen)
         del snap
+        self.seconds["reference"] += time.perf_counter() - t
+
+    def _generation(self, got, snap, gen: int) -> None:
+        """Generation `gen` on the segment ledger, a population and a
+        chromosome at a time. At 1 and the last the reference's children,
+        made from the parents' planes, are compared where migration put
+        them in the program's planes, and give the A/D. Otherwise the
+        program's own children, gathered back to where they were born, give
+        the A/D, and its resident CV alleles are read against its ledgers.
+        Then the host fields."""
+        ref, full = self.ref, gen in self.full
+        plans, sizes, moves = ref.prepare(gen, snap)
+        ok = [st["n"] == n for st, n in zip(got, ref.rows_moved(moves))]
+        ads, probes = [], []
+        for k, n in enumerate(sizes):
+            if full:
+                probes.append([0, 0])
+                blocks = self._born(got, ok, snap, plans, moves, gen, k,
+                                    probes[-1])
+            elif all(ok):
+                blocks = (ref.unmigrate([_genome(st, c) for st in got],
+                                        moves, k, n)
+                          for c in range(len(ref.sc.chrs)))
+            else:  # the program's children are not this generation's
+                ads.append((np.full(n, np.nan), np.full(n, np.nan)))
+                continue
+            ads.append(ref.ad(blocks, n))
+        if full:
+            self.probes[gen] = [tuple(x) for x in probes]
+        else:
+            for j, st in enumerate(got):
+                if ok[j]:
+                    for c in range(len(ref.sc.chrs)):
+                        self._cv(st, c, 0, st["n"], _genome(st, c))
+        for j, want in enumerate(ref.finish(gen, snap, plans, moves, ads)):
+            self._host(got[j], want, gen, j)
+
+    def _born(self, got, ok, snap, plans, moves, gen: int, k: int, probe):
+        """Population k's children, a chromosome's block at a time, made by
+        the reference from the parents' planes; each compared, before it is
+        handed on, with the program's rows that migration gave it, in the
+        populations that hold the reference's number of rows. `probe`
+        gathers the most ledger and mutation slots."""
+        ref = self.ref
+        n_pad = ref.n_pad(gen, k, snap[k], plans[k])
+        for c in range(len(ref.sc.chrs)):
+            block, muts = ref.born(_chromosome(snap[k], c, ref.device),
+                                   plans[k], gen, k, c, n_pad)
+            probe[0] = max(probe[0], sim.probe_need(block))
+            probe[1] = max(probe[1], muts)
+            for j, parts in enumerate(moves):
+                lo = 0
+                for i, idx in parts:
+                    if ok[j] and i == k and len(idx):
+                        self._compare_rows(got[j], c, lo, lo + len(idx),
+                                           _rows(block, idx))
+                    lo += len(idx)
+            yield block
 
     # -------------------------------------------------------- comparison
     def _bump(self, key: str, v) -> None:
@@ -204,33 +331,27 @@ class Judge:
             self._bump("pheno_gap", _rms_gap(st[key][:m], want[key][:m]))
         return st["n"] == n
 
-    def _compare(self, got, genomes, states, gen: int,
-                 ledgers: bool = True) -> None:
-        """The program's states `got` against the reference's `states` and
-        `genomes`; without `ledgers` the genomes are the program's own, and
-        only the CV alleles are compared with them."""
-        if self.packed:
-            self._compare_packed(got, genomes, states, gen)
+    def _compare_rows(self, st: dict, c: int, lo: int, hi: int,
+                      block: tuple) -> None:
+        """Rows [lo, hi) of chromosome c of the program's state `st`
+        against the reference's block of those children: ledgers, mutations
+        and resident CV alleles."""
+        pos, hap, mut = block
+        self._bump("ledger_mismatch", _ledgers_differ(
+            st["seg_st"][c, lo:hi], st["seg_hap"][c, lo:hi], pos, hap))
+        self._bump("mutation_mismatch", _muts_differ(st["mut"][c, lo:hi],
+                                                     mut))
+        self._cv(st, c, lo, hi, block)
+
+    def _cv(self, st: dict, c: int, lo: int, hi: int, block: tuple) -> None:
+        """The program's resident CV alleles of rows [lo, hi) of chromosome
+        c against a block's; none where the program holds none."""
+        if st["cv"] is None:
+            self.resident = False
             return
-        for k, want in enumerate(states):
-            st = got[k]
-            n = want["n"]
-            if not self._host(st, want, gen, k):
-                continue
-            for c, (pos, hap, mut) in enumerate(genomes[k]):
-                if ledgers:
-                    got_c = [x[c, :n] for x in (st["seg_st"], st["seg_hap"],
-                                                st["mut"])]
-                    self._bump("ledger_mismatch", _ledgers_differ(
-                        got_c[0], got_c[1], pos, hap))
-                    self._bump("mutation_mismatch",
-                               _muts_differ(got_c[2], mut))
-                if st["cv"] is None:
-                    self.resident = False
-                    continue
-                want_cv = self.ref.alleles(genomes[k], c)
-                got_cv = st["cv"][c, :n, :, :want_cv.shape[-1]]
-                self._bump("cv_mismatch", int((got_cv != want_cv).sum()))
+        want = self.ref.alleles(block, c)
+        got = st["cv"][c, lo:hi, :, :want.shape[-1]]
+        self._bump("cv_mismatch", int((got != want).sum()))
 
     def _after_packed(self, got, snap, gen: int) -> None:
         """Generation `gen` on the dense backend: the reference's children
@@ -268,6 +389,7 @@ class Judge:
         """The numbers read after the run: the probe's counts against the
         children, every `.info` file against the reference, and the files
         against the timed call's."""
+        t = time.perf_counter()
         self.n["files_differ"] = (
             len(set(timed) ^ set(checked))
             + sum(timed[f] != checked[f] for f in set(timed) & set(checked)))
@@ -277,9 +399,10 @@ class Judge:
             self._bump("pedigree_mismatch", 1)
         if not self.packed:
             self._probe_gaps(program)
-        for (gen, k), want in self.want.items():
-            path = prefix.parent / f"{prefix.name}.info.pop{k + 1}.gen{gen}.txt"
-            ids, vals = _read_info(path)
+        paths = [prefix.parent / f"{prefix.name}.info.pop{k + 1}.gen{gen}.txt"
+                 for gen, k in self.want]
+        for want, (ids, vals) in zip(self.want.values(),
+                                     map(_read_info, paths)):
             if ids is None or len(ids) != want["n"]:
                 self._bump("pedigree_mismatch", want["n"])
                 continue
@@ -291,6 +414,7 @@ class Judge:
                 want["mv"], want["sv"], want["svf"]]
             for j, w in enumerate(wv):
                 self._bump("info_gap", _rms_gap(vals[:, j], w))
+        self.seconds["files"] += time.perf_counter() - t
 
     def _probe_gaps(self, program) -> None:
         """The probe's counts of every generation against the children's
@@ -366,24 +490,3 @@ def _muts_differ(got, want) -> int:
     g, w = (torch.nn.functional.pad(x, (0, max(0, width - x.shape[1])),
                                     value=BIG)[:, :width] for x in (g, w))
     return int((g != w).any(1).sum())
-
-
-def _read_info(path: Path):
-    """(int columns (n, 8), float columns (n, k)) of an `.info` file, or
-    (None, None) when it is missing or malformed."""
-    try:
-        text = path.read_bytes()
-    except OSError:
-        return None, None
-    lines = text.split(b"\n", 1)
-    ncol = len(lines[0].split())
-    if len(lines) < 2 or ncol < 9:
-        return None, None
-    try:
-        a = np.array(lines[1].split(), dtype=np.float64)
-    except ValueError:
-        return None, None
-    if a.size % ncol:
-        return None, None
-    a = a.reshape(-1, ncol)
-    return a[:, :8].astype(np.int64), a[:, 8:].astype(np.float64)

@@ -269,25 +269,33 @@ class Reference(sim.Reference):
         founder haplotypes 2i and 2i + 1 of the CV files."""
         return [f.view(-1, 2, f.shape[-1]) for f in self.founder]
 
-    def alleles(self, genome, c: int):
-        return genome[c]
-
-    def born(self, par: dict, cf, cm, gen: int, pop: int, n_child: int,
-             n_pad: int):
-        """The children made from the parents' planes under the plan drawn
-        for the `n_pad` rows the program holds; no probe."""
-        pl = plan(self.lay, self.sc.seed, gen, pop, n_pad, self.device)
-        kids = Children(self.lay, par["hap"], cf, cm, pl)
-        return kids, None
+    def alleles(self, block, c: int):
+        return block
 
     def ad(self, genome, n: int):
         return super().ad(genome.cv if isinstance(genome, Children)
                           else genome, n)
 
-    def unmigrate(self, children: list, moves: list, sizes: list):
-        """One population: the genome as given, where it holds the rows
-        the reference's children number."""
-        return children if children[0][0].shape[0] == sizes[0] else None
+    def generation(self, gen: int, parents: list, children=None):
+        """Generation `gen` of the one population, whole: (genomes, states,
+        None). Without `children` the genome is the reference's `Children`
+        of the parents' planes, drawn for the rows the program's planes
+        hold; with `children` (the program's CV alleles after the
+        generation, [(n, 2, C)] a chromosome) their A/D is worked out, or
+        NaN where they hold another number of rows."""
+        plans, sizes, moves = self.prepare(gen, parents)
+        (mated,), (par,), (n,) = plans, parents, sizes
+        if children is None:
+            pl = plan(self.lay, self.sc.seed, gen, 0,
+                      self.n_pad(gen, 0, par, mated), self.device)
+            g = Children(self.lay, par["hap"],
+                         *(torch.as_tensor(mated[s][mated[2]],
+                                           device=self.device)
+                           for s in (0, 1)), pl)
+        else:
+            g = children[0] if children[0][0].shape[0] == n else None
+        ad = (np.full(n, np.nan),) * 2 if g is None else self.ad(g, n)
+        return [g], self.finish(gen, parents, plans, moves, [ad]), None
 
     def program_alleles(self, hap: torch.Tensor, n: int) -> list:
         """Each chromosome's (n, 2, C) alleles of the program's planes at

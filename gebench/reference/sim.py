@@ -14,8 +14,12 @@ positions, and only where the haplotype changes), so ledgers are compared
 as functions, whatever redundant boundaries either side keeps.
 
 A state is a dict: `n`, `rows`, the planes `seg_st`, `seg_hap`, `mut`
-((nchr, rows, 2, width) tensors) and the host fields `sex`, `ids`, `ped`,
-`comp` (A D G C E F P), `mv`, `sv`, `svf`.
+(a (rows, 2, width) tensor a chromosome, which the reference moves to its
+device a chromosome at a time) and the host fields `sex`, `ids`, `ped`,
+`comp` (A D G C E F P), `mv`, `sv`, `svf`. A
+genome is a block a chromosome, (pos, hap, mut) of (n, 2, width) tensors:
+the reference makes, reads and frees a population's genome one block at a
+time, so that the device holds one chromosome of it at once.
 """
 
 from __future__ import annotations
@@ -116,42 +120,40 @@ def cv_alleles(pos, hap, mut, founder, q):
     return allele ^ (hit & (i < ms.shape[1]) & (qq < BIG)).to(torch.uint8)
 
 
-def meiosis(parents: dict, plan_f, plan_m, m: law.Maps, seed: int,
-            gen: int, pop: int, n_child: int, n_pad: int, device):
-    """Every chromosome's children of one population, [(pos (n, 2, w), hap,
-    mut (n, 2, w'))] a chromosome: each child's gamete of its father and of
-    its mother, drawn for the `n_pad` rows the program's planes hold; and
-    the mutation slots the program's probe reserves for them: over the
-    `n_pad` rows (a padding row's parents are row 0), the most of a
-    parent's mutations on both its chromatids, plus the row's new ones."""
-    out, mut_need = [], 0
+def meiosis(par: dict, plan_f, plan_m, m: law.Maps, seed: int, gen: int,
+            pop: int, ci: int, n_child: int, n_pad: int, device):
+    """Chromosome ci of one population's children, (pos (n, 2, w), hap,
+    mut (n, 2, w')), from the parents' planes of that chromosome `par`
+    (`seg_st`, `seg_hap`, `mut`, rows (rows, 2, width)): each child's
+    gamete of its father and of its mother, drawn for the `n_pad` rows the
+    program's planes hold; and the mutation slots the program's probe
+    reserves for them: over the `n_pad` rows (a padding row's parents are
+    row 0), the most of a parent's mutations on both its chromatids, plus
+    the row's new ones."""
     pad = torch.zeros(n_pad - n_child, dtype=plan_f.dtype, device=device)
-    for ci in range(parents["seg_st"].shape[0]):
-        d = law.draws(m, seed, gen, pop, ci, n_pad, device)
-        held = (parents["mut"][ci] < BIG).sum((1, 2))
-        new = sum((x < BIG).sum(1) for x in d.new)
-        mut_need = max(mut_need, int((torch.maximum(
-            held[torch.cat([plan_f, pad])], held[torch.cat([plan_m, pad])])
-            + new).max()))
-        sides = []
-        for g, rows in enumerate((plan_f, plan_m)):
-            ps, pp, pm = [], [], []
-            for lo in range(0, n_child, CHUNK):
-                hi = min(lo + CHUNK, n_child)
-                r = rows[lo:hi]
-                pos, hp, mu = gamete(
-                    parents["seg_st"][ci][r], parents["seg_hap"][ci][r],
-                    parents["mut"][ci][r], d.xo[g][lo:hi],
-                    d.start[lo:hi, g], d.new[g][lo:hi])
-                ps.append(pos)
-                pp.append(hp)
-                pm.append(mu)
-            sides.append((_cat_padded(ps, BIG), _cat_padded(pp, -1),
-                          _cat_padded(pm, BIG)))
-        out.append(tuple(_cat_padded([s[k] for s in sides], v).view(
-            2, n_child, -1).transpose(0, 1)
-            for k, v in ((0, BIG), (1, -1), (2, BIG))))
-    return out, mut_need
+    d = law.draws(m, seed, gen, pop, ci, n_pad, device)
+    held = (par["mut"] < BIG).sum((1, 2))
+    new = sum((x < BIG).sum(1) for x in d.new)
+    mut_need = int((torch.maximum(
+        held[torch.cat([plan_f, pad])], held[torch.cat([plan_m, pad])])
+        + new).max())
+    sides = []
+    for g, rows in enumerate((plan_f, plan_m)):
+        ps, pp, pm = [], [], []
+        for lo in range(0, n_child, CHUNK):
+            hi = min(lo + CHUNK, n_child)
+            r = rows[lo:hi]
+            pos, hp, mu = gamete(
+                par["seg_st"][r], par["seg_hap"][r], par["mut"][r],
+                d.xo[g][lo:hi], d.start[lo:hi, g], d.new[g][lo:hi])
+            ps.append(pos)
+            pp.append(hp)
+            pm.append(mu)
+        sides.append((_cat_padded(ps, BIG), _cat_padded(pp, -1),
+                      _cat_padded(pm, BIG)))
+    return tuple(_cat_padded([s[k] for s in sides], v).view(
+        2, n_child, -1).transpose(0, 1)
+        for k, v in ((0, BIG), (1, -1), (2, BIG))), mut_need
 
 
 def additive_dominance(c0, c1, a0, a1, d0, d1, n: int, dtype):
@@ -228,33 +230,39 @@ class Reference:
                                            device=self.device)))
         return out
 
-    def alleles(self, genome, c: int):
-        """(n, 2, C) CV alleles of chromosome c of a genome [(pos, hap,
-        mut)]."""
-        pos, hap, mut = genome[c]
+    def alleles(self, block, c: int):
+        """(n, 2, C) CV alleles of chromosome c of a genome's block (pos,
+        hap, mut) of that chromosome."""
+        pos, hap, mut = block
         n = pos.shape[0]
         flat = [x.reshape(2 * n, -1) for x in (pos, hap, mut)]
         return cv_alleles(*flat, self.founder[c], self.cv_q[c]).view(n, 2, -1)
 
+    def ad_chr(self, block, c: int, n: int):
+        """(A, D) of chromosome c, in the reference's dtype on its device,
+        of a population's n rows given as that chromosome's block (pos, hap,
+        mut), ledgers in any layout whose positions ascend."""
+        al = self.alleles(block, c)
+        if self.n_pop == 1:
+            a0 = a1 = self.a[c][0]
+            d0 = d1 = self.d[c][0]
+        else:
+            pos, hap, _ = block
+            qq = self.cv_q[c][None, :].expand(2 * n, -1)
+            r = self.root[hap_at(pos.reshape(2 * n, -1),
+                                 hap.reshape(2 * n, -1), qq)].view(n, 2, -1)
+            col = torch.arange(qq.shape[1], device=self.device)[None, :]
+            a0, a1 = (self.a[c][r[:, k], col] for k in (0, 1))
+            d0, d1 = (self.d[c][r[:, k], col] for k in (0, 1))
+        return additive_dominance(al[:, 0], al[:, 1], a0, a1, d0, d1, n,
+                                  self.dtype)
+
     def ad(self, genome, n: int):
-        """(A, D) float64 numpy of a population's genome [(pos, hap, mut)]
-        a chromosome, ledgers in any layout whose positions ascend."""
+        """(A, D) float64 numpy of a population's genome, a block a
+        chromosome, summed over the chromosomes in order."""
         A = D = 0
-        for c in range(len(self.sc.chrs)):
-            al = self.alleles(genome, c)
-            if self.n_pop == 1:
-                a0 = a1 = self.a[c][0]
-                d0 = d1 = self.d[c][0]
-            else:
-                pos, hap, _ = genome[c]
-                qq = self.cv_q[c][None, :].expand(2 * n, -1)
-                r = self.root[hap_at(pos.reshape(2 * n, -1),
-                                     hap.reshape(2 * n, -1), qq)].view(n, 2, -1)
-                col = torch.arange(qq.shape[1], device=self.device)[None, :]
-                a0, a1 = (self.a[c][r[:, k], col] for k in (0, 1))
-                d0, d1 = (self.d[c][r[:, k], col] for k in (0, 1))
-            A_c, D_c = additive_dominance(al[:, 0], al[:, 1], a0, a1, d0, d1,
-                                          n, self.dtype)
+        for c, block in enumerate(genome):
+            A_c, D_c = self.ad_chr(block, c, n)
             A, D = A + A_c, D + D_c
         return (A.to(torch.float64).cpu().numpy(),
                 D.to(torch.float64).cpu().numpy())
@@ -370,62 +378,81 @@ class Reference:
         return genomes, states
 
     # ------------------------------------------------------ generation k
-    def generation(self, gen: int, parents: list, children=None):
-        """Generation `gen` from the parents' states (one a population, as
-        the program holds them): (genomes, states) of the children after
-        migration, and a population's (ledger slots, mutation slots) that the
-        probe reserves. Without `children` the reference makes the meiosis
-        from the parents' planes. With `children`, the program's genomes of
-        the children after migration ([(pos, hap, mut)] a chromosome, a
-        population), it makes none: it works out A/D from those genomes and
-        all else from the parents' host fields, and gives no slots."""
+    # A generation is made a population and a chromosome at a time, so
+    # that the device holds one block of genome at once: `prepare` draws
+    # what precedes the genomes, `born` (or `unmigrate`) gives one
+    # chromosome of one population's children, `ad_chr` its A and D, and
+    # `finish` the children's states from the sums.
+    def prepare(self, gen: int, parents: list):
+        """Generation `gen`'s draws that precede the genomes, from the
+        parents' host fields (one state a population, as the program holds
+        them): each population's mating plan, its children's count, and
+        the migration's `moves`."""
         plans = [mate(self.sc.seed, gen, k, par, p)
                  for k, (p, par) in enumerate(zip(self.sc.pops, parents))]
         sizes = [len(plan[2]) for plan in plans]
-        moves = self.moves(gen, sizes)
-        born = None if children is None else self.unmigrate(
-            children, moves, sizes)
-        genomes, states, probes = [], [], []
-        for k, (p, par, plan) in enumerate(zip(self.sc.pops, parents,
-                                               plans)):
-            n_child = sizes[k]
-            if children is None:
-                n_pad = child_rows(n_child, par["rows"], p.offspring[gen - 1])
-                cf = torch.as_tensor(plan[0][plan[2]], device=self.device)
-                cm = torch.as_tensor(plan[1][plan[2]], device=self.device)
-                g, probe = self.born(par, cf, cm, gen, k, n_child, n_pad)
-                probes.append(probe)
-                A, D = self.ad(g, n_child)
-            elif born is not None:
-                g = born[k]
-                A, D = self.ad(g, n_child)
-            else:  # the program's children are not this generation's
-                g, A, D = None, np.full(n_child, np.nan), np.full(n_child,
-                                                                 np.nan)
+        return plans, sizes, self.moves(gen, sizes)
+
+    def n_pad(self, gen: int, pop: int, par: dict, plan) -> int:
+        """The rows of the program's planes that every draw of population
+        `pop`'s children is sized for."""
+        return child_rows(len(plan[2]), par["rows"],
+                          self.sc.pops[pop].offspring[gen - 1])
+
+    def born(self, par: dict, plan, gen: int, pop: int, c: int, n_pad: int):
+        """(chromosome c of population `pop`'s children as a block, the
+        mutation slots the probe reserves for them), made by meiosis from
+        the parents' planes of that chromosome `par` on the device: child i
+        of the couple plan[2][i]."""
+        cf = torch.as_tensor(plan[0][plan[2]], device=self.device)
+        cm = torch.as_tensor(plan[1][plan[2]], device=self.device)
+        return meiosis(par, cf, cm, self.m, self.sc.seed, gen, pop, c,
+                       len(plan[2]), n_pad, self.device)
+
+    @staticmethod
+    def rows_moved(moves: list) -> list:
+        """Each population's rows after migration."""
+        return [sum(len(idx) for _, idx in parts) for parts in moves]
+
+    def unmigrate(self, children: list, moves: list, pop: int, n: int):
+        """Population `pop`'s n children as born, one chromosome: gathered
+        from each population's block (pos, hap, mut) of that chromosome
+        after migration (`moves`)."""
+        planes = []
+        for x in range(3):
+            w = max(g[x].shape[-1] for g in children)
+            src = children[0][x]
+            planes.append(torch.full((n, 2, w), BIG if x != 1 else -1,
+                                     dtype=src.dtype, device=src.device))
+        for j, parts in enumerate(moves):
+            lo = 0
+            for k, idx in parts:
+                if k == pop:
+                    rows = torch.as_tensor(idx, device=self.device)
+                    for x in range(3):
+                        part = children[j][x][lo:lo + len(idx)]
+                        planes[x][rows, :, :part.shape[-1]] = part
+                lo += len(idx)
+        return tuple(planes)
+
+    def finish(self, gen: int, parents: list, plans: list, moves: list,
+               ads: list) -> list:
+        """The children's states after migration, from the parents' host
+        fields, the plans and each population's (A, D) as born."""
+        states = []
+        for k, (par, plan, (A, D)) in enumerate(zip(parents, plans, ads)):
             st = child_fields(self.sc.seed, gen, k, par, plan)
             prev = par["comp"]["P"]
             par_eff = self.gen0[k].beta * (prev[plan[0][plan[2]]]
                                            + prev[plan[1][plan[2]]])
             st["comp"], _ = self.phenotypes(k, gen, A, D, st["comp"]["C"],
                                             par_eff)
-            genomes.append(g)
             states.append(st)
         self.gamma([s["comp"] for s in states])
         for k, s in enumerate(states):
             s["mv"], s["sv"], s["svf"] = self.values(k, gen, s["comp"]["P"],
                                                      False)
-        if children is not None:
-            return children, self.migrate(moves, None, states)[1], probes
-        return (*self.migrate(moves, genomes, states), probes)
-
-    def born(self, par: dict, cf, cm, gen: int, pop: int, n_child: int,
-             n_pad: int):
-        """(the children's genome, the probe's (ledger slots, mutation
-        slots)) of one population, made by meiosis from the parents' planes:
-        child i of parents rows cf[i], cm[i]."""
-        g, mut_need = meiosis(par, cf, cm, self.m, self.sc.seed, gen, pop,
-                              n_child, n_pad, self.device)
-        return g, (probe_need(g), mut_need)
+        return self.migrate(moves, states)
 
     def moves(self, gen: int, sizes: list) -> list:
         """Each population's rows after migration, as parts (source
@@ -455,50 +482,12 @@ class Reference:
             out.append(parts)
         return out
 
-    def unmigrate(self, children: list, moves: list, sizes: list):
-        """The genomes of each population's children as born, from the
-        genomes after migration (`moves`); None where a population holds
-        another number of rows than `moves` gives it."""
-        if any(g[0][0].shape[0] != sum(len(idx) for _, idx in parts)
-               for g, parts in zip(children, moves)):
-            return None
-        out = []
-        for i, n in enumerate(sizes):
-            genome = []
-            for c in range(len(self.sc.chrs)):
-                planes = []
-                for x in range(3):
-                    w = max(g[c][x].shape[-1] for g in children)
-                    src = children[0][c][x]
-                    planes.append(torch.full((n, 2, w), BIG if x != 1 else -1,
-                                             dtype=src.dtype,
-                                             device=src.device))
-                for j, parts in enumerate(moves):
-                    lo = 0
-                    for k, idx in parts:
-                        if k == i:
-                            rows = torch.as_tensor(idx, device=self.device)
-                            for x in range(3):
-                                part = children[j][c][x][lo:lo + len(idx)]
-                                planes[x][rows, :, :part.shape[-1]] = part
-                        lo += len(idx)
-                genome.append(tuple(planes))
-            out.append(genome)
-        return out
-
-    def migrate(self, moves: list, genomes, states: list):
-        """The genomes (unless None) and states after migration
-        (`moves`)."""
+    def migrate(self, moves: list, states: list) -> list:
+        """The states after migration (`moves`)."""
         if self.n_pop == 1:
-            return genomes, states
-        new_g, new_s = [], []
+            return states
+        new_s = []
         for j, parts in enumerate(moves):
-            new_g.append(None if genomes is None else [tuple(_cat_padded(
-                [genomes[i][c][x][torch.as_tensor(idx, device=self.device)]
-                 .flatten(0, 1) for i, idx in parts],
-                BIG if x != 1 else -1).view(-1, 2, max(
-                    genomes[i][c][x].shape[-1] for i, _ in parts))
-                for x in range(3)) for c in range(len(self.sc.chrs))])
             cat = lambda get: np.concatenate(  # noqa: E731
                 [get(states[i])[..., idx] for i, idx in parts], axis=-1)
             new_s.append(dict(
@@ -510,7 +499,7 @@ class Reference:
                       for k in states[j]["comp"]},
                 mv=cat(lambda s: s["mv"]), sv=cat(lambda s: s["sv"]),
                 svf=cat(lambda s: s["svf"])))
-        return new_g, new_s
+        return new_s
 
 
 def selection_prob(z, func: str, p1: float, p2: float):
@@ -601,7 +590,8 @@ def child_fields(seed: int, gen: int, pop: int, par: dict, plan) -> dict:
         comp={"C": C})
 
 
-def probe_need(genome) -> int:
-    """The most ledger slots any child's gamete holds in the reference's
-    canonical ledgers: what the program's probe must reserve at least."""
-    return max(int((pos < BIG).sum(-1).max()) for pos, _, _ in genome)
+def probe_need(block) -> int:
+    """The most ledger slots any child's gamete holds in a block of the
+    reference's canonical ledgers: what the program's probe must reserve at
+    least."""
+    return int((block[0] < BIG).sum(-1).max())

@@ -3,7 +3,7 @@ could take for a launch, from its arguments' shapes and dtypes alone.
 
 The arithmetic is `chip_smoke.py`'s (`_bound`, `_bins_work`,
 `_count_work`, `_merge_work`, `_gather_work`, `_packed_need`,
-`_packed_work`), frozen here: each input byte
+`_packed_work`, `_paint_work`, `_paint_need`), frozen here: each input byte
 read once, each output byte written once, against NVIDIA's published
 3.35 TB/s of HBM3 and 67 T scalar operations a second (the H100 SXM data
 sheet, at its 700 W limit). The bytes are computed, not measured.
@@ -13,9 +13,14 @@ The traced run records each launch's shapes and keeps its index tensor
 original counts them) are counted after the traced window has closed, so
 reckoning a bound adds no device op or sync to the traced run. The packed
 meiosis keeps its parents and plan too: the parent words its gametes take
-are reckoned from them after the window (`packed_need`)."""
+are reckoned from them after the window (`packed_need`). A paint launch
+keeps its shapes alone: the live slots of its ledgers and mutation rows
+are counted in the check's untraced run of the same seed
+(`metrics/paint_roofline.py`)."""
 
 from __future__ import annotations
+
+from gebench.reference.law import BIG
 
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
@@ -173,6 +178,26 @@ def packed_launch_work(hap, fathers, mothers, xo_p, st_p, xo_m, st_m, mu,
     args = (fathers, mothers, xo_p, st_p, xo_m, st_m)
     return packed_work(packed_need(hap.shape[0], args, n_chr, chr_len), args,
                        mu, n_chr, chr_len)
+
+
+def live_slots(x):
+    """The slots of a BIG-padded ledger or mutation plane that hold an
+    entry: a count on the plane's device."""
+    return (x < BIG).sum()
+
+
+def paint_work(seg_st, seg_hap, mut, founder, pos, live=None, muts=None):
+    """(bytes, ops) of `paint` over what it must read: the painted columns
+    written once; of the ledgers and mutation rows only the slots that hold
+    a segment or a mutation (`live` and `muts`, their counts, counted here
+    when not given), the founder panel and the positions read once; a
+    locus's slot and mutation-pointer checks, four compares an output
+    byte."""
+    out = seg_st.shape[0] * seg_st.shape[1] * 2 * pos.shape[1]
+    live = int(live_slots(seg_st) if live is None else live)
+    muts = int(live_slots(mut) if muts is None else muts)
+    return (out + live * (4 + seg_hap.element_size()) + 4 * muts
+            + nbytes(founder, pos), 4 * out)
 
 
 def share(launches: list, events: list, kernel: str):

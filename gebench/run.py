@@ -18,7 +18,9 @@ populations, the migration), both named in `BENCHMARK.json`. One run:
    `PEAK_RUNS` runs);
 3. with `--trace 1`, one more whole run under `--stage_sync` and
    `torch.profiler`, reduced to the cell's per-layer metrics by their
-   readers (`gebench/metrics/<name>.py`);
+   readers (`gebench/metrics/<name>.py`); where a reader takes counts from
+   an untraced run (`replay`), the traced run has the window's last run's
+   seed, and the check's run records them;
 4. the check: the window's last run again, its generations judged against
    the plain reference (`gebench/check.py`).
 
@@ -220,8 +222,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                   metrics={}, device=dict(platform="gpu", count=cell.chips,
                                           memory_peak_bytes=int(max(peaks))))
     if trace:
-        result["metrics"], result["breakdown"], busy = traced(
-            cell, call, inp, index + 1, work, s_per_gen, log)
+        from gebench import trace as tracing
+
+        readers = {m["name"]: reader(cell.root, m["name"])
+                   for m in cell.per_layer}
+        replays = tracing.Replays(readers)
+        # counts taken in the check's run need the traced run to be that
+        # run again: the window's last
+        again = index if replays.readers else index + 1
+        ctx, result["breakdown"], busy = traced(readers, call, inp, again,
+                                                s_per_gen, log)
         result["device"].update(busy)
     else:
         e2e = dict(s_per_gen=(s_per_gen, "s/gen"),
@@ -230,56 +240,73 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                                              unit=e2e[m["name"]][1])
                              for m in cell.end_to_end}
     t = time.perf_counter()
-    judge = checked_call(call, inp, index, seed, device, prefix,
-                         timed)
-    log(f"gebench: check in {time.perf_counter() - t:.4f} s")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with replays if trace else contextlib.nullcontext():
+        judge = checked_call(call, inp, index, seed, device, prefix, timed)
+    log(f"gebench: check in {time.perf_counter() - t:.4f} s (the checked "
+        "call's snapshots {snapshots:.4f} s, the reference {reference:.4f} "
+        "s, the files {files:.4f} s)".format(**judge.seconds))
+    if device == "cuda":
+        log(f"gebench: the checked call's device peak "
+            f"{torch.cuda.max_memory_allocated()} bytes")
     plan = getattr(judge.program, "mem_plan", None)
     if plan is not None:
         log(f"gebench: reckoned need {plan.need} bytes "
             f"({plan.need / 2**30:.4f} GiB) beside `peak_gib` "
             f"{peak / 2**30:.4f} GiB")
+    if trace:
+        result["metrics"] = layer_metrics(
+            cell, readers, dict(ctx, replays=replays.launches))
     numbers = judge.numbers()
     result["correct"] = all(numbers[k] <= check.LIMITS[k] for k in numbers)
     result["checks"] = {k: dict(value=v, limit=check.LIMITS[k])
                         for k, v in numbers.items()}
+    log(f"gebench: run done {time.perf_counter() - T0:.4f} s after start")
     bad = forbidden_modules()
     if bad:
         raise BenchError(f"modules of JAX or the JAX package loaded: {bad}")
     return result
 
 
-def traced(cell: Cell, call, inp, index: int, work: Path, s_per_gen: float,
-           log):
-    """One whole run under `--stage_sync` and the profiler: the cell's
-    per-layer metrics, the breakdown and the device's busy seconds."""
+def traced(readers: dict, call, inp, index: int, s_per_gen: float, log):
+    """One whole run under `--stage_sync` and the profiler: what the
+    readers take from it (their context), the breakdown and the device's
+    busy seconds."""
     from gebench import trace
 
-    readers = {m["name"]: reader(cell.root, m["name"])
-               for m in cell.per_layer}
     with trace.Wrappers(readers) as w:
         t = time.perf_counter()
-        events = trace.profile(lambda: call(inp.argv, index, ["--stage_sync"]),
-                               work / "trace.json")
+        events = trace.profile(lambda: call(inp.argv, index,
+                                            ["--stage_sync"]))
         wall = time.perf_counter() - t
-    red = trace.reduce(events)
+    red, n_events = trace.reduce(events), len(events)
     del events
     log(f"gebench: traced run {red['window_s']:.4f} s ({wall:.4f} s with "
-        f"the trace's export), s_per_gen "
+        f"the profiler's stop and the reading of its {n_events} events), "
+        f"s_per_gen "
         f"{red['window_s'] / inp.generations:.6f} traced against "
         f"{s_per_gen:.6f} untraced (the tracing overhead)")
     launches = {k: [x() for x in v] for k, v in w.launches.items()}
     ctx = dict(stages=dict(w.timer.totals) if w.timer else {},
                gens=inp.generations, trace=red, launches=launches,
+               clocked={k: v[0] for k, v in w.clocked.items()},
                s_per_gen=s_per_gen)
+    breakdown = dict(device_ops=red["device_ops"],
+                     idle_gaps=red["idle_gaps"])
+    return ctx, breakdown, dict(busy_s=red["busy_s"],
+                                window_s=red["window_s"])
+
+
+def layer_metrics(cell: Cell, readers: dict, ctx: dict) -> dict:
+    """The cell's per-layer metrics, each read by its reader from the
+    traced run's context; a reader that finds nothing is left out."""
     metrics = {}
     for m in cell.per_layer:
         v = readers[m["name"]].read(dict(ctx, metric=m["name"]))
         if v is not None:
             metrics[m["name"]] = dict(value=float(v), unit=m["unit"])
-    breakdown = dict(device_ops=red["device_ops"],
-                     idle_gaps=red["idle_gaps"])
-    return metrics, breakdown, dict(busy_s=red["busy_s"],
-                                    window_s=red["window_s"])
+    return metrics
 
 
 def checked_call(call, inp, index: int, seed: int, device: str,

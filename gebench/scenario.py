@@ -14,7 +14,14 @@ byte for byte.
 A configuration (`configs/<name>.json`) gives the sizes, a mix
 (`mixes/<name>.json`) the schedule, the populations and the migration;
 `write_inputs` writes the files and returns the CLI arguments of one whole
-run and of the warm-up run, whose schedule is `WARMUP_GENERATIONS` long.
+run and of the warm-up run, whose schedule is the first
+`WARMUP_GENERATIONS` rows of the run's.
+`founders` and `pop_size` may each be a list, one entry a population; with
+`growth_per_generation` (a rate r a population) population k's size at
+generation g of G is round(pop_size[k] e^(-r_k (G - g))), so that the last
+generation has the stated size (`sizes`). Populations after the first keep
+the first's maps and CV sites and draw their own effects, founder CV
+alleles and, with another founder count, stub panel (`founder_panel`).
 A configuration may also state `backend` (`dense` adds `--backend dense`),
 `snps_per_chromosome` (a panel of that many SNPs on each chromosome, in
 place of the 2-SNP stub) and `cvs_on_panel` (every CV moved onto a panel
@@ -24,6 +31,7 @@ site, as the dense backend reads a CV's alleles from its column).
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
@@ -190,13 +198,53 @@ def cvs_on_panel(root: Path, seed: int) -> None:
     (root / "cv.info").write_text("\n".join(out) + "\n")
 
 
-def schedule(path: Path, pop_size: int, gens: int, mix: dict) -> Path:
-    """A generation-info file of `gens` rows of the mix's schedule."""
-    row = (f"{pop_size} {mix['mat_cor']:g} {mix['offspring_dist']} "
-           f"{mix['selection']}\n")
+def founder_panel(root: Path, nchr: int, n0: int,
+                  rng: np.random.Generator) -> None:
+    """Give the scenario under `root` `n0` founders in its stub panel:
+    `ref.indv` and each chromosome's `.hap` rows, drawn anew at its
+    legend's sites (the founders' CV alleles are `extra_population`'s)."""
+    (root / "ref.indv").write_text("".join(f"id{i + 1}\n"
+                                           for i in range(n0)))
+    for c in range(1, nchr + 1):
+        sites = len((root / f"ref.chr{c}.legend").read_text()
+                    .splitlines()) - 1
+        write_hap(root / f"ref.chr{c}.hap", rng.integers(
+            0, 2, size=(sites, 2 * n0), dtype=np.uint8))
+
+
+def per_population(config: dict, key: str, n_pop: int) -> List[int]:
+    """A configuration's `key` for each population: a list gives one entry
+    a population, a number the same for all."""
+    v = config[key]
+    if not isinstance(v, list):
+        return [int(v)] * n_pop
+    if len(v) != n_pop:
+        raise ValueError(f"{key} gives {len(v)} populations, the mix "
+                         f"{n_pop}")
+    return [int(x) for x in v]
+
+
+def sizes(config: dict, n_pop: int, gens: int) -> List[List[int]]:
+    """Each population's schedule, generations 1..gens: its `pop_size`
+    every generation, or under `growth_per_generation` round(pop_size
+    e^(-r (gens - g))) at generation g."""
+    ends = per_population(config, "pop_size", n_pop)
+    rates = config.get("growth_per_generation")
+    if rates is None:
+        return [[n] * gens for n in ends]
+    if len(rates) != n_pop:
+        raise ValueError(f"growth_per_generation gives {len(rates)} "
+                         f"populations, the mix {n_pop}")
+    return [[int(round(n * math.exp(-float(r) * (gens - g))))
+             for g in range(1, gens + 1)] for n, r in zip(ends, rates)]
+
+
+def schedule(path: Path, rows: List[int], mix: dict) -> Path:
+    """A generation-info file of the mix's schedule, one row a size."""
+    rest = f" {mix['mat_cor']:g} {mix['offspring_dist']} {mix['selection']}\n"
     path.write_text(
         "pop_size mat_cor offspring_dist selection_func selection_func_par1 "
-        "selection_func_par2\n" + row * gens)
+        "selection_func_par2\n" + "".join(f"{n}{rest}" for n in rows))
     return path
 
 
@@ -223,20 +271,27 @@ def write_inputs(root: Path, config: dict, mix: dict, seed: int) -> Inputs:
     gens, warm = int(mix["generations"]), WARMUP_GENERATIONS
     n_pop = int(mix["populations"])
     nchr, ncv = int(config["chromosomes"]), int(config["cvs_per_chromosome"])
-    n0, pop_size = int(config["founders"]), int(config["pop_size"])
+    founders = per_population(config, "founders", n_pop)
+    rows = sizes(config, n_pop, gens)
     snps = config.get("snps_per_chromosome", 0)
     argv, warm_argv, dirs = [], [], []
     for k in range(n_pop):
         d = root / f"pop{k + 1}"
+        # the first population's founder count, so that every population
+        # draws the same maps and CV sites
         flags = make_scenario(
-            str(d), n0=n0, pop_size=pop_size, gens=gens, nchr=nchr, ncv=ncv,
-            snps=snps, mat_cor=float(mix["mat_cor"]),
+            str(d), n0=founders[0], pop_size=rows[k][0], gens=gens,
+            nchr=nchr, ncv=ncv, snps=snps, mat_cor=float(mix["mat_cor"]),
             selection=mix["selection"], offspring_dist=mix["offspring_dist"],
             bin_kb=int(config["recombination_bin_kb"]),
             cm_per_mb=float(config["recombination_cm_per_mb"]), seed=seed)
+        if len(set(rows[k])) > 1:
+            schedule(Path(flags["file_gen_info"]), rows[k], mix)
         if k:
-            extra_population(d, nchr, ncv, n0,
-                             np.random.default_rng([seed, k + 1]))
+            rng = np.random.default_rng([seed, k + 1])
+            extra_population(d, nchr, ncv, founders[k], rng)
+            if founders[k] != founders[0]:
+                founder_panel(d, nchr, founders[k], rng)
         if config.get("cvs_on_panel"):
             cvs_on_panel(d, seed)
         flags["file_mutation_map"] = str(mutation_map(
@@ -245,7 +300,7 @@ def write_inputs(root: Path, config: dict, mix: dict, seed: int) -> Inputs:
         pop = []
         for key, v in flags.items():
             pop += [f"--{key}", v]
-        warm_info = schedule(d / "popinfo_warm.txt", pop_size, warm, mix)
+        warm_info = schedule(d / "popinfo_warm.txt", rows[k][:warm], mix)
         if k:
             argv.append("--next_population")
             warm_argv.append("--next_population")
@@ -254,9 +309,9 @@ def write_inputs(root: Path, config: dict, mix: dict, seed: int) -> Inputs:
                       for a in pop]
         dirs.append(d)
     if n_pop > 1:
-        rows = " ".join(f"{x:g}" for r in mix["migration"] for x in r) + "\n"
-        (root / "migration.txt").write_text(rows * gens)
-        (root / "migration_warm.txt").write_text(rows * warm)
+        mig = " ".join(f"{x:g}" for r in mix["migration"] for x in r) + "\n"
+        (root / "migration.txt").write_text(mig * gens)
+        (root / "migration_warm.txt").write_text(mig * warm)
         extra = ["--gamma", f"{float(mix['gamma']):g}"]
         argv += ["--file_migration", str(root / "migration.txt"), *extra]
         warm_argv += ["--file_migration", str(root / "migration_warm.txt"),

@@ -2,8 +2,8 @@
 dense cell (a few hundred rows, three chromosomes of uneven panels, CVs on
 panel sites) runs through `run.run_cell` on the CPU and is judged correct;
 each fault planted in the program underneath the harness, and the control,
-make it not correct; the segment cells' scenario files and arguments are
-those of the parent tree."""
+make it not correct; every earlier cell's scenario files and arguments are
+those of the tree before the growth configuration."""
 
 from __future__ import annotations
 
@@ -18,13 +18,21 @@ from gebench import check, control, run, scenario
 from gebench.reference import dense, law
 from gebench.tests.conftest import REPO
 
-# the digest of `write_inputs`' files and arguments for `t31_30k` at a small
-# size under each mix, as the tree before the dense backend's cell wrote
-# them (`_digest`)
-SEGMENT_DIGESTS = {
-    "rand": "81b212fded3c8f395d6ac1a5800e736cb2c6bd8efee57d47fca2fd1050df25e0",
-    "admix": "3f984e815b4494e1fdd4c55e75d59cd9f1a681e4f6bbb661627cc8b27f0dda9e",
+# the digest of `write_inputs`' files and arguments for every cell of the
+# benchmark before the growth configuration's, at a small size (`SMALL`,
+# and three uneven panels on the dense backend), as the tree before that
+# configuration wrote them (`_digest`)
+CELL_DIGESTS = {
+    "t31_30k.rand":
+        "81b212fded3c8f395d6ac1a5800e736cb2c6bd8efee57d47fca2fd1050df25e0",
+    "t31_300k.rand":
+        "81b212fded3c8f395d6ac1a5800e736cb2c6bd8efee57d47fca2fd1050df25e0",
+    "t31_30k.admix":
+        "3f984e815b4494e1fdd4c55e75d59cd9f1a681e4f6bbb661627cc8b27f0dda9e",
+    "dense31.rand":
+        "132969cb3e9a20b91fc0af340fdf3e196027baa5bbe94f425c3ccc2fd6c9a71d",
 }
+SMALL = dict(pop_size=50, founders=20, chromosomes=3, cvs_per_chromosome=4)
 
 
 def _run(root, seed=11, min_runs=3):
@@ -78,17 +86,18 @@ def _digest(root, inp) -> str:
     return h.hexdigest()
 
 
-@pytest.mark.parametrize("mix", sorted(SEGMENT_DIGESTS))
-def test_segment_inputs_unchanged(tmp_path, mix):
-    """`t31_30k`'s files and arguments under each mix, at a small size, are
-    byte for byte those the tree before the dense cell wrote."""
-    cfg = json.loads((REPO / "gebench/configs/t31_30k.json").read_text())
-    cfg.update(pop_size=50, founders=20, chromosomes=3, cvs_per_chromosome=4)
-    m = json.loads((REPO / f"gebench/mixes/{mix}.json").read_text())
+@pytest.mark.parametrize("cell", sorted(CELL_DIGESTS))
+def test_segment_inputs_unchanged(tmp_path, cell):
+    """Every earlier cell's files and arguments, at a small size, are byte
+    for byte those the tree before the growth configuration wrote."""
+    c = run.load_cell(REPO, cell)
+    cfg = dict(c.config, **SMALL)
+    if "snps_per_chromosome" in cfg:
+        cfg["snps_per_chromosome"] = [30, 12, 50]
     root = tmp_path / "s"
-    inp = scenario.write_inputs(root, cfg, m, 2**33 + 7)
+    inp = scenario.write_inputs(root, cfg, c.mix, 2**33 + 7)
     assert inp.generations == 10
-    assert _digest(root, inp) == SEGMENT_DIGESTS[mix]
+    assert _digest(root, inp) == CELL_DIGESTS[cell]
 
 
 def _plant(monkeypatch, fault):

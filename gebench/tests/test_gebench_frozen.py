@@ -2,9 +2,9 @@
 byte for byte at a small size (`tools/mkscenario.py`, `chip_smoke.py`'s
 `_mutation_map`, `_second_population`, `_cvs_on_panel` and `_popinfo`),
 the roofline arithmetic (`chip_smoke.py`'s `_bins_work`, `_gather_work`,
-`_count_work`, `_merge_work`, `_packed_need`, `_packed_work`, and
-`dense/packed.py`'s `phase_word_masks`) and the busy arithmetic
-(`profile_phase`) on fixed inputs."""
+`_count_work`, `_merge_work`, `_packed_need`, `_packed_work`,
+`_paint_work`, `_paint_need`, and `dense/packed.py`'s `phase_word_masks`)
+and the busy arithmetic (`profile_phase`) on fixed inputs."""
 
 from __future__ import annotations
 
@@ -100,7 +100,7 @@ def test_panel_counts_draw_as_one_count(tmp_path):
 def test_schedule_equals_popinfo(tmp_path, smoke):
     mix = dict(mat_cor=0.0, offspring_dist="p", selection="thr 1 1")
     a = smoke._popinfo(tmp_path, dict(pop_size=77), 4)
-    b = scenario.schedule(tmp_path / "b.txt", 77, 4, mix)
+    b = scenario.schedule(tmp_path / "b.txt", [77] * 4, mix)
     assert a.read_bytes() == b.read_bytes()
 
 
@@ -139,6 +139,34 @@ def test_roofline_equals_smoke(smoke):
     b, o = roofline.merge_work(seg_st, seg_hap, parents, xo_f, xo_m, sh, 11)
     assert roofline.bound_s(b, o) * 1e3 == pytest.approx(
         smoke._bound(b, o)["bound_ms"], rel=1e-12)
+
+
+@pytest.mark.parametrize("hap_dtype", [torch.int16, torch.int32])
+def test_paint_work_equals_smoke(smoke, hap_dtype):
+    """`paint_work` counts the bytes `_paint_need` counts (the live ledger
+    slots and mutation rows) and the operations `_paint_work` counts, from
+    the tensors or from their live counts."""
+    g = torch.Generator().manual_seed(8)
+    C, rows, S, M, H, Q = 3, 20, 9, 5, 14, 11
+    big = 2**30
+    seg_st = torch.sort(torch.randint(0, 1000, (C, rows, 2, S), generator=g,
+                                      dtype=torch.int32), -1).values
+    seg_st[torch.rand((C, rows, 2, S), generator=g) < 0.4] = big
+    seg_st = torch.sort(seg_st, -1).values
+    seg_hap = torch.randint(0, H, (C, rows, 2, S), generator=g,
+                            dtype=hap_dtype)
+    mut = torch.where(torch.rand((C, rows, 2, M), generator=g) < 0.5,
+                      torch.randint(0, 1000, (C, rows, 2, M), generator=g,
+                                    dtype=torch.int32), big).to(torch.int32)
+    founder = torch.randint(0, 2, (C, H, Q), generator=g, dtype=torch.uint8)
+    pos = torch.randint(0, 1000, (C, Q), generator=g, dtype=torch.int32)
+    args = (seg_st, seg_hap, mut, founder, pos)
+    nbytes, ops = roofline.paint_work(*args)
+    assert nbytes == smoke._paint_need(*args)["need_bytes"]
+    assert ops == smoke._paint_work(*args)["ops"]
+    assert nbytes < smoke._paint_work(*args)["bytes"]
+    counts = (roofline.live_slots(seg_st), roofline.live_slots(mut))
+    assert roofline.paint_work(*args, *counts) == (nbytes, ops)
 
 
 def _packed_inputs():

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import pytest
 
-from gebench import run, trace
+from gebench import run, scenario, trace
 
 REPO = Path(__file__).resolve().parent.parent.parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -56,7 +56,10 @@ def test_manifest_keeps_to_contract():
 @pytest.mark.parametrize("cell", [w["name"] for w in _bench()["workloads"]])
 def test_every_cell_loads(cell):
     c = run.load_cell(REPO, cell)
-    assert c.config["pop_size"] > 0 and c.mix["generations"] > 0
+    n_pop = c.mix["populations"]
+    assert min(scenario.per_population(c.config, "pop_size", n_pop)) > 0
+    assert min(scenario.per_population(c.config, "founders", n_pop)) > 0
+    assert c.mix["generations"] > 0
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     # the window's time a generation: end to end, or per layer where the
@@ -208,3 +211,59 @@ def test_sources_import_no_jax(path):
     assert not names & set(run.FORBIDDEN), names
     if path.startswith("gebench/reference/"):
         assert "geneevolve_tpu_torch" not in names
+
+
+def _trace_both(device, tmp_path):
+    """The events `reduce` reads of one small profiled workload, from the
+    profiler's results in memory and from its Chrome trace file."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    x = torch.ones(1 << 16, device=device)
+    with profile(activities=acts) as prof:
+        with record_function(trace.RUN_SPAN):
+            for _ in range(20):
+                with record_function("mate"):
+                    x = (x * 2).clone()
+                    torch.empty_like(x).copy_(x)
+                    x.cpu()
+                    x.zero_()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    filed = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") in trace.KEPT and "dur" in e]
+    return trace.kineto_events(prof), filed
+
+
+def _same_events(mem, filed):
+    def spans(events):
+        return sorted((e["cat"], e["name"], float(e["dur"])) for e in events)
+
+    a, b = spans(mem), spans(filed)
+    assert [x[:2] for x in a] == [x[:2] for x in b]
+    assert [x[2] for x in a] == pytest.approx([x[2] for x in b], abs=1e-3)
+    ra, rb = trace.reduce(mem), trace.reduce(filed)
+    assert ra["busy_s"] == pytest.approx(rb["busy_s"], abs=1e-8)
+    assert ra["window_s"] == pytest.approx(rb["window_s"], abs=1e-8)
+    assert [g[0] for g in ra["idle_gaps"]] == [g[0] for g in rb["idle_gaps"]]
+
+
+def test_trace_events_from_memory(tmp_path):
+    """The events read from the profiler's results in memory are those of
+    its Chrome trace file: the same spans, of the same lengths."""
+    mem, filed = _trace_both("cpu", tmp_path)
+    assert {e["cat"] for e in mem} == {"user_annotation"}
+    _same_events(mem, filed)
+
+
+@pytest.mark.cuda
+def test_trace_events_from_memory_on_card(cuda, tmp_path):
+    """On the card, the kernels, copies and sets read from the profiler's
+    results in memory are those of its Chrome trace file."""
+    mem, filed = _trace_both(cuda, tmp_path)
+    assert {e["cat"] for e in mem} & set(trace.DEVICE_CATS)
+    _same_events(mem, filed)

@@ -9,7 +9,18 @@ traced run: `telemetry.StageTimer.__call__` opens a
 `__init__` (`load`), `init_generation0` (`generation0`) and
 `write_summary` (`summary`) open their own. A per-layer reader that names a
 callable in `WRAP` gets its launches recorded: its `work(*args)` reckons
-each launch's (bytes, operations) from the arguments' shapes.
+each launch's (bytes, operations) from the arguments' shapes, and touches
+no tensor's values. What a bound needs of the values that the launch's
+arguments hold only then (a paint launch's live ledger slots) a reader's
+`replay(*args)` takes in an untraced run of the same seed, the check's
+(`Replays`): the traced run carries no device op of the benchmark's own.
+A reader that names a method in `CLOCK` gets the CPU seconds of its calls
+(`time.thread_time`, on whichever thread of the program they run: the time
+the thread waits for the GIL or for the disk is not counted).
+
+The trace is read from the profiler's results in memory (`kineto_events`),
+not from a Chrome trace file: at biobank sizes a run's trace holds millions
+of events, whose file took tens of seconds to write and parse.
 
 The busy and idle arithmetic is `chip_smoke.py`'s `profile_phase`: the
 device is busy where a kernel, a copy or a set runs (the union of their
@@ -19,27 +30,45 @@ from __future__ import annotations
 
 import contextlib
 import importlib
-import json
-from pathlib import Path
+import threading
+import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+KEPT = DEVICE_CATS + ("user_annotation",)  # the categories `reduce` reads
+# a device event's category by the first word of its name, else a kernel
+COPIES = {"Memcpy": "gpu_memcpy", "Memset": "gpu_memset"}
 RUN_SPAN = "gebench.run"
 
 
-class Wrappers:
-    """Installs and removes the traced run's wrappers; records the stage
-    timer the run used and each wrapped launch's work."""
+class _Patches:
+    """Attributes of the program replaced for a run and put back after."""
 
-    def __init__(self, readers: dict):
-        self.readers = readers
-        self.timer = None
-        self.launches = {name: [] for name, r in readers.items()
-                         if getattr(r, "WRAP", None)}
+    def __init__(self):
         self._undo = []
 
     def _patch(self, owner, attr, new) -> None:
         self._undo.append((owner, attr, getattr(owner, attr)))
         setattr(owner, attr, new)
+
+    def __exit__(self, *exc):
+        for owner, attr, old in reversed(self._undo):
+            setattr(owner, attr, old)
+        self._undo = []
+
+
+class Wrappers(_Patches):
+    """Installs and removes the traced run's wrappers; records the stage
+    timer the run used, each wrapped launch's work and each clocked
+    method's CPU seconds (`clocked`, by reader)."""
+
+    def __init__(self, readers: dict):
+        super().__init__()
+        self.readers = readers
+        self.timer = None
+        self.launches = {name: [] for name, r in readers.items()
+                         if getattr(r, "WRAP", None)}
+        self.clocked = {name: [0.0] for name, r in readers.items()
+                        if getattr(r, "CLOCK", None)}
 
     def __enter__(self):
         import torch
@@ -67,12 +96,33 @@ class Wrappers:
             owner = importlib.import_module(mod)
             self._patch(owner, attr, _recorded(
                 getattr(owner, attr), self.readers[name].work, rows))
+        for name, total in self.clocked.items():
+            mod, attr = self.readers[name].CLOCK
+            cls, meth = attr.split(".")
+            owner = getattr(importlib.import_module(mod), cls)
+            self._patch(owner, meth, _clocked(getattr(owner, meth), total))
         return self
 
-    def __exit__(self, *exc):
-        for owner, attr, old in reversed(self._undo):
-            setattr(owner, attr, old)
-        self._undo = []
+
+class Replays(_Patches):
+    """In an untraced run of the traced run's seed, records each launch of
+    the callables that readers with a `replay` wrap (`launches`, by
+    reader): what a bound takes from the arguments' values, read on their
+    device where the traced run may not."""
+
+    def __init__(self, readers: dict):
+        super().__init__()
+        self.readers = {name: r for name, r in readers.items()
+                        if getattr(r, "replay", None)}
+        self.launches = {name: [] for name in self.readers}
+
+    def __enter__(self):
+        for name, rows in self.launches.items():
+            mod, attr = self.readers[name].WRAP
+            owner = importlib.import_module(mod)
+            self._patch(owner, attr, _recorded(
+                getattr(owner, attr), self.readers[name].replay, rows))
+        return self
 
 
 def _spanned(fn, name, rf):
@@ -89,9 +139,22 @@ def _recorded(fn, work, rows):
     return wrapper
 
 
-def profile(fn, trace_path: Path):
+def _clocked(fn, total: list):
+    lock = threading.Lock()
+
+    def wrapper(*a, **k):
+        t = time.thread_time()
+        try:
+            return fn(*a, **k)
+        finally:
+            with lock:
+                total[0] += time.thread_time() - t
+    return wrapper
+
+
+def profile(fn) -> list:
     """Run `fn()` under `torch.profiler` with CUDA activity inside a span
-    named `RUN_SPAN`; returns the trace's events."""
+    named `RUN_SPAN`; returns the trace's events that `reduce` reads."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -100,10 +163,30 @@ def profile(fn, trace_path: Path):
         with torch.profiler.record_function(RUN_SPAN):
             fn()
         torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    events = json.loads(trace_path.read_text())["traceEvents"]
-    trace_path.unlink()
-    return events
+    return kineto_events(prof)
+
+
+def kineto_events(prof) -> list:
+    """The device events (kernels, copies, sets) and host spans
+    (`record_function`) of a finished profiler, read from its results in
+    memory, as its Chrome trace holds them: "cat" (a copy's or set's by its
+    name), "name", and "ts" and "dur" in microseconds from the first of
+    them."""
+    from torch._C._autograd import DeviceType
+
+    kept = []
+    for e in prof.profiler.kineto_results.events():
+        on_card = e.device_type() == DeviceType.CUDA
+        if e.is_user_annotation() and not on_card:
+            cat = "user_annotation"
+        elif on_card and not e.is_user_annotation():
+            cat = COPIES.get(e.name().split(" ", 1)[0], "kernel")
+        else:
+            continue
+        kept.append((cat, e.name(), e.start_ns(), e.duration_ns()))
+    t0 = min((x[2] for x in kept), default=0)
+    return [{"cat": cat, "name": name, "ts": (start - t0) / 1e3,
+             "dur": dur / 1e3} for cat, name, start, dur in kept]
 
 
 def reduce(events: list) -> dict:
