@@ -24,9 +24,13 @@ non-zero):
    used), and each kernel's bound
    (`bound_ms`: the larger of its bytes, each input read once and each
    output written once, over HBM's 3.35 TB/s and its operations over the
-   scalar lanes' 67 T/s) and roofline share: the bins, the row gather,
-   the count and the merge stacked over 22 chromosomes (and both parents)
-   as the segment path launches them (n = 30,000 children, K ~ 5,000 map
+   scalar lanes' 67 T/s) and roofline share: the sampler's draws
+   (`ops/point_draws`; its bound counts the uniforms a row's points read,
+   and `library_ms` is the plain chain it replaced, `torch.cumsum`,
+   `cdf_bins` and `_place`), the bins (on no path: the draws search
+   inside their own kernel), the row gather, the count and the merge
+   stacked over 22 chromosomes (and both parents) as the segment path
+   launches them (n = 30,000 children, K ~ 5,000 map
    bins, 200-byte CV rows, S 49 ledger slots, 23 crossover slots), the
    gather also as one table, the count and the merge also at one
    chromosome; the gamete inheritance (`ops/gamete_inherit`) at the
@@ -50,7 +54,7 @@ non-zero):
    device memory (the run's, each generation's and each generation's
    parts: before the real pass, the real pass, the rest) beside the memory
    reckoning's need, and the stacked kernels' launches a generation (3
-   bins, 1 count; in place, a group of 2 chromosomes at a time: 11
+   draws, 1 count; in place, a group of 2 chromosomes at a time: 11
    merges, 44 gathers, 22 gamete inheritances); then those kernels
    against their plain versions on the last generation's own inputs (its
    parents' planes copied to the host before it, outside its timing),
@@ -59,7 +63,7 @@ non-zero):
    44 gathers, and the 22 gamete inheritances on the rows those gathers
    made, each equal to the mutation and CV rows the run wrote;
    `_recheck`) and the 3
-   bins launches, timed: the bins, the last group's gathers, the count,
+   draws launches, timed: the draws, the last group's gathers, the count,
    the merge of the last group and of every chromosome (both modes); then
    the paint kernel at full width on the slice's final
    ledgers and mutations (29,978 x 2 chromatid rows, S 49) over a
@@ -72,7 +76,7 @@ non-zero):
    the kernel's paths painted, and a need bound that counts only the
    ledger and mutation slots before each row's first BIG);
 3b. gather path: the same slice under GE_NO_RESIDENT_CV=1 (A/D painted
-   from the ledger, 1 paint, 22 gathers, 3 bins, 1 count and 11 merge
+   from the ledger, 1 paint, 22 gathers, 3 draws, 1 count and 11 merge
    launches a generation), its `.info` and `.summary` byte-identical to the
    resident run's, s/gen, stage split and peak memory beside it; then the
    paint kernel at that path's shape (22 chromosomes x 100 CVs) on its
@@ -85,7 +89,7 @@ non-zero):
    0.9` and `--gamma 0.5`, `--checkpoint_every 2`: 40,000 founder haps, so
    int32 haps, on the gather path with each chromatid's root population
    painted over a root panel (M = 0); launches a generation and
-   population (3 bins, 2 gathers, 1 count, 1 merge, 2 paints), each
+   population (3 draws, 2 gathers, 1 count, 1 merge, 2 paints), each
    population's final ledger holding the other's founder haps, P means
    apart (gamma), the tripwire, the checkpoint's size and save seconds;
    then every launch of its last generation that read the parents (both
@@ -106,7 +110,7 @@ non-zero):
 3c'. the biobank-n memory regime (after the two-population phases):
    `table31_300k`, Table 3.1's top row (pop_size 300,000) over the
    slice's scenario files, 3 generations, in place with the per-group
-   plan (3 bins twice, 1 count, 1 merge and 4 gathers a group of 2
+   plan (3 draws twice, 1 count, 1 merge and 4 gathers a group of 2
    chromosomes); `table31_300k_fresh`, the same under
    GE_NO_INPLACE_REPRO=1 GE_PLAN_PER_GROUP=0 (one stacked launch of each
    a kind), its `.info`/`.summary` byte-identical to `table31_300k`'s and
@@ -120,7 +124,7 @@ non-zero):
    parents' planes copied to the host before that generation) against
    its plain version (in chunks of 2^20 chromosome and child rows), each
    merge equal to every row of the children the run wrote, the last of
-   each and the bins of the last draw timed;
+   each and the draws of the last plan timed;
 3d. segment output parity: a small segment scenario with `--out_hap
    --out_vcf --out_plink --out_interval --debug --file_output_generations`,
    then `--out_plink01`, then a `--file_ref_vcf` panel on both backends,
@@ -289,7 +293,10 @@ KERNELS = {  # name -> (source, TPU function it replaces)
                     "geneevolve_tpu/ops/materialize.py:72"),
     "meiose_merge": ("geneevolve_tpu_torch/csrc/meiose_merge.cu",
                      "geneevolve_tpu/core/segments.py:749"),
-    # new: ports no TPU kernel (XLA chains in the JAX package)
+    # new: port no TPU kernel (XLA chains in the JAX package)
+    "point_draws": ("geneevolve_tpu_torch/csrc/point_draws.cu",
+                    "geneevolve_tpu/core/segments.py:444 (XLA; no TPU "
+                    "kernel)"),
     "gamete_inherit": ("geneevolve_tpu_torch/csrc/gamete_inherit.cu",
                        "geneevolve_tpu/core/segments.py:855 and "
                        "geneevolve_tpu/core/engine.py:422 (XLA; no TPU "
@@ -314,7 +321,8 @@ BYTE_N = 4096  # byte-engine rows: 2 x 4 GiB of uint8 planes at 1 Mi loci
 FLAGSHIP_ODD = dict(FLAGSHIP, m=8 * 131_040)
 BYTE_ODD_M = 8 * 131_071
 # each path: the kernels it must launch; its counts are read after it runs
-SEGMENT_LEDGER = ("cdf_bins", "merge_count", "gather_rows", "meiose_merge")
+SEGMENT_LEDGER = ("point_draws", "merge_count", "gather_rows",
+                  "meiose_merge")
 SEGMENT = SEGMENT_LEDGER + ("gamete_inherit",)
 PATHS = {
     "segment_slice": SEGMENT,
@@ -348,17 +356,19 @@ PATHS = {
     "dense_mesh1": ("meiose_packed", "gather_rows"),
     "dense_mesh2": ("meiose_packed", "gather_rows"),
 }
-HOME_PATH = {"cdf_bins": "segment_slice", "merge_count": "segment_slice",
+HOME_PATH = {"cdf_bins": "segment_slice", "point_draws": "segment_slice",
+             "merge_count": "segment_slice",
              "gather_rows": "segment_slice", "meiose_merge": "segment_slice",
              "gamete_inherit": "segment_slice",
              "meiose_packed": "dense_slice", "meiose_planes": "byte_engine",
              "paint": "segment_gather"}
 # launches a generation of the segment slice's stacked kernels on fresh
-# planes: one bins launch per kind of draw (father's and mother's
+# planes: one draws launch per kind of draw (father's and mother's
 # crossovers, mutations), one gather per parent and table (CV rows,
 # mutation rows), one count (the probe) and one merge (the real pass) over
 # every chromosome and parent, one gamete inheritance a parent
-SEGMENT_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 4, "merge_count": 1,
+SEGMENT_FRESH_PER_GEN = {"point_draws": 3, "gather_rows": 4,
+                         "merge_count": 1,
                          "meiose_merge": 1, "gamete_inherit": 2}
 # in place (every constant-size generation on one 'ind' rank): the real
 # pass a group of 2 chromosomes at a time, one merge, 4 gathers and 2
@@ -368,12 +378,13 @@ SEGMENT_PER_GEN = dict(SEGMENT_FRESH_PER_GEN, gather_rows=4 * GROUPS,
                        meiose_merge=GROUPS, gamete_inherit=2 * GROUPS)
 # past 1.5e9 bytes of plan (300,000 and 1e6 here) the probe draws and
 # counts a group at a time, and the real pass draws each group's plan
-# again: 3 bins launches a group twice, one count a group
-PER_GROUP_PER_GEN = dict(SEGMENT_PER_GEN, cdf_bins=2 * 3 * GROUPS,
+# again: 3 draws launches a group twice, one count a group
+PER_GROUP_PER_GEN = dict(SEGMENT_PER_GEN, point_draws=2 * 3 * GROUPS,
                          merge_count=GROUPS)
 # the gather path: no CV-row gathers; one paint a phenotype (one here) and
 # generation, and one more for generation 0's A/D
-GATHER_FRESH_PER_GEN = {"cdf_bins": 3, "gather_rows": 2, "merge_count": 1,
+GATHER_FRESH_PER_GEN = {"point_draws": 3, "gather_rows": 2,
+                        "merge_count": 1,
                         "meiose_merge": 1, "gamete_inherit": 2, "paint": 1}
 GATHER_PER_GEN = dict(GATHER_FRESH_PER_GEN, gather_rows=2 * GROUPS,
                       meiose_merge=GROUPS, gamete_inherit=2 * GROUPS)
@@ -482,8 +493,10 @@ def _wrappers():
     from geneevolve_tpu_torch.ops.meiose_planes import meiose_planes
     from geneevolve_tpu_torch.ops.merge_count import merge_count
     from geneevolve_tpu_torch.ops.paint import paint
+    from geneevolve_tpu_torch.ops.point_draws import point_draws
 
-    return dict(cdf_bins=cdf_bins, merge_count=merge_count,
+    return dict(cdf_bins=cdf_bins, point_draws=point_draws,
+                merge_count=merge_count,
                 gather_rows=gather_rows, meiose_merge=meiose_merge,
                 gamete_inherit=gamete_inherit,
                 meiose_packed=meiose_packed, meiose_planes=meiose_planes,
@@ -577,6 +590,31 @@ def _bins_work(u, cum) -> dict:
     # probes in and bins out once, the CDFs once; a binary search a probe
     return _bound(_nbytes(u, cum) + 4 * u.numel(),
                   2 * u.numel() * _log2(cum.shape[-1]))
+
+
+def _draws_work(counts, unif, v, cum, bp, width, live, inclusive, bp0=None,
+                bp_step=None) -> dict:
+    # what the points need, read once: a row's count, its uniforms up to
+    # slot k and within-bin uniforms up to k - 1 (k its clipped count),
+    # the CDFs (and anchor tables) once; every position written once. A
+    # binary search of the CDF a point
+    import torch
+
+    C, n, cap = v.shape
+    k = counts.clamp_max(cap)[torch.as_tensor(live, device=counts.device)]
+    points = int(k.sum())
+    reads = 4 * (int(k.numel()) + 2 * points + int(k.numel())) + _nbytes(cum)
+    reads += 0 if bp0 is not None else _nbytes(bp)
+    return _bound(reads + 4 * C * n * cap,
+                  2 * points * _log2(cum.shape[-1]))
+
+
+def _draws_library(args) -> dict:
+    """The chain the kernel replaced: `torch.cumsum`, `cdf_bins` and
+    `_place` a chromosome at a time (the plain version, run on the card)."""
+    from geneevolve_tpu_torch.ops import point_draws as pd
+
+    return {"cumsum_cdf_bins_place": lambda: pd.point_draws_plain(*args)}
 
 
 def _gather_work(table, idx, axis) -> dict:
@@ -765,6 +803,7 @@ def kernel_phase(dev) -> list:
     from geneevolve_tpu_torch.ops import materialize as mat
     from geneevolve_tpu_torch.ops import meiose_merge as mm
     from geneevolve_tpu_torch.ops import merge_count as mc
+    from geneevolve_tpu_torch.ops import point_draws as pd
 
     BIG = segments.BIG
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -807,9 +846,16 @@ def kernel_phase(dev) -> list:
     # father's gametes and the mother's, as `_plan` draws them
     gens = [torch.Generator(device=dev).manual_seed(77 + c)
             for c in range(nchr)]
-    xo_f, xo_m = (segments.sample_point_process_stacked(
-        gens, n, K, cum, cum[:, -1].tolist(), bp.expand(nchr, -1),
-        [float(width)] * nchr, False) for _ in range(2))
+    drawn, draws = [], segments.point_draws
+    segments.point_draws = lambda *a: drawn.append(a) or draws(*a)
+    try:
+        xo_f, xo_m = (segments.sample_point_process_stacked(
+            gens, n, K, cum, cum[:, -1].tolist(),
+            bp.expand(nchr, -1).contiguous(), [float(width)] * nchr, False)
+            for _ in range(2))
+    finally:
+        segments.point_draws = draws
+    d = drawn[0]  # the father's crossovers
     sh = torch.randint(0, 2, (nchr, n, 2), generator=g, device=dev,
                        dtype=torch.int32)
     parents = torch.randint(0, n, (2, n), generator=g, device=dev,
@@ -824,6 +870,9 @@ def kernel_phase(dev) -> list:
     one = [x if x is parents else x[:1] for x in merge_args]  # chromosome 1
 
     cases = {
+        "point_draws": (
+            lambda: pd.point_draws(*d), lambda: pd.point_draws_plain(*d),
+            _draws_work(*d), _draws_library(d), None),
         "cdf_bins": (
             lambda: cb.cdf_bins(u, cum), lambda: cb.cdf_bins_plain(u, cum),
             _bins_work(u, cum),
@@ -1793,33 +1842,33 @@ def segment_slice(dev, work: Path) -> dict:
     generation that read the parents (`_ParentLaunches`: a host copy of
     the parents' planes taken before that generation, outside its timing,
     since its real pass writes the children over them), and its plan's
-    arguments with a checksum of each of its stacked probe tensors (one
+    arguments with a checksum of each of its stacked draws of uniforms (one
     reduction on the card each, no copy and no host sync inside the timed
     run), so that the plan is drawn again after the run."""
     from geneevolve_tpu_torch.core import engine, segments
 
-    captured = {"cdf_bins": [], "plan": None}
-    bins, plan = segments.cdf_bins, engine.Simulation._plan
-    last = SEGMENT_PER_GEN["cdf_bins"] * (SCENARIO["gens"] - 1)
+    captured = {"point_draws": [], "plan": None}
+    draws, plan = segments.point_draws, engine.Simulation._plan
+    last = SEGMENT_PER_GEN["point_draws"] * (SCENARIO["gens"] - 1)
     seen = [0]
 
     def plan_rec(self, p, gen, n_pad, c0=0, c1=None):
         captured["plan"] = (self, p, gen, n_pad)
         return plan(self, p, gen, n_pad, c0, c1)
 
-    def bins_rec(u, cum):
+    def draws_rec(*a):
         seen[0] += 1
         if seen[0] > last:  # the last generation's launches
-            captured["cdf_bins"].append(_checksum(u))
-        return bins(u, cum)
+            captured["point_draws"].append(_checksum(a[1]))
+        return draws(*a)
 
-    segments.cdf_bins, engine.Simulation._plan = bins_rec, plan_rec
+    segments.point_draws, engine.Simulation._plan = draws_rec, plan_rec
     try:
         with _ParentLaunches(SCENARIO["gens"]) as rec:
             out = slice_phase(dev, work, "table31", SCENARIO,
                               before_step=rec.before_step)
     finally:
-        segments.cdf_bins, engine.Simulation._plan = bins, plan
+        segments.point_draws, engine.Simulation._plan = draws, plan
     captured["parents"] = rec
     out["captured"] = captured
     sim = out.pop("sim")
@@ -1843,23 +1892,21 @@ def segment_slice_kernels(kernels: list, captured: dict) -> dict:
     slice's last generation's own inputs, bit-exact: every launch that
     read the parents (`_recheck`: the count, the 11 merges, each equal to
     the children the run wrote over the parents, and the 44 gathers), and
-    its 3 bins launches; timed into the kernels' `entries`: the bins, the
-    last group's 4 gathers, the count, the merge of the last group and, at
-    the stacked shape of the probe, over every chromosome (both modes).
+    its 3 draws launches; timed into the kernels' `entries`: the draws,
+    the last group's 4 gathers, the count, the merge of the last group and,
+    at the stacked shape of the probe, over every chromosome (both modes).
     The plan is drawn again by the last generation's `_plan` (a fresh
-    generator per chromosome, seeded from the generation): its probes must
+    generator per chromosome, seeded from the generation): its draws must
     match the run's checksums."""
-    import torch
-
     from geneevolve_tpu_torch.core import segments
-    from geneevolve_tpu_torch.ops import cdf_bins as cb
     from geneevolve_tpu_torch.ops import meiose_merge as mm
+    from geneevolve_tpu_torch.ops import point_draws as pd
 
     by_name = {k["name"]: k for k in kernels}
     names = ("crossovers_father", "crossovers_mother", "mutations")
-    if len(captured["cdf_bins"]) != len(names):
-        raise AssertionError("segment slice: last generation's bins "
-                             f"launches {len(captured['cdf_bins'])}")
+    if len(captured["point_draws"]) != len(names):
+        raise AssertionError("segment slice: last generation's draws "
+                             f"launches {len(captured['point_draws'])}")
     res = _recheck("table31", captured["parents"], children=True)
     want = dict(merge_count=1, meiose_merge=GROUPS,
                 gather_rows=SEGMENT_PER_GEN["gather_rows"],
@@ -1868,32 +1915,26 @@ def segment_slice_kernels(kernels: list, captured: dict) -> dict:
         raise AssertionError(f"table31: last generation's launches "
                              f"{res['checked']}, {want} expected")
     sim, p, gen, n_pad = captured["plan"]
-    probes, bins = [], segments.cdf_bins
-
-    def bins_rec(u, cum):
-        probes.append((u, cum))
-        return bins(u, cum)
-
-    segments.cdf_bins = bins_rec
+    drawn, draws = [], segments.point_draws
+    segments.point_draws = lambda *a: drawn.append(a) or draws(*a)
     try:
         xo_f, xo_m, sh = sim._plan(p, gen, n_pad)[:3]
     finally:
-        segments.cdf_bins = bins
+        segments.point_draws = draws
     del sim
-    if [int(_checksum(u)) for u, _ in probes] != [
-            int(c) for c in captured["cdf_bins"]]:
-        raise AssertionError("segment slice: the last generation's probes, "
+    if [int(_checksum(a[1])) for a in drawn] != [
+            int(c) for c in captured["point_draws"]]:
+        raise AssertionError("segment slice: the last generation's draws, "
                              "drawn again, differ from the run's")
-    for (u, cum), what in zip(probes, names):
-        shape = f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs"
-        r = _compare(f"cdf_bins/segment_slice/{what}",
-                     lambda: cb.cdf_bins(u, cum),
-                     lambda: cb.cdf_bins_plain(u, cum), _bins_work(u, cum),
-                     {"searchsorted": lambda: torch.searchsorted(
-                         cum, u.view(cum.shape[0], -1), right=True,
-                         out_int32=True)})
-        by_name["cdf_bins"].setdefault("entries", []).append(
-            dict(entry=f"segment_slice/{what}", shape=shape, **r))
+    for a, what in zip(drawn, names):
+        r = _compare(f"point_draws/segment_slice/{what}",
+                     lambda: pd.point_draws(*a),
+                     lambda: pd.point_draws_plain(*a), _draws_work(*a),
+                     _draws_library(a))
+        by_name["point_draws"].setdefault("entries", []).append(
+            dict(entry=f"segment_slice/{what}",
+                 shape=f"{tuple(a[2].shape)} points over "
+                 f"{tuple(a[3].shape)} CDFs", **r))
     _parent_entries(by_name, "segment_slice", res["last"], gathers=(
         "cv_rows_father", "mutation_rows_father", "cv_rows_mother",
         "mutation_rows_mother"), merge="real_pass_group", count="probe",
@@ -2285,16 +2326,16 @@ def _check_multipop(name: str, sim, root: Path, scenario: dict) -> dict:
 def _launches_from_log(log: list, gather_path: bool) -> dict:
     """The stacked kernels' launches a run's reproduce passes make, from
     its capacity log (whether each (generation, population) ran in place
-    and drew its plan a group at a time): whole plan, 3 bins and 1 count;
-    per group, twice 3 bins and 1 count a group; fresh planes, 1 merge,
+    and drew its plan a group at a time): whole plan, 3 draws and 1
+    count; per group, twice 3 draws and 1 count a group; fresh planes, 1 merge,
     a gather a parent and table and a gamete inheritance a parent; in
     place, those a group."""
     tables = 1 if gather_path else 2
-    out = {"cdf_bins": 0, "merge_count": 0, "gather_rows": 0,
+    out = {"point_draws": 0, "merge_count": 0, "gather_rows": 0,
            "meiose_merge": 0, "gamete_inherit": 0}
     for c in log:
         groups = GROUPS if c["in_place"] else 1
-        out["cdf_bins"] += 2 * 3 * GROUPS if c["per_group"] else 3
+        out["point_draws"] += 2 * 3 * GROUPS if c["per_group"] else 3
         out["merge_count"] += GROUPS if c["per_group"] else 1
         out["meiose_merge"] += groups
         out["gather_rows"] += 2 * tables * groups
@@ -2577,11 +2618,9 @@ def biobank_kernels(kernels: list, name: str, rec, per_gen: dict) -> dict:
     plain version (in `_plain_chunked`'s chunks past 2^20 chromosome and
     child rows), each merge equal to every row of the children the run
     wrote. Timed into the kernels' `entries`: the last merge, the last
-    count, the last 2 gathers and the bins of the last launch's draw."""
-    import torch
-
+    count, the last 2 gathers and the draws of the last launch's plan."""
     from geneevolve_tpu_torch.core import segments
-    from geneevolve_tpu_torch.ops import cdf_bins as cb
+    from geneevolve_tpu_torch.ops import point_draws as pd
 
     res = _recheck(name, rec, children=True)
     want = {k: per_gen[k] for k in PARENT_KERNELS}
@@ -2596,29 +2635,22 @@ def biobank_kernels(kernels: list, name: str, rec, per_gen: dict) -> dict:
     (_, _, _, (pop, c0, c1)), = res["last"]["meiose_merge"]
     sim = rec.sim
     p, gen, n_pad = rec.plans[pop]
-    probes, bins = [], segments.cdf_bins
-
-    def bins_rec(u, cum):
-        probes.append((u, cum))
-        return bins(u, cum)
-
+    drawn, draws = [], segments.point_draws
     del res
-    segments.cdf_bins = bins_rec
+    segments.point_draws = lambda *a: drawn.append(a) or draws(*a)
     try:
         sim._plan(p, gen, n_pad, c0, c1)
     finally:
-        segments.cdf_bins = bins
-    u, cum = probes[0]
-    r = _compare(f"cdf_bins/{name}/crossovers_father",
-                 lambda: cb.cdf_bins(u, cum),
-                 lambda: cb.cdf_bins_plain(u, cum), _bins_work(u, cum),
-                 {"searchsorted": lambda: torch.searchsorted(
-                     cum, u.view(cum.shape[0], -1), right=True,
-                     out_int32=True)})
-    by_name["cdf_bins"].setdefault("entries", []).append(
+        segments.point_draws = draws
+    a = drawn[0]
+    del drawn
+    r = _compare(f"point_draws/{name}/crossovers_father",
+                 lambda: pd.point_draws(*a), lambda: pd.point_draws_plain(*a),
+                 _draws_work(*a), _draws_library(a))
+    by_name["point_draws"].setdefault("entries", []).append(
         dict(entry=f"{name}/crossovers_father",
-             shape=f"{tuple(u.shape)} probes over {tuple(cum.shape)} CDFs "
-             f"(chromosomes {c0}-{c1 - 1}, every child)", **r))
+             shape=f"{tuple(a[2].shape)} points over {tuple(a[3].shape)} "
+             f"CDFs (chromosomes {c0}-{c1 - 1}, every child)", **r))
     return want
 
 
@@ -3820,9 +3852,9 @@ def _targets(kind: str) -> list:
     kernel's name, then `:entry` for another entry of it."""
     from geneevolve_tpu_torch.core import engine, segments
     from geneevolve_tpu_torch.dense import packed
-    from geneevolve_tpu_torch.ops import (cdf_bins, materialize,
-                                          meiose_merge, meiose_packed,
-                                          meiose_planes, merge_count, paint)
+    from geneevolve_tpu_torch.ops import (materialize, meiose_merge,
+                                          meiose_packed, meiose_planes,
+                                          merge_count, paint, point_draws)
     from geneevolve_tpu_torch.parallel import mesh
 
     window = (mesh, "meiose_packed_window", "meiose_packed:window",
@@ -3831,8 +3863,8 @@ def _targets(kind: str) -> list:
               materialize.gather_rows_plain, None, ())
     if kind == "segment":
         return [
-            (segments, "cdf_bins", "cdf_bins", cdf_bins.cdf_bins_plain,
-             None, ()),
+            (segments, "point_draws", "point_draws",
+             point_draws.point_draws_plain, None, ()),
             (engine, "merge_count", "merge_count",
              merge_count.merge_count_plain, None, ()),
             (engine, "meiose_merge", "meiose_merge",
@@ -4311,9 +4343,9 @@ class _MeshLaunches:
     of each stacked segment kernel in the last generation's last
     population, so that `_check_mesh_launches` can make it again after the
     run on its own inputs, without holding a plane or a plan inside the
-    timed run: for the bins, the arguments of the last `_plan` call and a
-    checksum of each probe tensor it drew (a reduction on the card, no
-    sync; the plan is drawn again after the run); for the count, its
+    timed run: for the draws, the arguments of the last `_plan` call and
+    a checksum of each stacked draw of uniforms it made (a reduction on the
+    card, no sync; the plan is drawn again after the run); for the count, its
     chromosome range, the address of the parents' block it read and the
     `_owned_gametes` it counted (small index tensors; its operands rebuilt
     after the run by the engine's `_count_columns`); for the merge and the
@@ -4330,7 +4362,7 @@ class _MeshLaunches:
         self.on = self.last_group = False
         self.sim, self.copy, self.calls = None, {}, {}
         self.plan = self.count = self.owned = None
-        self.bins: list = []
+        self.draws: list = []
         self.idle = 0
 
     def before_step(self, sim, gen):
@@ -4349,7 +4381,7 @@ class _MeshLaunches:
         self.saved = [(engine, k, getattr(engine, k)) for k in (
             "merge_count", "meiose_merge", "gather_rows_stacked",
             "gamete_inherit")] + [
-            (segments, "cdf_bins", segments.cdf_bins)] + [
+            (segments, "point_draws", segments.point_draws)] + [
             (sim_cls, k, getattr(sim_cls, k)) for k in (
                 "_reproduce", "_reproduce_group", "_plan",
                 "_owned_gametes", "_probe_counts")]
@@ -4372,7 +4404,7 @@ class _MeshLaunches:
 
         def plan(sim, p, gen, n_pad, c0=0, c1=None):
             if self.on:
-                self.plan, self.bins = (p, gen, n_pad, c0, c1), []
+                self.plan, self.draws = (p, gen, n_pad, c0, c1), []
             return fns["_plan"](sim, p, gen, n_pad, c0, c1)
 
         def owned(sim, parents, rows):
@@ -4386,10 +4418,10 @@ class _MeshLaunches:
             return fns["_probe_counts"](sim, seg_st, mut, parents, plan,
                                         owned)
 
-        def bins(u, cum):
+        def draws(*a):
             if self.on:
-                self.bins.append(_checksum(u))
-            return fns["cdf_bins"](u, cum)
+                self.draws.append(_checksum(a[1]))
+            return fns["point_draws"](*a)
 
         def count(seg_st, *a):
             if self.on:
@@ -4420,7 +4452,7 @@ class _MeshLaunches:
             return fns["gamete_inherit"](*a)
 
         engine.gamete_inherit = inherit
-        segments.cdf_bins = bins
+        segments.point_draws = draws
         sim_cls._reproduce, sim_cls._reproduce_group = reproduce, group
         sim_cls._plan, sim_cls._owned_gametes = plan, owned
         sim_cls._probe_counts = probe
@@ -4435,18 +4467,16 @@ class _MeshLaunches:
 
 def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
     """The launches `rec` recorded, made again (comparison launches, after
-    the counted run) against their plain versions, bit-exact: the bins of
+    the counted run) against their plain versions, bit-exact: the draws of
     the last `_plan` call, drawn again and held to the run's checksums;
     the count on the host copy of the parents' block it read, back on the
     card, with the columns `_count_columns` builds from the plan drawn
     again; the last group's merge, last gather and last gamete inheritance
     on their own arguments.
     Returns each kernel's max_abs_err."""
-    import torch
-
     from geneevolve_tpu_torch.core import segments
-    from geneevolve_tpu_torch.ops import cdf_bins as cb
     from geneevolve_tpu_torch.ops import merge_count as mc
+    from geneevolve_tpu_torch.ops import point_draws as pd
 
     sim = rec.sim
     if sim is None or rec.count is None or rec.owned is None or \
@@ -4454,24 +4484,19 @@ def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
                                "gamete_inherit"}:
         raise AssertionError(f"{path}: the last generation's launches were "
                              "not recorded")
-    seen, bins = [], segments.cdf_bins
-
-    def bins_rec(u, cum):
-        seen.append((u, cum))
-        return bins(u, cum)
-
-    segments.cdf_bins = bins_rec
+    seen, draws = [], segments.point_draws
+    segments.point_draws = lambda *a: seen.append(a) or draws(*a)
     try:
         sim._plan(*rec.plan)
     finally:
-        segments.cdf_bins = bins
-    if [int(_checksum(u)) for u, _ in seen] != [int(x) for x in rec.bins]:
+        segments.point_draws = draws
+    if [int(_checksum(a[1])) for a in seen] != [int(x) for x in rec.draws]:
         raise AssertionError(f"{path}: the plan drawn again differs from "
                              "the run's")
-    u, cum = seen[-1]
+    a = seen[-1]
     del seen
-    out = {"cdf_bins": _max_abs_err(cb.cdf_bins(u, cum),
-                                    cb.cdf_bins_plain(u, cum))}
+    out = {"point_draws": _max_abs_err(pd.point_draws(*a),
+                                       pd.point_draws_plain(*a))}
     (ptr, shape, dtype), (p, gen, n_pad), c0, c1 = rec.count
     for (pop, key), (start, host) in rec.copy.items():
         off = ptr - start
@@ -4497,7 +4522,7 @@ def _check_mesh_launches(path: str, rec: _MeshLaunches) -> dict:
     if bad:
         raise AssertionError(f"{path}: {bad} differ from their plain "
                              "versions")
-    print(f" {path}: cdf_bins, merge_count (chromosomes {c0}-{c1 - 1}, the "
+    print(f" {path}: point_draws, merge_count (chromosomes {c0}-{c1 - 1}, the "
           f"parents' block as it was read) == plain on the last "
           "generation's last launches")
     return out

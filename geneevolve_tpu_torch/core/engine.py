@@ -6,7 +6,7 @@ mate (host) -> reproduce (device) -> A/D (device) -> phenotypes, gamma,
 MV/SV (host, float64) -> info files. Reproduce has two passes:
 
 - the probe draws the whole generation plan once (crossovers, start
-  chromatids, de novo mutations; `ops/cdf_bins`, one launch over every
+  chromatids, de novo mutations; `ops/point_draws`, one launch over every
   chromosome per kind of draw) and counts the ledger
   slots it will need (`ops/merge_count`), so capacity grows before any
   child is written; past GE_PLAN_BYTES_MAX bytes of plan it draws and
@@ -1158,8 +1158,8 @@ class Simulation:
         Each chromosome draws, in this order, the father's crossovers, the
         mother's, the start chromatids, then the mutations and their
         chromatids; every chromosome's draw of one kind is taken before the
-        next kind's, so the bins of each kind are one stacked `cdf_bins`
-        launch (`segments.sample_point_process_stacked`)."""
+        next kind's, so the points of each kind are one stacked
+        `point_draws` launch (`segments.sample_point_process_stacked`)."""
         sm = p.smaps
         c1 = len(self.chrs) if c1 is None else c1
         cs = slice(c0, c1)

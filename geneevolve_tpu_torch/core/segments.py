@@ -9,9 +9,16 @@ Positions are int32 with `BIG = 2**30` (the JAX package's x64-off path).
 Layout follows the JAX public functions: (n, 2, S) ledgers, (n, K)
 crossover rows. The functions here are the plain versions: they run on any
 device, serve CPU tensors and the tests, and are the oracles of the CUDA
-kernels in `ops/` (merge, count, paint). Where the JAX package ranked candidates
-with O(L^2) compare-reduces to suit XLA, the torch versions sort stably —
-the same (value, candidate index) order, so the same result. Counterparts:
+kernels in `ops/` (merge, count, paint). The sampler draws with torch's
+generators and hands the draws to `ops/point_draws`, whose CUDA kernel
+replaces no TPU kernel: it fuses the plain chain from the draws to the
+positions (`point_draws_plain`: `torch.cumsum`, `cdf_bins`'s search,
+`_place`) into one launch a kind of draw, bound by the bytes of the draws
+and positions, and scans in torch.cumsum's order, since the benchmark's
+check draws the plan again with that chain and compares it exactly.
+Where the JAX package ranked candidates with O(L^2) compare-reduces to
+suit XLA, the torch versions sort stably — the same (value, candidate
+index) order, so the same result. Counterparts:
 `_active_at_T` -> `active_at`, `_seg_lookup_T` -> `hap_at`,
 `rank_compact_T` -> `rank_compact`, and `merge3_T` -> `rank_compact` over
 the concatenated candidates [X; A; B] inside `meiose`.
@@ -25,7 +32,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from geneevolve_tpu_torch.ops.cdf_bins import cdf_bins
+# `cdf_bins` is looked up here by `point_draws_plain` (tests substitute it)
+from geneevolve_tpu_torch.ops.cdf_bins import cdf_bins  # noqa: F401
+from geneevolve_tpu_torch.ops.point_draws import point_draws
 
 BIG = 2**30
 POS = torch.int32
@@ -197,15 +206,15 @@ def sample_point_process(
     count clipped to `cap`; the row's points are the order statistics of
     `count` uniforms on [0, total mass), built as normalized cumulative
     Exp(1) gaps `u = S_j / S_{count+1} * cum[-1]`; bins from the inverse CDF
-    (`ops/cdf_bins`, clamped to K-1); and a FRESH within-bin uniform for the
-    offset, so two same-bin points may be out of order within a row.
+    (clamped to K-1); and a FRESH within-bin uniform for the offset, so two
+    same-bin points may be out of order within a row.
     `inclusive_bins=False` is the crossover convention (`bp[j] +
-    U[0, width)`), True the mutation one (uniform over [bp[j-1], bp[j]])."""
-    if lam <= 0.0:
-        return torch.full((n, cap), BIG, dtype=POS, device=cum.device)
-    counts, u = _probes(gen, n, cap, cum, lam)
-    bins = cdf_bins(u[None], cum[None])[0]  # the stacked kernel, C = 1
-    return _place(gen, counts, bins, bp, width, inclusive_bins, bp0, bp_step)
+    U[0, width)`), True the mutation one (uniform over [bp[j-1], bp[j]]).
+    The stacked sampler's one-chromosome case."""
+    return sample_point_process_stacked(
+        [gen], n, cap, cum[None], [lam], bp[None], [width], inclusive_bins,
+        None if bp0 is None else [bp0], None if bp_step is None else [bp_step],
+    )[0]
 
 
 def sample_point_process_stacked(
@@ -214,49 +223,33 @@ def sample_point_process_stacked(
 ) -> torch.Tensor:
     """(C, n, cap): `sample_point_process` for C chromosomes at once, row c
     drawn from `gens[c]` over `cum[c]`, `lam[c]`, `bp[c]`, `width[c]` (and
-    `bp0[c]`, `bp_step[c]` when given). Each generator makes the same draws
-    in the same order as the one-chromosome call (the bins consume none),
-    so the result equals C such calls; the bins of every chromosome are
-    one `cdf_bins` launch over the stacked CDFs."""
+    `bp0[c]`, `bp_step[c]` when given). Each live chromosome's generator
+    draws, in order, the (n,) Poisson counts, the (n, cap + 1) uniforms of
+    the Exp(1) gaps and the (n, cap) within-bin uniforms, straight into
+    the stacked buffers; a chromosome of rate 0 draws nothing. One
+    `point_draws` call then turns every chromosome's draws into positions."""
     C = len(gens)
     device = cum.device
     live = [float(lam[c]) > 0.0 for c in range(C)]
-    u = torch.zeros((C, n, cap), dtype=torch.float32, device=device)
-    counts = [None] * C
+    counts = torch.empty((C, n), dtype=torch.float32, device=device)
+    unif = torch.empty((C, n, cap + 1), dtype=torch.float32, device=device)
+    v = torch.empty((C, n, cap), dtype=torch.float32, device=device)
     for c in range(C):
         if live[c]:
-            counts[c], u[c] = _probes(gens[c], n, cap, cum[c], float(lam[c]))
-    bins = cdf_bins(u, cum) if any(live) else None
-    out = torch.full((C, n, cap), BIG, dtype=POS, device=device)
-    for c in range(C):
-        if live[c]:
-            out[c] = _place(
-                gens[c], counts[c], bins[c], bp[c], float(width[c]),
-                inclusive_bins, None if bp0 is None else int(bp0[c]),
-                None if bp_step is None else int(bp_step[c]),
-            )
-    return out
+            rate = torch.full((n,), float(lam[c]), dtype=torch.float32,
+                              device=device)
+            counts[c] = torch.poisson(rate, generator=gens[c])
+            torch.rand((n, cap + 1), generator=gens[c], out=unif[c])
+            torch.rand((n, cap), generator=gens[c], out=v[c])
+    return point_draws(counts, unif, v, cum, bp, width, live, inclusive_bins,
+                       bp0, bp_step)
 
 
-def _probes(gen, n, cap, cum, lam):
-    """The Poisson counts and the uniforms on [0, total mass) whose bins
-    the points take: normalized cumulative Exp(1) gaps."""
-    device = cum.device
-    rate = torch.full((n,), float(lam), dtype=torch.float32, device=device)
-    counts = torch.poisson(rate, generator=gen).clamp_max(cap).long()
-    unif = torch.rand((n, cap + 1), generator=gen, device=device)
-    s = torch.cumsum(-torch.log1p(-unif), dim=1)
-    denom = s.gather(1, counts[:, None])
-    return counts, s[:, :cap] / torch.clamp(denom, min=1e-30) * cum[-1]
-
-
-def _place(gen, counts, bins, bp, width, inclusive_bins, bp0, bp_step):
-    """Positions in the drawn bins, from a fresh within-bin uniform."""
+def _place(v, counts, bins, bp, width, inclusive_bins, bp0, bp_step):
+    """Positions in the drawn bins, from the within-bin uniforms `v`."""
     n, cap = bins.shape
     device = bins.device
-    v = torch.clamp(
-        torch.rand((n, cap), generator=gen, device=device), max=1.0 - 1e-7
-    )
+    v = torch.clamp(v, max=1.0 - 1e-7)
     if bp0 is not None:
         bp_bin = bp0 + bins * bp_step
         bp_prev = bp_bin - bp_step

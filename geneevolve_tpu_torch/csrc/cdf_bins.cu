@@ -23,18 +23,14 @@
 // shared memory and searched the rest through L1/L2, stalled on those
 // dependent reads (PERF.md, Findings).
 //
-// Exactness: an entry counts unless it is > x (not "if it is <= x"), as
-// in torch.searchsorted, so a NaN probe counts every entry there too;
-// padding that repeats the last value counts like searchsorted, as the
-// search runs over the padded row as given.
+// Exactness: the search (`ge_cdf_search`, common.cuh, shared with
+// point_draws.cu) counts an entry unless it is > x, as torch.searchsorted
+// does, NaN probes and repeated padding included.
 #include "common.cuh"
 
 #define GE_THREADS 256
 #define GE_PROBES_PER_THREAD 4
 #define GE_MAX_SMEM (227 * 1024)
-
-// an entry counts unless it is > x
-__device__ __forceinline__ int ge_le(float v, float x) { return !(v > x); }
 
 __global__ void __launch_bounds__(GE_THREADS)
     cdf_bins_kernel(const float* __restrict__ u, const float* __restrict__ cum,
@@ -51,26 +47,17 @@ __global__ void __launch_bounds__(GE_THREADS)
        i0 += (int64_t)gridDim.x * span) {
     // probes blockDim.x apart: each load and store coalesced
     float x[GE_PROBES_PER_THREAD];
-    int base[GE_PROBES_PER_THREAD];
+    int bin[GE_PROBES_PER_THREAD];
 #pragma unroll
     for (int k = 0; k < GE_PROBES_PER_THREAD; ++k) {
       const int64_t i = i0 + (int64_t)k * blockDim.x;
       x[k] = i < P ? ur[i] : 0.0f;
-      base[k] = 0;
     }
-    // invariant: the count lies in [base, base + len]
-    for (int len = K; len > 1;) {
-      const int half = len >> 1;
-#pragma unroll
-      for (int k = 0; k < GE_PROBES_PER_THREAD; ++k)
-        base[k] += ge_le(s_cum[base[k] + half - 1], x[k]) ? half : 0;
-      len -= half;
-    }
+    ge_cdf_search(s_cum, K, x, bin);
 #pragma unroll
     for (int k = 0; k < GE_PROBES_PER_THREAD; ++k) {
       const int64_t i = i0 + (int64_t)k * blockDim.x;
-      const int cnt = base[k] + ge_le(s_cum[base[k]], x[k]);
-      if (i < P) orow[i] = cnt < K - 1 ? cnt : K - 1;
+      if (i < P) orow[i] = bin[k];
     }
   }
 }

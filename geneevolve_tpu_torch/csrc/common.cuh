@@ -20,6 +20,40 @@ static inline int ge_blocks(int64_t n, int threads, int max_blocks) {
 }
 
 // ---------------------------------------------------------------------------
+// The inverse-CDF search of the samplers, shared by cdf_bins.cu and
+// point_draws.cu: bin[k] = min(#{j : cum[j] <= x[k]}, K - 1) over the f32
+// CDF cum[0..K) (in shared memory), N probes side by side so that their
+// loads are in flight together. An entry counts unless it is > x (not "if
+// it is <= x"), as in torch.searchsorted, so a NaN probe counts every entry
+// there too; padding that repeats the last value counts like searchsorted,
+// as the search runs over the padded row as given.
+
+// an entry counts unless it is > x
+__device__ __forceinline__ int ge_le(float v, float x) { return !(v > x); }
+
+template <int N>
+__device__ __forceinline__ void ge_cdf_search(const float* cum, int K,
+                                              const float (&x)[N],
+                                              int (&bin)[N]) {
+  int base[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) base[k] = 0;
+  // invariant: the count lies in [base, base + len]
+  for (int len = K; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      base[k] += ge_le(cum[base[k] + half - 1], x[k]) ? half : 0;
+    len -= half;
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int cnt = base[k] + ge_le(cum[base[k]], x[k]);
+    bin[k] = cnt < K - 1 ? cnt : K - 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The ledger merge's first phase, one warp per gamete: shared by the capacity
 // probe's count (merge_count.cu) and the merge itself (meiose_merge.cu), so
 // that both count a gamete's copied parent slots with the same code (the

@@ -55,6 +55,10 @@ SIGNATURES = {
         _P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
         _I, _I, _I, _I, _P,
     ],
+    "ge_point_draws": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
+        _I, _I, _P,
+    ],
     "ge_paint": [
         _P, _P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I,
         _I, _I, _I, _I64, _I, _I, _P,

@@ -3,9 +3,9 @@ for C stacked CDFs (one per chromosome) in one launch; one CDF is C = 1.
 
 CUDA kernel: `csrc/cdf_bins.cu` (replaces geneevolve_tpu/ops/
 cdf_bins_pallas.py `searchsorted_right`). The kernel only maps `u` to
-bins; `u` itself comes from the same torch expression on both paths
-(`core/segments.py:_probes`), so the two paths agree bit for
-bit on the bins.
+bins, bit for bit as `torch.searchsorted`. The sampler's main path on the
+card searches inside `ops/point_draws` (the same search, `common.cuh`);
+this op serves that op's plain chain (`point_draws_plain`).
 """
 
 from __future__ import annotations

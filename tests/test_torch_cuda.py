@@ -6,6 +6,8 @@ GPU machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from geneevolve_tpu_torch.ops import meiose_packed as tpacked
 from geneevolve_tpu_torch.ops import meiose_planes as tplanes
 from geneevolve_tpu_torch.ops import merge_count as tcount
 from geneevolve_tpu_torch.ops import paint as tpaint
+from geneevolve_tpu_torch.ops import point_draws as tdraws
 from torch_cases import (BIG, CASES, INHERIT_CASES, INHERIT_PARTS,
                          PAINT_CASES, STACKED_CASES, cdf, dense_plan,
                          foreign_slots, inherit_case, inherit_planes,
@@ -773,3 +776,131 @@ def test_cuda_gamete_inherit_refuses_rows_past_shared_memory(cuda):
     args = inherit_case(g, 1, 4, 8, 15_000, 4, 10, 1 << 20, device=cuda)
     with pytest.raises(ValueError):
         inherit_planes(tinherit.gamete_inherit, args, 15_000, "both", 0)
+
+
+# ------------------------------------------------------- the sampler's draws
+def _draws(cuda, seed, C, n, cap, K, lam, affine):
+    """C chromosomes' draws as the sampler makes them (Poisson counts, the
+    gaps' uniforms, the within-bin uniforms), over CDFs and anchors of K
+    entries with flat runs, padded as `StackedMaps` pads them."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cum = np.stack([cdf(rng, K) for _ in range(C)])
+    cum[0, K // 2:] = cum[0, K // 2]
+    bp = np.cumsum(rng.integers(1, 90_000, size=(C, K)), 1).astype(np.int32)
+    rate = T(np.float32(lam), device=cuda)[:, None].expand(C, n)
+    counts = torch.poisson(rate.contiguous(), generator=g)
+    unif = torch.rand((C, n, cap + 1), generator=g, device=cuda)
+    v = torch.rand((C, n, cap), generator=g, device=cuda)
+    live = [float(x) > 0 for x in lam]
+    width = rng.integers(1, 60_000, size=C).astype(np.float32)
+    kw = dict(bp0=rng.integers(0, 10_000, size=C).astype(np.int32),
+              bp_step=rng.integers(1, 60_000, size=C).astype(np.int32)) \
+        if affine else {}
+    return (counts, unif, v, T(cum, device=cuda), T(bp, device=cuda), width,
+            live), kw
+
+
+def _check_draws(args, kw, inclusive):
+    """The kernel equals the plain chain bit for bit; returns the
+    positions."""
+    got = tdraws.point_draws(*args, inclusive, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdraws.point_draws_plain(*args, inclusive, **kw))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30_708, 302_204, 501_500])
+@pytest.mark.parametrize("C, cap, inclusive, affine", [
+    (1, 23, False, True), (2, 23, False, False), (22, 23, False, True),
+    (1, 11, True, False), (2, 11, True, True), (22, 11, True, False),
+])
+def test_cuda_point_draws_at_cell_shapes(cuda, n, C, cap, inclusive,
+                                         affine):
+    """The segment cells' shapes: 30,708 to 501,500 gametes, one
+    chromosome, a group of 2 and all 22, crossover rows of 24 slots and
+    mutation rows of 12, affine and table anchors; rates up to past the
+    cap (so counts clip) and a chromosome of rate 0 among several."""
+    lam = np.linspace(0.5, cap + 4.0, C)
+    if C > 1:
+        lam[C // 2] = 0.0
+    args, kw = _draws(cuda, n + C + cap, C, n, cap, 4981 if C < 22 else 997,
+                      lam, affine)
+    got = _check_draws(args, kw, inclusive)
+    if C > 1:
+        assert bool((got[C // 2] == BIG).all())
+    assert bool((got < BIG).any())
+    assert tdraws.torch_scan_threads(n, cap + 1) == 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, R", [
+    (20_000, 40), (20_000, 70), (20_000, 33), (300_000, 33), (300_000, 70),
+    (600, 40), (2, 70), (3, 24),
+])
+def test_cuda_point_draws_past_32_slots(cuda, n, R):
+    """Rows past 32 slots follow torch's chunks: at 20,000 rows torch puts
+    16 threads on a row (chunks of 32 slots: two or three a row), at
+    300,000 the wrapped heuristic's 512 (one chunk), at 600 and 2 rows
+    others; rates high enough that most rows fill their cap."""
+    cap = R - 1
+    args, kw = _draws(cuda, n + R, 3, n, cap, 1000, [R - 2.0, 0.0, R / 3],
+                      False)
+    _check_draws(args, kw, False)
+    args, kw = _draws(cuda, n + R + 1, 2, n, cap, 700, [R + 5.0, 1.0], True)
+    _check_draws(args, kw, True)
+
+
+@pytest.mark.cuda
+def test_cuda_point_draws_refuses_bad_inputs(cuda):
+    args, kw = _draws(cuda, 5, 2, 100, 7, 50, [1.0, 2.0], False)
+    with pytest.raises(ValueError):  # one row: torch scans it with cub
+        tdraws.point_draws(*(a[:, :1] if i < 3 else a
+                             for i, a in enumerate(args)), False)
+    with pytest.raises(TypeError):
+        tdraws.point_draws(args[0].double(), *args[1:], False)
+    with pytest.raises(ValueError):
+        tdraws.point_draws(*args[:4], args[4][:, :10], *args[5:], False)
+
+
+@pytest.mark.cuda
+def test_cuda_plan_point_draws_equal_plain(cuda, tmp_path, monkeypatch):
+    """`Simulation._plan` on the card, over a 22-chromosome scenario with a
+    mutation map: one `point_draws` launch a kind of draw (3 a call), and
+    the plan bit-equal to the one the plain chain draws, the whole plan
+    and a group's."""
+    from geneevolve_tpu_torch.config import parse_args
+    from geneevolve_tpu_torch.core import engine, segments
+    from tools.mkscenario import make_scenario
+
+    flags = make_scenario(str(tmp_path / "pop"), n0=200, pop_size=3000,
+                          gens=2, nchr=22, ncv=5, seed=4)
+    rows = [line.split() for line in Path(
+        flags["file_recom_map"]).read_text().splitlines()[1:]]
+    per_chr = {}
+    for c, bp, _ in rows:
+        per_chr.setdefault(c, []).append(bp)
+    mut = tmp_path / "mut.txt"
+    mut.write_text("chr bp rate\n" + "".join(
+        f"{c} {bp} {1.0 / len(bps):.8g}\n" for c, bps in per_chr.items()
+        for bp in bps))
+    argv = [x for k, v in flags.items() for x in (f"--{k}", v)] + [
+        "--file_mutation_map", str(mut), "--seed", "7",
+        "--prefix", str(tmp_path / "out")]
+    sim = engine.Simulation(parse_args(argv), device=cuda, verbose=False)
+    sim.init_generation0()
+    p, n_pad = sim.pops[0], 3071
+    assert sim.has_mut
+    for c0, c1 in ((0, None), (4, 6)):
+        tdraws.point_draws.launches = 0
+        got = sim._plan(p, 1, n_pad, c0, c1)
+        torch.cuda.synchronize()
+        assert tdraws.point_draws.launches == 3
+        with monkeypatch.context() as m:
+            m.setattr(segments, "point_draws", tdraws.point_draws_plain)
+            want = sim._plan(p, 1, n_pad, c0, c1)
+        assert tdraws.point_draws.launches == 3
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    sim._io_pool.shutdown(wait=True)

@@ -23,6 +23,7 @@ from geneevolve_tpu_torch.ops import gamete_inherit as tinherit
 from geneevolve_tpu_torch.ops import materialize as tmat
 from geneevolve_tpu_torch.ops import meiose_merge as tmerge
 from geneevolve_tpu_torch.ops import merge_count as tcount
+from geneevolve_tpu_torch.ops import point_draws as tdraws
 from torch_cases import CASES, STACKED_CASES, cdf as _cdf, probes as _probes
 from torch_cases import (INHERIT_CASES, INHERIT_PARTS, inherit_case,
                          inherit_planes)
@@ -232,6 +233,15 @@ def test_stacked_merge_truncates_like_meiose(S, K, cap, merge_ibd):
                                          device="meta"),) * 5),
     ("meiose_merge", lambda: (torch.zeros(1, 2, 2, 3, dtype=torch.int32,
                                           device="meta"),) * 6 + (3,)),
+    ("point_draws", lambda: (torch.zeros(2, 3, dtype=torch.float64),
+                             torch.zeros(2, 3, 5), torch.zeros(2, 3, 4),
+                             torch.zeros(2, 7),
+                             torch.zeros(2, 7, dtype=torch.int32),
+                             [1.0, 1.0], [True, True], False)),
+    ("point_draws", lambda: (torch.zeros(2, 3), torch.zeros(2, 3, 4),
+                             torch.zeros(2, 3, 4), torch.zeros(2, 7),
+                             torch.zeros(2, 7, dtype=torch.int32),
+                             [1.0, 1.0], [True, True], False)),
     ("gamete_inherit", lambda: (
         torch.zeros(1, 2, 2, 3, dtype=torch.int32, device="meta"), None,
         *(torch.zeros(1, 2, 3, dtype=torch.int32, device="meta"),) * 1,
@@ -242,7 +252,8 @@ def test_stacked_merge_truncates_like_meiose(S, K, cap, merge_ibd):
 ])
 def test_wrappers_reject_bad_inputs(fn, args):
     mod = {"cdf_bins": tbins, "merge_count": tcount,
-           "meiose_merge": tmerge, "gamete_inherit": tinherit}[fn]
+           "meiose_merge": tmerge, "gamete_inherit": tinherit,
+           "point_draws": tdraws}[fn]
     with pytest.raises((TypeError, ValueError)):
         getattr(mod, fn)(*args())
 

@@ -190,6 +190,88 @@ def test_stacked_sampler_equals_per_chromosome(inclusive, affine):
     assert bool((got[3] == BIG).all()) and bool((got[:3] < BIG).any())
 
 
+def _torch_chain(gen, n, cap, cum, lam, bp, width, inclusive, bp0=None,
+                 bp_step=None):
+    """One chromosome's points as a chain of torch ops: the draws, then
+    the scan, the inverse-CDF bins and the placement, each op as the
+    benchmark's check draws the plan again."""
+    if lam <= 0.0:
+        return torch.full((n, cap), BIG, dtype=torch.int32)
+    rate = torch.full((n,), float(lam), dtype=torch.float32)
+    counts = torch.poisson(rate, generator=gen).clamp_max(cap).long()
+    unif = torch.rand((n, cap + 1), generator=gen)
+    s = torch.cumsum(-torch.log1p(-unif), dim=1)
+    denom = s.gather(1, counts[:, None])
+    u = s[:, :cap] / torch.clamp(denom, min=1e-30) * cum[-1]
+    bins = torch.searchsorted(cum, u, right=True).clamp_max(
+        cum.shape[0] - 1).to(torch.int32)
+    v = torch.clamp(torch.rand((n, cap), generator=gen), max=1.0 - 1e-7)
+    if bp0 is not None:
+        hi = bp0 + bins * bp_step
+        lo = hi - bp_step
+    else:
+        hi = bp[bins.long()]
+        lo = bp[torch.clamp(bins - 1, min=0).long()]
+    if inclusive:
+        pos = lo + torch.floor(v * (hi - lo + 1).to(torch.float32)).to(
+            torch.int32)
+    else:
+        pos = hi + torch.floor(v * float(width)).to(torch.int32)
+    live = torch.arange(cap)[None, :] < counts[:, None]
+    return torch.where(live, pos.to(torch.int32), BIG)
+
+
+@pytest.mark.parametrize("num_rows, row_size, threads", [
+    (302_204, 24, 512), (30_708, 12, 512), (20_000, 40, 16), (100, 24, 16),
+    (501_500, 24, 512), (100, 1000, 64),
+])
+def test_torch_scan_threads_mirror(num_rows, row_size, threads):
+    """The threads torch's CUDA cumsum puts on a row, as
+    `ScanUtils.cuh`'s `get_log_num_threads_x_inner_scan<uint32_t>` gives
+    them: the unsigned difference of the logs wraps past ~2^10 rows a
+    slot, and the clamp then gives 512."""
+    from geneevolve_tpu_torch.ops.point_draws import torch_scan_threads
+
+    assert torch_scan_threads(num_rows, row_size) == threads
+
+
+@pytest.mark.parametrize("n, cap, inclusive, affine", [
+    (3000, 23, False, False), (3000, 23, False, True), (2000, 11, True, False),
+    (2000, 11, True, True), (500, 40, False, False),
+])
+def test_sampler_equals_the_torch_chain(n, cap, inclusive, affine):
+    """The one-chromosome and the stacked sampler return, for fixed
+    generators, exactly what the chain of torch ops gives (on the CPU
+    `point_draws` runs its plain version), a zero-rate chromosome
+    included."""
+    maps = [_map(K=900, seed=1), _map(K=1200, seed=2), _map(K=600, seed=3)]
+    K = max(len(c) for c, _, _ in maps)
+    pad = lambda a: np.concatenate([a, np.full(K - len(a), a[-1])])
+    cum = torch.as_tensor(np.stack([pad(c) for c, _, _ in maps] + [
+        pad(maps[0][0])]))
+    bp = torch.as_tensor(np.stack([pad(b) for _, b, _ in maps] + [
+        pad(maps[0][1])]))
+    lam = np.array([2.0 * float(c[-1]) for c, _, _ in maps] + [0.0],
+                   np.float32)
+    width = np.full(4, 0.0 if inclusive else 50_000.0, np.float32)
+    kw = dict(bp0=np.zeros(4, np.int32),
+              bp_step=np.full(4, 50_000, np.int32)) if affine else {}
+    seeds = [21, 22, 23, 24]
+    got = tseg.sample_point_process_stacked(
+        [torch.Generator().manual_seed(x) for x in seeds], n, cap, cum, lam,
+        bp, width, inclusive, **kw)
+    for c, x in enumerate(seeds):
+        one = {k: int(v[c]) for k, v in kw.items()}
+        want = _torch_chain(
+            torch.Generator().manual_seed(x), n, cap, cum[c], float(lam[c]),
+            bp[c], float(width[c]), inclusive, **one)
+        assert torch.equal(got[c], want), c
+        assert torch.equal(tseg.sample_point_process(
+            torch.Generator().manual_seed(x), n, cap, cum[c], float(lam[c]),
+            bp[c], float(width[c]), inclusive, **one), want), c
+    assert bool((got[:3] < BIG).any()) and bool((got[3] == BIG).all())
+
+
 def test_mutation_sampler_inclusive_bins():
     """Mutation convention: uniform over [bp[j-1], bp[j]] inclusive."""
     K, step = 400, 1000
